@@ -1,0 +1,480 @@
+"""aiohttp application: OpenAI-compatible endpoints over the port's
+single-stream engine.
+
+Port of the JAX package's ``pie_tpu/server/app.py``: the same handlers,
+wire schemas and error mapping. Engine calls run in a worker thread behind
+a lock (the engine is single-stream). The batching engine (BATCHING=1) and
+checkpoint loading (MODEL_PATH) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+from typing import Any, Optional
+
+from aiohttp import web
+
+from pie_tpu_torch.engine.engine import InferenceEngine, InferenceError
+from pie_tpu_torch.server import schemas as S
+from pie_tpu_torch.server.config import Settings, get_settings
+from pie_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+ENGINE_KEY = web.AppKey("engine", object)
+LOCK_KEY = web.AppKey("engine_lock", asyncio.Lock)
+
+
+def _err(status: int, message: str, etype: str = "invalid_request_error"):
+    return web.json_response(
+        S.ErrorResponse(error=S.ErrorBody(message=message, type=etype)).model_dump(),
+        status=status,
+    )
+
+
+def _gen_kwargs(req) -> dict[str, Any]:
+    """Map wire params -> engine kwargs (reference chat.py:60-77)."""
+    kw: dict[str, Any] = {}
+    if req.temperature is not None:
+        kw["temperature"] = req.temperature
+    if req.top_p is not None:
+        kw["top_p"] = req.top_p
+    if getattr(req, "top_k", None) is not None:
+        kw["top_k"] = req.top_k
+    if getattr(req, "min_p", None) is not None:
+        kw["min_p"] = req.min_p
+    if getattr(req, "presence_penalty", None):
+        kw["presence_penalty"] = req.presence_penalty
+    if getattr(req, "frequency_penalty", None):
+        kw["frequency_penalty"] = req.frequency_penalty
+    if getattr(req, "repetition_penalty", None):
+        kw["repetition_penalty"] = req.repetition_penalty
+    # non-standard extensions the reference stubbed (samplers/xtc.py,
+    # samplers/dry.py are 0-byte placeholders there)
+    if getattr(req, "xtc_probability", None):
+        kw["xtc_probability"] = req.xtc_probability
+    if getattr(req, "xtc_threshold", None) is not None:
+        kw["xtc_threshold"] = req.xtc_threshold
+    if getattr(req, "dry_multiplier", None):
+        kw["dry_multiplier"] = req.dry_multiplier
+    if getattr(req, "dry_base", None) is not None:
+        kw["dry_base"] = req.dry_base
+    if getattr(req, "dry_allowed_length", None) is not None:
+        kw["dry_allowed_length"] = req.dry_allowed_length
+    if getattr(req, "logit_bias", None):
+        kw["logit_bias"] = {int(k): v for k, v in req.logit_bias.items()}
+    return kw
+
+
+async def _run_blocking(app, fn, *args, **kwargs):
+    async with app[LOCK_KEY]:
+        return await asyncio.get_event_loop().run_in_executor(
+            None, lambda: fn(*args, **kwargs)
+        )
+
+
+# -- chat -------------------------------------------------------------------
+
+
+async def handle_chat(request: web.Request) -> web.StreamResponse:
+    app = request.app
+    engine: InferenceEngine = app[ENGINE_KEY]
+    try:
+        req = S.ChatCompletionRequest.model_validate(await request.json())
+    except Exception as e:
+        return _err(422, f"invalid request: {e}")
+    # n>1 degrades to one choice on the single-stream engine
+    kw = _gen_kwargs(req)
+    max_tokens = req.max_completion_tokens or req.max_tokens or 1024
+    tools = [t.model_dump() for t in req.tools] if req.tools else None
+    tool_choice = req.tool_choice
+    if isinstance(tool_choice, S.NamedToolChoice):
+        tool_choice = tool_choice.model_dump()
+    if tool_choice == "none":
+        tools = None
+        tool_choice = "auto"
+    interactions = [
+        {
+            "role": "user" if m.role == "developer" else m.role,
+            "text": m.text(),
+            "images": m.images(),
+        }
+        for m in req.messages
+    ]
+    response_format = (
+        req.response_format.model_dump() if req.response_format else None
+    )
+
+    if not req.stream:
+        from pie_tpu_torch.utils.metrics import Timer, get_metrics
+
+        timer = Timer()
+        chat_kwargs = dict(
+            tools=tools, response_format=response_format,
+            tool_choice=tool_choice or "auto",
+            parallel_tool_calls=bool(req.parallel_tool_calls),
+            stop=req.stop, max_completion_tokens=max_tokens,
+            logprobs=bool(req.logprobs), reasoning=bool(req.reasoning),
+            **kw,
+        )
+
+        try:
+            inter = await _run_blocking(
+                app, engine.chat, interactions, **chat_kwargs
+            )
+        except (InferenceError, ValueError) as e:
+            get_metrics().record_request(0, 0, None, timer.elapsed, error=True)
+            return _err(400, str(e))
+        get_metrics().record_request(
+            inter.prompt_tokens, inter.completion_tokens, None, timer.elapsed
+        )
+        resp = _chat_response(engine, req, inter)
+        return web.json_response(resp.model_dump(exclude_none=True))
+
+    # -- SSE streaming (reference chat.py:160-249) --
+    resp = web.StreamResponse(
+        status=200,
+        headers={
+            "Content-Type": "text/event-stream",
+            "Cache-Control": "no-cache",
+            "Connection": "keep-alive",
+        },
+    )
+    await resp.prepare(request)
+    chat_id = S._id("chatcmpl")
+
+    async def send(obj):
+        await resp.write(f"data: {json.dumps(obj)}\n\n".encode())
+
+    # role-first chunk
+    await send(
+        S.ChatCompletionChunk(
+            id=chat_id, model=req.model,
+            choices=[S.ChunkChoice(delta=S.ChunkDelta(role="assistant"))],
+        ).model_dump(exclude_none=True)
+    )
+
+    loop = asyncio.get_event_loop()
+    queue: asyncio.Queue = asyncio.Queue()
+
+    def producer():
+        try:
+            gen = engine.chat_stream(
+                interactions, tools=tools, response_format=response_format,
+                tool_choice=tool_choice or "auto",
+                parallel_tool_calls=bool(req.parallel_tool_calls),
+                stop=req.stop, max_completion_tokens=max_tokens,
+                logprobs=bool(req.logprobs),
+                reasoning=bool(req.reasoning), **kw,
+            )
+            while True:
+                try:
+                    delta = next(gen)
+                    loop.call_soon_threadsafe(queue.put_nowait, ("delta", delta))
+                except StopIteration as e:
+                    loop.call_soon_threadsafe(queue.put_nowait, ("done", e.value))
+                    return
+        except Exception as e:  # pragma: no cover
+            loop.call_soon_threadsafe(queue.put_nowait, ("error", e))
+
+    async with app[LOCK_KEY]:
+        fut = loop.run_in_executor(None, producer)
+        inter = None
+        while True:
+            kind, payload = await queue.get()
+            if kind == "delta":
+                if payload.text:
+                    await send(
+                        S.ChatCompletionChunk(
+                            id=chat_id, model=req.model,
+                            choices=[S.ChunkChoice(
+                                delta=S.ChunkDelta(content=payload.text)
+                            )],
+                        ).model_dump(exclude_none=True)
+                    )
+            elif kind == "done":
+                inter = payload
+                break
+            else:
+                await send({"error": {"message": str(payload)}})
+                break
+        await fut
+
+    if inter is not None:
+        final = S.ChatCompletionChunk(
+            id=chat_id, model=req.model,
+            choices=[S.ChunkChoice(
+                delta=S.ChunkDelta(), finish_reason=inter.finish_reason
+            )],
+        )
+        await send(final.model_dump(exclude_none=True))
+        if req.stream_options and req.stream_options.include_usage:
+            usage = S.Usage(
+                prompt_tokens=inter.prompt_tokens,
+                completion_tokens=inter.completion_tokens,
+                total_tokens=inter.prompt_tokens + inter.completion_tokens,
+            )
+            await send(
+                S.ChatCompletionChunk(
+                    id=chat_id, model=req.model, choices=[], usage=usage
+                ).model_dump(exclude_none=True)
+            )
+    await resp.write(b"data: [DONE]\n\n")
+    await resp.write_eof()
+    return resp
+
+
+def _chat_response(engine, req, inter) -> S.ChatCompletionResponse:
+    tool_calls = None
+    content: Optional[str] = None
+    if inter.tool_calls:
+        tool_calls = [
+            S.ChatToolCall(function={
+                "name": c["name"],
+                "arguments": json.dumps(c["arguments"])
+                if not isinstance(c["arguments"], str) else c["arguments"],
+            })
+            for c in inter.tool_calls
+        ]
+    else:
+        content = inter.text
+    logprobs_out = None
+    if req.logprobs and inter.metadata.get("logprobs"):
+        tok = engine.tokenizer
+        entries = []
+        k = req.top_logprobs or 0
+        for tl in inter.metadata["logprobs"]:
+            token_str = tok.decode([tl.token_id]) if tok else str(tl.token_id)
+            entries.append(
+                S.TokenLogprobOut(
+                    token=token_str,
+                    logprob=tl.logprob,
+                    bytes=list(token_str.encode()),
+                    top_logprobs=[
+                        S.TopLogprobEntry(
+                            token=(tok.decode([tid]) if tok else str(tid)),
+                            logprob=lp,
+                            bytes=list(
+                                (tok.decode([tid]) if tok else str(tid)).encode()
+                            ),
+                        )
+                        for tid, lp in tl.top[:k]
+                    ],
+                )
+            )
+        logprobs_out = S.ChoiceLogprobs(content=entries)
+    usage = S.Usage(
+        prompt_tokens=inter.prompt_tokens,
+        completion_tokens=inter.completion_tokens,
+        total_tokens=inter.prompt_tokens + inter.completion_tokens,
+    )
+    return S.ChatCompletionResponse(
+        model=req.model,
+        choices=[S.ChatChoice(
+            message=S.ChatResponseMessage(
+                content=content, tool_calls=tool_calls,
+                reasoning_content=inter.metadata.get("reasoning_content"),
+            ),
+            finish_reason=inter.finish_reason,
+            logprobs=logprobs_out,
+        )],
+        usage=usage,
+    )
+
+
+# -- completions ------------------------------------------------------------
+
+
+async def handle_completions(request: web.Request) -> web.Response:
+    app = request.app
+    engine: InferenceEngine = app[ENGINE_KEY]
+    try:
+        req = S.CompletionRequest.model_validate(await request.json())
+    except Exception as e:
+        return _err(422, f"invalid request: {e}")
+    if req.stream:
+        return _err(501, "streaming is not supported on /v1/completions")
+    # n>1 / best_of degraded to n=1 (reference completions.py:47-53)
+    kw = _gen_kwargs(req)
+    prompts = req.prompt if isinstance(req.prompt, list) else [req.prompt]
+    if prompts and isinstance(prompts[0], int):
+        prompt_ids = list(prompts)  # token-id prompt
+        prompt_text = None
+    else:
+        prompt_text = str(prompts[0])
+        if engine.tokenizer is None:
+            return _err(400, "no tokenizer loaded")
+        prompt_ids = engine.tokenizer.encode(prompt_text, add_bos=True)
+    stops = [req.stop] if isinstance(req.stop, str) else list(req.stop or [])
+    try:
+        res = await _run_blocking(
+            app, engine.generate, prompt_ids,
+            max_completion_tokens=req.max_tokens or 16,
+            stop_token_ids=engine.tokenizer.stop_tokens if engine.tokenizer else (),
+            logprobs=req.logprobs is not None,
+            **kw,
+        )
+    except (InferenceError, ValueError) as e:
+        return _err(400, str(e))
+    tok = engine.tokenizer
+    text = tok.decode(res.token_ids, skip_special_tokens=True) if tok else ""
+    finish = res.finish_reason
+    for s in stops:
+        i = text.find(s)
+        if i != -1:
+            text, finish = text[:i], "stop"
+            break
+    if req.echo and prompt_text is not None:
+        text = prompt_text + text
+    lp = None
+    if req.logprobs is not None and res.logprobs:
+        k = min(req.logprobs, len(res.logprobs[0].top) if res.logprobs else 0)
+        toks, tlps, tops, offs = [], [], [], []
+        off = 0
+        for tl in res.logprobs:
+            ts = tok.decode([tl.token_id]) if tok else str(tl.token_id)
+            toks.append(ts)
+            tlps.append(tl.logprob)
+            tops.append({
+                (tok.decode([tid]) if tok else str(tid)): v
+                for tid, v in tl.top[:k]
+            })
+            offs.append(off)
+            off += len(ts)
+        lp = S.CompletionLogprobs(
+            tokens=toks, token_logprobs=tlps, top_logprobs=tops, text_offset=offs
+        )
+    usage = S.Usage(
+        prompt_tokens=res.prompt_tokens,
+        completion_tokens=res.completion_tokens,
+        total_tokens=res.prompt_tokens + res.completion_tokens,
+    )
+    return web.json_response(
+        S.CompletionResponse(
+            model=req.model,
+            choices=[S.CompletionChoice(text=text, finish_reason=finish, logprobs=lp)],
+            usage=usage,
+        ).model_dump(exclude_none=True)
+    )
+
+
+# -- responses --------------------------------------------------------------
+
+
+async def handle_responses(request: web.Request) -> web.Response:
+    app = request.app
+    engine: InferenceEngine = app[ENGINE_KEY]
+    try:
+        req = S.ResponsesRequest.model_validate(await request.json())
+    except Exception as e:
+        return _err(422, f"invalid request: {e}")
+    interactions = []
+    if req.instructions:
+        interactions.append({"role": "system", "text": req.instructions})
+    if isinstance(req.input, str):
+        interactions.append({"role": "user", "text": req.input})
+    else:
+        for item in req.input:
+            role = item.get("role", "user")
+            content = item.get("content", "")
+            if isinstance(content, list):
+                content = "".join(
+                    p.get("text", "") for p in content
+                    if p.get("type") in ("input_text", "output_text", "text")
+                )
+            interactions.append({"role": role, "text": content})
+    tools = None
+    if req.tools:
+        tools = [
+            {"name": t.get("name"), "description": t.get("description"),
+             "parameters": t.get("parameters")}
+            for t in req.tools if t.get("type") == "function"
+        ]
+    kw = {}
+    if req.temperature is not None:
+        kw["temperature"] = req.temperature
+    if req.top_p is not None:
+        kw["top_p"] = req.top_p
+    try:
+        inter = await _run_blocking(
+            app, engine.chat, interactions, tools=tools,
+            max_completion_tokens=req.max_output_tokens or 1024, **kw,
+        )
+    except (InferenceError, ValueError) as e:
+        return _err(400, str(e))
+    output: list = []
+    if inter.tool_calls:
+        for c in inter.tool_calls:
+            output.append(
+                S.ResponsesFunctionCall(
+                    name=c["name"],
+                    arguments=json.dumps(c["arguments"])
+                    if not isinstance(c["arguments"], str) else c["arguments"],
+                )
+            )
+    else:
+        output.append(
+            S.ResponsesMessage(content=[S.ResponsesOutputText(text=inter.text)])
+        )
+    usage = S.ResponsesUsage(
+        input_tokens=inter.prompt_tokens,
+        output_tokens=inter.completion_tokens,
+        total_tokens=inter.prompt_tokens + inter.completion_tokens,
+    )
+    return web.json_response(
+        S.ResponsesResponse(model=req.model, output=output, usage=usage)
+        .model_dump(exclude_none=True)
+    )
+
+
+async def handle_health(request: web.Request) -> web.Response:
+    return web.json_response({"status": "ok"})
+
+
+async def handle_metrics(request: web.Request) -> web.Response:
+    from pie_tpu_torch.utils.metrics import get_metrics
+
+    return web.Response(
+        text=get_metrics().render(),
+        content_type="text/plain",
+    )
+
+
+def create_app(
+    engine: Optional[InferenceEngine] = None,
+    settings: Optional[Settings] = None,
+    device="cuda",
+) -> web.Application:
+    dev = resolve_device(device)
+    settings = settings or get_settings()
+    logging.basicConfig(level=settings.log_level)
+    if settings.batching:
+        raise NotImplementedError(
+            "BATCHING=1: the continuous-batching engine is not ported yet "
+            "(ROADMAP queue A7)"
+        )
+    if engine is None:
+        if not settings.model_path:
+            raise RuntimeError("MODEL_PATH is not set")
+        raise NotImplementedError(
+            "MODEL_PATH: checkpoint loading is not ported yet (ROADMAP queue A9)"
+        )
+    if engine.device != dev:
+        raise ValueError(f"engine runs on {engine.device}, app asked for {dev}")
+    app = web.Application()
+    app[ENGINE_KEY] = engine
+
+    async def _init_lock(app):
+        # created at startup so the lock binds to the serving event loop;
+        # the single-stream engine serves one request at a time
+        app[LOCK_KEY] = asyncio.Lock()
+
+    app.on_startup.append(_init_lock)
+    app.router.add_post("/v1/chat/completions", handle_chat)
+    app.router.add_post("/v1/completions", handle_completions)
+    app.router.add_post("/v1/responses", handle_responses)
+    app.router.add_get("/health", handle_health)
+    app.router.add_get("/metrics", handle_metrics)
+    return app
