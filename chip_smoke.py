@@ -306,10 +306,30 @@ def phase_engine(card):
         for _ in gen:
             n += 1
         best = max(best, n / (time.perf_counter() - t0))
+    # device busy share over one request (64-token prefill + 32 decoded
+    # tokens) from the profiler's kernel times; the profiler's own host
+    # cost lengthens the wall time, so this idle share is an upper bound
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate([p + 3 for p in prompt], max_completion_tokens=33,
+                        temperature=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(getattr(e, "self_device_time_total", 0) for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    trace = dict(wall_ms=wall * 1e3, device_busy_ms=dev_s * 1e3,
+                 device_idle_share=(1 - dev_s / wall) if dev_s else None,
+                 top_kernels=[(e.key[:60], e.self_device_time_total / 1e3) for e in top])
+
     row = dict(phase="engine", geometry="llama3-8b int4 g64", layers=LAYERS,
                ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
                decode_tok_s=best, k1_per_decoded_token=launches["K1"] / decoded,
-               k2_per_prefill=launches["K2"], launches=launches, card=card)
+               k2_per_prefill=launches["K2"], launches=launches, trace=trace,
+               card=card)
     emit(row)
     return engine, row
 

@@ -15,14 +15,15 @@
 // against one read of the packed weights, hundreds of operations per byte,
 // above the ~295 where the bf16 tensor cores (989 TFLOP/s) become the limit.
 //
-// First design, simple and correct: a 128x128 output tile per block of 8
-// warps, K in steps of 64 rows. Each step stages the x tile (bf16) and
-// dequantizes the 64x128 weight tile from its packed words into a bf16
-// shared-memory tile, then the warps multiply on the tensor cores with
-// nvcuda::wmma (bf16 16x16x16, f32 accumulators; each warp owns 64x32 of the
-// output). Ragged M and N edges are masked on load and store. Not yet done:
-// cp.async/TMA double buffering and wgmma, which the full tensor-core rate
-// needs.
+// First design: a 128x128 output tile per block of 8 warps, K in steps of
+// 64 rows. Each step dequantizes the 64x128 weight tile from its packed
+// words into a bf16 shared-memory tile beside the x tile, and the warps
+// multiply on the tensor cores with nvcuda::wmma (bf16 16x16x16, f32
+// accumulators; each warp owns 64x32 of the output). Two shared-memory
+// stages and a register prefetch overlap the next step's global loads
+// with this step's multiplies (one barrier per step). Ragged M and N edges
+// are masked on load and store. Not yet done: TMA, wgmma and warp
+// specialisation, which the full tensor-core rate needs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +39,9 @@ constexpr int kThreads = 256;
 constexpr int AP = BK + 8;  // padded smem row lengths (bf16 elements)
 constexpr int BP = BN + 8;
 
+constexpr int kSmemBytes =
+    2 * (BM * AP + BK * BP) * 2 + 8 * 16 * 16 * 4;  // two stages + epilogue
+
 template <int BITS>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const __nv_bfloat16* __restrict__ x,       // [M, Kp]
@@ -48,9 +52,12 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     int M, int Kp, int N, int g) {
   constexpr int EP = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
-  __shared__ __align__(128) __nv_bfloat16 As[BM * AP];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * BP];
-  __shared__ __align__(128) float Cs[8 * 16 * 16];
+  constexpr int A_LOADS = BM * BK / 8 / kThreads;    // 16-byte x loads per thread
+  constexpr int W_LOADS = BK / EP / (kThreads / BN);  // packed words per thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BM * AP]
+  __nv_bfloat16* Bs = As + 2 * BM * AP;                        // [2][BK * BP]
+  float* Cs = reinterpret_cast<float*>(Bs + 2 * BK * BP);      // [8][16 * 16]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
@@ -66,52 +73,81 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
   const int gcol = col0 + bn;
   const bool col_ok = gcol < N;
 
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    // x tile [BM, BK]: 8 bf16 per 16-byte load
+  // registers holding the next step's tiles while this step multiplies
+  uint4 ra[A_LOADS];
+  uint32_t rw[W_LOADS];
+  float rs[2], rb[2];  // scale/bias of the step's rows [0, 32) and [32, 64)
+
+  auto load = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < BM * BK / 8 / kThreads; ++i) {
+    for (int i = 0; i < A_LOADS; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * Kp + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * AP + c) = v;
+      ra[i] = row0 + r < M
+                  ? *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * Kp + k0 + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
-    // weight tile [BK, BN]: dequantize each word's codes to bf16
 #pragma unroll
-    for (int j = bj; j < BK / EP; j += kThreads / BN) {
-      const uint32_t w =
-          col_ok ? __ldg(packed + (size_t)(k0 / EP + j) * N + gcol) : 0u;
-      const int k = j * EP;
-      float s = 0.f, b = 0.f;
+    for (int j = 0; j < W_LOADS; ++j)
+      rw[j] = col_ok ? __ldg(packed + (size_t)(k0 / EP + bj + j * (kThreads / BN)) * N + gcol)
+                     : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] = rb[h] = 0.f;
       if (col_ok) {
-        const size_t gi = (size_t)((k0 + k) / g) * N + gcol;
-        s = __bfloat162float(scales[gi]);
-        b = __bfloat162float(biases[gi]);
+        const size_t gi = (size_t)((k0 + h * (BK / 2)) / g) * N + gcol;
+        rs[h] = __bfloat162float(scales[gi]);
+        rb[h] = __bfloat162float(biases[gi]);
       }
+    }
+  };
+
+  auto store = [&](int stage) {
+    __nv_bfloat16* as = As + stage * BM * AP;
+    __nv_bfloat16* bs = Bs + stage * BK * BP;
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
+      *reinterpret_cast<uint4*>(as + r * AP + c) = ra[i];
+    }
+#pragma unroll
+    for (int j = 0; j < W_LOADS; ++j) {
+      const int k = (bj + j * (kThreads / BN)) * EP;  // first tile row of the word
+      const float s = rs[k / (BK / 2)], b = rb[k / (BK / 2)];
 #pragma unroll
       for (int i = 0; i < EP; ++i) {
-        const float q = (float)((w >> (BITS * i)) & MASK);
-        const float v = __fadd_rn(__fmul_rn(q, s), b);
-        Bs[(k + i) * BP + bn] = __float2bfloat16_rn(v);
+        const float q = (float)((rw[j] >> (BITS * i)) & MASK);
+        bs[(k + i) * BP + bn] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(q, s), b));
       }
     }
-    __syncthreads();
+  };
+
+  const int nk = Kp / BK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) * BK);  // global loads in flight ...
+    const __nv_bfloat16* as = As + (kt & 1) * BM * AP;
+    const __nv_bfloat16* bs = Bs + (kt & 1) * BK * BP;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += 16) {  // ... while the tensor cores work
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 64 + i * 16) * AP + kk, AP);
+        wmma::load_matrix_sync(fa[i], as + (wm * 64 + i * 16) * AP + kk, AP);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * BP + wn * 32 + j * 16, BP);
+        wmma::load_matrix_sync(fb[j], bs + kk * BP + wn * 32 + j * 16, BP);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
+    // the other stage was last read before the previous barrier
+    if (kt + 1 < nk) store((kt + 1) & 1);
     __syncthreads();
   }
 
@@ -134,6 +170,26 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
   }
 }
 
+template <int BITS>
+cudaError_t launch(const void* x, const void* packed, const void* scales,
+                   const void* biases, void* y, int M, int Kp, int N, int g,
+                   cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_kernel<BITS><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(packed),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<const __nv_bfloat16*>(biases), static_cast<__nv_bfloat16*>(y),
+      M, Kp, N, g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y[M, N] = x[M, Kp] @ bf16(dequant(W)); returns cudaGetLastError() after
@@ -145,18 +201,8 @@ extern "C" int pie_quant_gemm(const void* x, const void* packed,
   if (M < 1 || N < 1 || Kp % BK != 0 ||
       (group_size != 32 && group_size != 64 && group_size != 128))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* pp = static_cast<const uint32_t*>(packed);
-  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
-  const auto* bp = static_cast<const __nv_bfloat16*>(biases);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
-  if (bits == 4)
-    gemm_kernel<4><<<grid, kThreads, 0, st>>>(xp, pp, sp, bp, yp, M, Kp, N, group_size);
-  else if (bits == 8)
-    gemm_kernel<8><<<grid, kThreads, 0, st>>>(xp, pp, sp, bp, yp, M, Kp, N, group_size);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (bits == 4) return (int)launch<4>(x, packed, scales, biases, y, M, Kp, N, group_size, st);
+  if (bits == 8) return (int)launch<8>(x, packed, scales, biases, y, M, Kp, N, group_size, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -19,11 +19,16 @@
 // Design against that bound:
 // - Storage is natural K-major words ([Kp/ep, N], LSB first): the 32 lanes of
 //   a warp read 32 columns of one word row, 128 contiguous bytes.
-// - A block owns 32 columns and all of K. Its 8 warps split each 512-row
-//   tile of K (64 rows each: split-K inside the block), so a block keeps
-//   8 warps x 8..16 word loads in flight, and the next tile's words are
-//   loaded into registers while the current tile is multiplied. The warps'
-//   partial sums are reduced through shared memory at the end.
+// - A block owns 32 columns and a range of K. Its 8 warps split each
+//   512-row tile of K (64 rows each: split-K inside the block), so a block
+//   keeps 8 warps x 8..16 word loads in flight, and the next tile's words
+//   are loaded into registers while the current tile is multiplied. The
+//   warps' partial sums are reduced through shared memory.
+// - Where N gives too few 32-column blocks to fill the card (wo, wd, wqkv
+//   at the 8B widths), K is also split across blocks (gridDim.y): each
+//   block writes its partial sums to an f32 workspace, and the last block
+//   of a column range to arrive (an atomic counter, reset by that block)
+//   adds them up and runs the epilogue.
 // - The rows of x for the current tile (normalized when the prologue is on)
 //   are staged once per block in shared memory as f32 together with their
 //   32-row sums, so every lane reads x by broadcast and the bias term costs
@@ -82,7 +87,10 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
     const float* __restrict__ cosv,            // [M, N] or null
     const float* __restrict__ sinv,            // [M, N] or null
     __nv_bfloat16* __restrict__ y,             // [M, N]
-    int M, int K, int Kp, int N, int g, int rope_dim, float eps) {
+    float* __restrict__ ws,                    // [gridDim.y, M, N] when split
+    int* __restrict__ counters,                // [gridDim.x], zero between calls
+    int M, int K, int Kp, int N, int g, int rope_dim, float eps,
+    int tiles_per_split) {
   constexpr int EP = 32 / BITS;
   constexpr int WROWS = kRowsPerWarp / EP;  // word rows per warp per tile
   extern __shared__ float4 smem4[];
@@ -96,24 +104,10 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
   const bool col_ok = col < N;
   const int m_cnt = min(MT, M);
 
-  if (lnw != nullptr) {  // prologue: per-row rms statistic over logical K
-    for (int m = warp; m < MT; m += kWarps) {
-      float ss = 0.f;
-      if (m < m_cnt) {
-        const __nv_bfloat16* xr = x + (size_t)m * Kp;
-        for (int k = lane; k < K; k += 32) {
-          const float v = __bfloat162float(xr[k]);
-          ss += v * v;
-        }
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) inv[m] = rsqrtf(ss / (float)K + eps);
-    }
-  }
-
   const int sg = g < kRowsPerWarp ? g : kRowsPerWarp;  // rows per sub-group
   const int nsub = kRowsPerWarp / sg;                  // 1 or 2
-  const int n_tiles = Kp / kTileK;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(Kp / kTileK, t_begin + tiles_per_split);
 
   uint32_t cur[WROWS], nxt[WROWS];
   float cs[2], cb[2], ns[2], nb[2];
@@ -133,13 +127,42 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       }
     }
   };
+  load_tile(t_begin, cur, cs, cb);  // in flight during the prologue
+
+  if (lnw != nullptr) {  // prologue: per-row rms statistic over logical K
+    for (int m = 0; m < m_cnt; ++m) {
+      const __nv_bfloat16* xr = x + (size_t)m * Kp;
+      float ss = 0.f;
+      for (int c = threadIdx.x; c < K / 8; c += kThreads) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float v = __bfloat162float(h[i]);
+          ss += v * v;
+        }
+      }
+      for (int k = K / 8 * 8 + threadIdx.x; k < K; k += kThreads) {
+        const float v = __bfloat162float(xr[k]);
+        ss += v * v;
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) xs[warp * MT + m] = ss;  // x staging area as scratch
+    }
+    __syncthreads();
+    if (threadIdx.x < m_cnt) {
+      float ss = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) ss += xs[w * MT + threadIdx.x];
+      inv[threadIdx.x] = rsqrtf(ss / (float)K + eps);
+    }
+  }
 
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
 
-  load_tile(0, cur, cs, cb);
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     __syncthreads();  // inv ready; previous tile's x reads done
     // stage x (normalized under the prologue) as f32, with 32-row sums
     for (int idx = threadIdx.x; idx < MT * (kTileK / 8); idx += kThreads) {
@@ -170,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       if ((lane & 3) == 0) xsum[m * kSums + c8 / 4] = p;
     }
     __syncthreads();
-    if (t + 1 < n_tiles) load_tile(t + 1, nxt, ns, nb);
+    if (t + 1 < t_end) load_tile(t + 1, nxt, ns, nb);
 
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -216,24 +239,53 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
         acc[m] = fmaf(s, ag[m] - sx, fmaf(b, sx, acc[m]));
       }
     }
-    if (t + 1 < n_tiles) {
+    if (t + 1 < t_end) {
 #pragma unroll
       for (int j = 0; j < WROWS; ++j) cur[j] = nxt[j];
       cs[0] = ns[0]; cs[1] = ns[1]; cb[0] = nb[0]; cb[1] = nb[1];
     }
   }
 
-  // split-K reduction across the block's warps, then the epilogue
+  // split-K reduction across the block's warps
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < MT; ++m) red[(warp * MT + m) * 32 + lane] = acc[m];
   __syncthreads();
+  const int splits = gridDim.y;
+  if (splits > 1) {  // partial sums of this K range -> workspace
+    for (int m = warp; m < m_cnt; m += kWarps) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[(w * MT + m) * 32 + lane];
+      if (col_ok) ws[((size_t)blockIdx.y * M + m) * N + col] = v;
+    }
+    __threadfence();
+    __syncthreads();
+    __shared__ int last;
+    if (threadIdx.x == 0) {
+      last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+      if (last) counters[blockIdx.x] = 0;  // ready for the next call
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+  }
+  // epilogue: rope rotation with the partner lane's column, bf16 output
+  const int pcol = column_of(blockIdx.x, lane ^ 16, rope_dim);
   for (int m = warp; m < m_cnt; m += kWarps) {
     float v = 0.f, vp = 0.f;
+    if (splits > 1) {
+      for (int sp = 0; sp < splits; ++sp) {
+        const float* part = ws + (size_t)sp * M * N + (size_t)m * N;
+        if (col_ok) v += __ldcg(part + col);
+        if (rope_dim != 0 && pcol < N) vp += __ldcg(part + pcol);
+      }
+    } else {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      v += red[(w * MT + m) * 32 + lane];
-      vp += red[(w * MT + m) * 32 + (lane ^ 16)];
+      for (int w = 0; w < kWarps; ++w) {
+        v += red[(w * MT + m) * 32 + lane];
+        vp += red[(w * MT + m) * 32 + (lane ^ 16)];
+      }
     }
     if (!col_ok) continue;
     const size_t o = (size_t)m * N + col;
@@ -245,8 +297,9 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
 template <int BITS, int MT>
 cudaError_t launch(const void* x, const void* packed, const void* scales,
                    const void* biases, const void* lnw, const void* cosv,
-                   const void* sinv, void* y, int M, int K, int Kp, int N,
-                   int g, int rope_dim, float eps, cudaStream_t stream) {
+                   const void* sinv, void* y, void* ws, void* counters,
+                   int splits, int M, int K, int Kp, int N, int g,
+                   int rope_dim, float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (MT * kTileK + MT * kSums + MT);
   static bool attr_set = false;
   if (!attr_set) {
@@ -256,26 +309,30 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const int blocks = rope_dim ? N / 32 : (N + 31) / 32;
-  gemv_kernel<BITS, MT><<<blocks, kThreads, smem, stream>>>(
+  const int n_tiles = Kp / kTileK;
+  const int per_split = (n_tiles + splits - 1) / splits;
+  const dim3 grid(rope_dim ? N / 32 : (N + 31) / 32, (n_tiles + per_split - 1) / per_split);
+  gemv_kernel<BITS, MT><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(packed),
       static_cast<const __nv_bfloat16*>(scales),
       static_cast<const __nv_bfloat16*>(biases),
       static_cast<const __nv_bfloat16*>(lnw), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(y), M, K,
-      Kp, N, g, rope_dim, eps);
+      static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(ws), static_cast<int*>(counters), M, K, Kp, N, g,
+      rope_dim, eps, per_split);
   return cudaGetLastError();
 }
 
 template <int BITS>
 cudaError_t dispatch_rows(const void* x, const void* packed, const void* scales,
                           const void* biases, const void* lnw, const void* cosv,
-                          const void* sinv, void* y, int M, int K, int Kp, int N,
-                          int g, int rope_dim, float eps, cudaStream_t st) {
+                          const void* sinv, void* y, void* ws, void* counters,
+                          int splits, int M, int K, int Kp, int N, int g,
+                          int rope_dim, float eps, cudaStream_t st) {
 #define PIE_GEMV_ROWS(MT)                                                     \
   if (M <= MT)                                                                \
-    return launch<BITS, MT>(x, packed, scales, biases, lnw, cosv, sinv, y, M, \
-                            K, Kp, N, g, rope_dim, eps, st);
+    return launch<BITS, MT>(x, packed, scales, biases, lnw, cosv, sinv, y, ws, \
+                            counters, splits, M, K, Kp, N, g, rope_dim, eps, st);
   PIE_GEMV_ROWS(1)
   PIE_GEMV_ROWS(2)
   PIE_GEMV_ROWS(4)
@@ -288,15 +345,20 @@ cudaError_t dispatch_rows(const void* x, const void* packed, const void* scales,
 
 }  // namespace
 
-// y[M, N] = xh[M, Kp] @ dequant(W); returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments the kernel does not take).
+// y[M, N] = xh[M, Kp] @ dequant(W), K split over `splits` blocks per
+// column range (ws: [splits, M, N] f32 scratch and counters: one zeroed int
+// per column block, both needed only when splits > 1); returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
 extern "C" int pie_quant_gemv(const void* x, const void* packed,
                               const void* scales, const void* biases,
                               const void* lnw, const void* cosv,
-                              const void* sinv, void* y, int M, int K, int Kp,
+                              const void* sinv, void* y, void* ws,
+                              void* counters, int splits, int M, int K, int Kp,
                               int N, int bits, int group_size, int rope_dim,
                               float eps, void* stream) {
-  if (M < 1 || M > 32 || Kp % kTileK != 0 || K > Kp ||
+  if (M < 1 || M > 32 || Kp % kTileK != 0 || K > Kp || splits < 1 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
       (group_size != 32 && group_size != 64 && group_size != 128) ||
       (rope_dim != 0 && (rope_dim % 32 != 0 || N % rope_dim != 0)) ||
       ((rope_dim != 0) != (cosv != nullptr)))
@@ -304,9 +366,11 @@ extern "C" int pie_quant_gemv(const void* x, const void* packed,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits == 4)
     return (int)dispatch_rows<4>(x, packed, scales, biases, lnw, cosv, sinv, y,
-                                 M, K, Kp, N, group_size, rope_dim, eps, st);
+                                 ws, counters, splits, M, K, Kp, N, group_size,
+                                 rope_dim, eps, st);
   if (bits == 8)
     return (int)dispatch_rows<8>(x, packed, scales, biases, lnw, cosv, sinv, y,
-                                 M, K, Kp, N, group_size, rope_dim, eps, st);
+                                 ws, counters, splits, M, K, Kp, N, group_size,
+                                 rope_dim, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,7 @@ from pie_tpu_torch.ops.sampling import (
     SamplingParams,
     apply_logit_bias,
     dry_penalty,
+    log_softmax,
     presence_frequency_penalty,
     repetition_penalty,
     sample,
@@ -27,9 +28,6 @@ from pie_tpu_torch.ops.sampling import (
 )
 
 PAD_TOKEN = -1
-
-_PENALTY_FIELDS = ("repetition", "presence", "frequency",
-                   "dry_multiplier", "dry_base", "dry_allowed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +67,6 @@ class PenaltyParams:
                                    device=device),
         )
 
-    def at(self, idx: int, **kw) -> "PenaltyParams":
-        out = {}
-        for f in _PENALTY_FIELDS:
-            v = getattr(self, f)
-            if f in kw:
-                v = v.clone()
-                v[idx] = kw[f]
-            out[f] = v
-        return PenaltyParams(**out)
-
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
@@ -95,6 +83,9 @@ class DecodeState:
 class EngineCore:
     """Prefill/decode for one model + fixed batch geometry on one device."""
 
+    #: recent tokens kept for the repetition / presence / DRY penalties
+    history_len = 64
+
     def __init__(
         self,
         model,
@@ -103,8 +94,6 @@ class EngineCore:
         max_seq_len: int = 2048,
         kv_dtype=torch.bfloat16,
         kv_quantized: bool = False,
-        kv_window: Optional[int] = None,
-        history_len: int = 64,
         logprobs_k: int = 8,
         device="cpu",
     ):
@@ -114,8 +103,6 @@ class EngineCore:
         self.max_seq_len = max_seq_len
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
-        self.kv_window = kv_window
-        self.history_len = history_len
         self.logprobs_k = logprobs_k
         self.device = torch.device(device)
 
@@ -124,8 +111,8 @@ class EngineCore:
         cache = make_kv_cache(
             cfg.num_hidden_layers, self.batch_size, self.max_seq_len,
             cfg.num_key_value_heads, cfg.resolved_head_dim,
-            dtype=self.kv_dtype, window=self.kv_window,
-            quantized=self.kv_quantized, device=self.device,
+            dtype=self.kv_dtype, quantized=self.kv_quantized,
+            device=self.device,
         )
         b, dev = self.batch_size, self.device
         return DecodeState(
@@ -161,7 +148,7 @@ class EngineCore:
         return torch.cat([history[:, 1:], new[:, None]], dim=1)
 
     def _logprobs(self, proc, token):
-        lp = torch.log_softmax(proc, dim=-1)
+        lp = log_softmax(proc)
         chosen = torch.gather(lp, 1, token[:, None].long())[:, 0]
         tv, ti = top_logprobs(lp, self.logprobs_k)
         return chosen, tv, ti

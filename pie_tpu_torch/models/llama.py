@@ -449,8 +449,3 @@ class LlamaModel:
         else:
             logits = self.unembed(params, rms_norm(h, params["norm"], eps))
         return logits.to(torch.float32), cache
-
-    def make_cache_shape(self, batch: int, max_len: int) -> tuple:
-        cfg = self.config
-        return (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-                cfg.resolved_head_dim)

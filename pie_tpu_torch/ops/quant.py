@@ -60,17 +60,6 @@ class QuantizedTensor:
     def stacked(self) -> bool:
         return self.packed.dim() == 3
 
-    @property
-    def device(self) -> torch.device:
-        return self.packed.device
-
-    @property
-    def mem_bytes(self) -> int:
-        return (
-            self.packed.numel() * 4
-            + self.scales.numel() * self.scales.element_size() * 2
-        )
-
     def layer(self, i: int) -> "QuantizedTensor":
         """Layer ``i`` of a stacked tensor as views (no copy)."""
         return dataclasses.replace(

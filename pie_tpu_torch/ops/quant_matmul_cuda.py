@@ -9,13 +9,14 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
   streams the packed weights once with the exact affine dequantization,
   an optional rms-norm prologue and an optional rope epilogue. Bound by
   bytes: packed words plus scales and biases over 3.35 TB/s. Its first
-  design splits K across the 8 warps of a block, stages x in shared
-  memory, and turns codes into floats with one shift and one logic op.
+  design splits K across the 8 warps of a block (and across blocks where
+  N is narrow), stages x in shared memory, and turns codes into floats
+  with one shift and one logic op.
 - **K2** (``csrc/quant_gemm.cu``, M > 32, the prefill branch): a tiled GEMM
   that dequantizes each 64x128 weight tile to bf16 in shared memory and
   multiplies on the tensor cores with ``wmma``. Bound by operations:
-  2*M*K*N over 989 TFLOP/s bf16. Its first design is synchronous (no
-  copy pipelining yet).
+  2*M*K*N over 989 TFLOP/s bf16. Its first design double-buffers the
+  tiles through registers; no TMA or ``wgmma`` yet.
 
 Both are compiled with nvcc for ``sm_90a`` at first use into
 ``build/pie_tpu_torch/<hash of the sources>/`` and bound through ctypes.
@@ -37,6 +38,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -58,8 +60,26 @@ NVCC_FLAGS = (
 #: kernel launches since the last reset, by kernel name
 launch_counts = {"K1": 0, "K2": 0}
 
+#: K1 splits K across blocks until about this many blocks are in flight
+#: (4 per SM of an H100)
+GEMV_TARGET_BLOCKS = 4 * 132
+_GEMV_TILE_K = 512
+
 _libs: dict = {}
 _lock = threading.Lock()
+_counters: dict = {}  # per device: K1's zeroed arrival counters
+# tensors already checked, so a decode step pays no per-call checks, keyed
+# by id() with a weak reference that confirms the entry is still that tensor
+_checked: dict = {}
+
+
+def _seen(t: torch.Tensor):
+    entry = _checked.get(id(t))
+    return entry[1] if entry is not None and entry[0]() is t else None
+
+
+def _remember(t: torch.Tensor, info) -> None:
+    _checked[id(t)] = (weakref.ref(t), info)
 
 
 def reset_counts() -> None:
@@ -126,7 +146,7 @@ def _lib(name: str):
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             if name == "gemv":
                 fn = lib.pie_quant_gemv
-                fn.argtypes = [vp] * 8 + [ci] * 7 + [cf, vp]
+                fn.argtypes = [vp] * 10 + [ci] * 8 + [cf, vp]
             else:
                 fn = lib.pie_quant_gemm
                 fn.argtypes = [vp] * 5 + [ci] * 5 + [vp]
@@ -200,16 +220,50 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _weights(qt: QuantizedTensor, layer, device):
-    """Layer views (pointer offsets into the stacked arrays, no copy)."""
-    q = _layer_view(qt, layer)
-    kp, n = q.padded_k, q.shape[1]
-    _check(q.packed, "packed", torch.int32, (kp // q.el_per_int, n))
-    _check(q.scales, "scales", torch.bfloat16, (kp // q.group_size, n))
-    _check(q.biases, "biases", torch.bfloat16, (kp // q.group_size, n))
-    if q.packed.device != device:
-        raise ValueError(f"weights on {q.packed.device}, x on {device}")
-    return q
+def _weight_ptrs(qt: QuantizedTensor, layer, device) -> tuple[int, int, int]:
+    """Device pointers of layer ``layer``'s packed words, scales and biases:
+    offsets into the stacked arrays (no copy). The tensors are checked once
+    and remembered."""
+    seen = _seen(qt.packed)
+    if seen is None or seen[0]() is not qt.scales or seen[1]() is not qt.biases:
+        lead = tuple(qt.packed.shape[:-2])
+        kp, n = qt.padded_k, qt.shape[1]
+        _check(qt.packed, "packed", torch.int32, lead + (kp // qt.el_per_int, n))
+        _check(qt.scales, "scales", torch.bfloat16, lead + (kp // qt.group_size, n))
+        _check(qt.biases, "biases", torch.bfloat16, lead + (kp // qt.group_size, n))
+        strides = tuple(t.stride(0) * t.element_size() if lead else 0
+                        for t in (qt.packed, qt.scales))
+        if any(st % 16 for st in strides):
+            raise ValueError("layer strides must be 16-byte multiples")
+        seen = (weakref.ref(qt.scales), weakref.ref(qt.biases), strides)
+        _remember(qt.packed, seen)
+    if qt.packed.device != device:
+        raise ValueError(f"weights on {qt.packed.device}, x on {device}")
+    i = int(layer) if qt.stacked else 0
+    if qt.stacked and not 0 <= i < qt.packed.shape[0]:
+        raise IndexError(f"layer {i} of {qt.packed.shape[0]}")
+    ps, ss = seen[2]
+    return (qt.packed.data_ptr() + i * ps, qt.scales.data_ptr() + i * ss,
+            qt.biases.data_ptr() + i * ss)
+
+
+def _ln_ptr(ln_w, layer, qt: QuantizedTensor) -> Optional[int]:
+    """Device pointer of the ln weight row for ``layer`` (checked once)."""
+    if ln_w is None:
+        return None
+    row = qt.stacked and ln_w.dim() == 2
+    stride = _seen(ln_w)
+    if stride is None:
+        k = qt.shape[0]
+        _check(ln_w, "ln_w", torch.bfloat16,
+               (ln_w.shape[0], k) if row else (k,))
+        stride = ln_w.stride(0) * ln_w.element_size() if row else 0
+        if stride % 16:
+            raise ValueError("ln_w rows must be 16-byte aligned")
+        _remember(ln_w, stride)
+    if row and not 0 <= int(layer) < ln_w.shape[0]:
+        raise IndexError(f"ln_w row {int(layer)} of {ln_w.shape[0]}")
+    return ln_w.data_ptr() + (int(layer) * stride if row else 0)
 
 
 def _x_padded(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -221,6 +275,15 @@ def _x_padded(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return xm.contiguous()
 
 
+def gemv_splits(n: int, padded_k: int) -> int:
+    """Blocks per 32-column range of K1: split K until the grid has about
+    GEMV_TARGET_BLOCKS blocks, each keeping whole 512-row tiles."""
+    tiles = padded_k // _GEMV_TILE_K
+    want = min(tiles, max(1, -(-GEMV_TARGET_BLOCKS // -(-n // 32))))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
 def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
                ln_eps=0.0) -> torch.Tensor:
     """K1: ``y = [rms_norm(x)*ln_w] @ dequant(W[layer])`` (+ rope), M <= 32.
@@ -230,10 +293,8 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
     if not 1 <= m <= DECODE_MAX_M:
         raise ValueError(f"K1 takes 1..{DECODE_MAX_M} rows, got {m}")
     _check(xm, "x", torch.bfloat16)
-    q = _weights(qt, layer, xm.device)
-    lw = _ln_row(ln_w, layer, qt.stacked)
-    if lw is not None:
-        _check(lw, "ln_w", torch.bfloat16, (qt.shape[0],))
+    wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
+    lw = _ln_ptr(ln_w, layer, qt)
     cos = sin = None
     if rope_dim:
         if rope_dim % 32 or n % rope_dim:
@@ -242,10 +303,18 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
         _check(cos, "cos", torch.float32, (m, n))
         _check(sin, "sin", torch.float32, (m, n))
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
+    splits = gemv_splits(n, qt.padded_k)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=xm.device)
+        counters = _counters.get(xm.device)
+        if counters is None:
+            counters = torch.zeros(4096, dtype=torch.int32, device=xm.device)
+            _counters[xm.device] = counters
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib("gemv")(
-        xm.data_ptr(), q.packed.data_ptr(), q.scales.data_ptr(),
-        q.biases.data_ptr(), ptr(lw), ptr(cos), ptr(sin), y.data_ptr(),
+        xm.data_ptr(), wp, sp, bp, lw, ptr(cos), ptr(sin), y.data_ptr(),
+        ptr(ws), ptr(counters), splits,
         m, qt.shape[0], qt.padded_k, n, qt.bits, qt.group_size,
         int(rope_dim), float(ln_eps), torch.cuda.current_stream().cuda_stream,
     )
@@ -261,11 +330,10 @@ def quant_gemm(x, qt, layer=None) -> torch.Tensor:
     xm = _x_padded(x, qt)
     m, n = xm.shape[0], qt.shape[1]
     _check(xm, "x", torch.bfloat16)
-    q = _weights(qt, layer, xm.device)
+    wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
     err = _lib("gemm")(
-        xm.data_ptr(), q.packed.data_ptr(), q.scales.data_ptr(),
-        q.biases.data_ptr(), y.data_ptr(), m, qt.padded_k, n, qt.bits,
+        xm.data_ptr(), wp, sp, bp, y.data_ptr(), m, qt.padded_k, n, qt.bits,
         qt.group_size, torch.cuda.current_stream().cuda_stream,
     )
     if err:

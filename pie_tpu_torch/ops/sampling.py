@@ -18,9 +18,6 @@ import torch
 
 NEG_INF = -1e30
 
-_FIELDS = ("temperature", "top_p", "min_p", "top_k",
-           "xtc_probability", "xtc_threshold")
-
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
@@ -55,17 +52,6 @@ class SamplingParams:
             xtc_probability=full(xtc_probability, torch.float32),
             xtc_threshold=full(xtc_threshold, torch.float32),
         )
-
-    def at(self, idx: int, **kw) -> "SamplingParams":
-        """Copy with sequence ``idx``'s params replaced."""
-        out = {}
-        for f in _FIELDS:
-            v = getattr(self, f)
-            if f in kw:
-                v = v.clone()
-                v[idx] = kw[f]
-            out[f] = v
-        return SamplingParams(**out)
 
 
 def _uniform(shape, logits: torch.Tensor, gen) -> torch.Tensor:

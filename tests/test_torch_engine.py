@@ -23,6 +23,16 @@ from test_torch_llama import jax_to_np, small_config
 PROMPT = np.random.default_rng(0).integers(0, 512, 10).tolist()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes at once: two intra-op threads
+    each keep them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(weights: str):
     """A JAX engine and a port engine (CPU) on the same tiny weights.
 

@@ -18,6 +18,16 @@ from pie_tpu_torch.cache.kv_cache import make_kv_cache
 from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, from_jax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes at once: two intra-op threads
+    each keep them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_config(hidden, heads, kv_heads, tied=False, **extra):
     return dict(
         model_type="llama", hidden_size=hidden, intermediate_size=2 * hidden,

@@ -20,6 +20,16 @@ from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 from pie_tpu_torch.ops.rope import rope_qkv_cs as t_rope_qkv_cs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes at once: two intra-op threads
+    each keep them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_qt(qt):
     """JAX QuantizedTensor -> the dict form ``from_jax_params`` takes."""
     return dict(packed=np.asarray(qt.packed), scales=np.asarray(qt.scales),

@@ -21,6 +21,16 @@ from pie_tpu_torch.server.config import Settings
 from pie_tpu_torch.tokenizer import Tokenizer
 from pie_tpu_torch.tokenizer.control_tokens import LLAMA3
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes at once: two intra-op threads
+    each keep them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 TINY = dict(
     hidden_size=64,
     intermediate_size=128,
