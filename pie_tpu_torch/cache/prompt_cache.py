@@ -12,7 +12,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import logging
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -20,8 +19,6 @@ import numpy as np
 import torch
 
 from pie_tpu_torch.cache.kv_cache import KVCache, QuantizedKVCache
-
-logger = logging.getLogger(__name__)
 
 _CACHE_CLASSES = {"KVCache": KVCache, "QuantizedKVCache": QuantizedKVCache}
 
@@ -51,9 +48,6 @@ class PromptCache:
 
     def update(self, ids: Sequence[int]):
         self.computed_ids = list(ids)
-
-    def reset(self):
-        self.computed_ids = []
 
     @staticmethod
     def prompt_hash(ids: Sequence[int]) -> str:

@@ -126,6 +126,33 @@ def test_prompt_cache_prefix_hit_matches_jax(engines):
                          temperature=0.0).token_ids == t.token_ids
 
 
+def test_disk_prompt_cache_restores_kv(engines, tmp_path):
+    """cache_prompt persists the prompt's KV; a new engine on the same
+    directory restores it, prefills one token, and decodes as a cold
+    engine does."""
+    te = engines[1]
+    kw = dict(model=te.model, params=te.params, max_seq_len=128,
+              decode_chunk=8, kv_dtype=torch.float32, device="cpu")
+    path = InferenceEngine(prompt_cache_dir=tmp_path, **kw).cache_prompt(PROMPT)
+    assert path.exists()
+    warm = InferenceEngine(prompt_cache_dir=tmp_path, **kw)
+    got = warm.generate(PROMPT, max_completion_tokens=8, temperature=0.0)
+    cold = InferenceEngine(prompt_cache=False, **kw).generate(
+        PROMPT, max_completion_tokens=8, temperature=0.0)
+    assert got.token_ids == cold.token_ids
+
+
+def test_kv_quantize_threshold_matches_jax():
+    """Past the threshold both engines move the KV cache to INT8 and keep
+    decoding the same greedy stream."""
+    je, te = _pair("int4")
+    je.kv_quantize_threshold = te.kv_quantize_threshold = 8
+    for prompt in (PROMPT, PROMPT[:6] + [3, 1, 4, 1, 5]):
+        j, t = both((je, te), prompt, max_completion_tokens=10)
+        assert t.token_ids == j.token_ids
+    assert type(te.state.cache).__name__ == "QuantizedKVCache"
+
+
 def test_logprobs_match_jax():
     """Logprobs on dense f32 weights, where no bf16 cast separates the two
     engines: chosen and top-k values within 1e-4, same ids."""

@@ -23,7 +23,6 @@ def _norm_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 32, 200])
 @pytest.mark.parametrize("bits,group_size", [(4, 64), (4, 32), (4, 128), (8, 64)])
 def test_kernel_matches_plain(cuda, m, bits, group_size):
@@ -48,7 +47,6 @@ def test_kernel_matches_plain(cuda, m, bits, group_size):
     assert _norm_err(got, want) < 0.025
 
 
-@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     qt = tq.quantize(torch.randn((512, 256), device=cuda).bfloat16(), 64, 4)
     with pytest.raises(ValueError):  # f32 activations
