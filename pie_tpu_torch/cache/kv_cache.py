@@ -45,7 +45,7 @@ class KVCache:
     def create(
         cls, num_layers: int, batch: int, capacity: int, num_kv_heads: int,
         head_dim: int, dtype=torch.bfloat16, window: Optional[int] = None,
-        device="cpu",
+        *, device,
     ) -> "KVCache":
         shape = (num_layers, batch, capacity, num_kv_heads, head_dim)
         return cls(
@@ -147,7 +147,7 @@ class QuantizedKVCache:
     def create(
         cls, num_layers: int, batch: int, capacity: int, num_kv_heads: int,
         head_dim: int, dtype=torch.bfloat16, window: Optional[int] = None,
-        device="cpu",
+        *, device,
     ) -> "QuantizedKVCache":
         shape = (num_layers, batch, capacity, num_kv_heads, head_dim)
         sshape = (num_layers, batch, capacity, num_kv_heads, 1)
@@ -198,12 +198,12 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 def make_kv_cache(
     num_layers: int, batch: int, capacity: int, num_kv_heads: int,
     head_dim: int, dtype=torch.bfloat16, window: Optional[int] = None,
-    quantized: bool = False, device="cpu",
+    quantized: bool = False, *, device,
 ):
     """Window -> rotating slots; quantized -> int8 storage."""
     cls = QuantizedKVCache if quantized else KVCache
     return cls.create(num_layers, batch, capacity, num_kv_heads, head_dim,
-                      dtype, window, device)
+                      dtype, window, device=device)
 
 
 def maybe_quantize(cache, threshold_tokens: int = 4096):

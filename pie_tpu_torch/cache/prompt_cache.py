@@ -67,7 +67,7 @@ class PromptCache:
         save_cache(cache, path, extra_meta={"computed_ids": list(map(int, ids))})
         return path
 
-    def load_prompt(self, ids: Sequence[int], device="cpu"):
+    def load_prompt(self, ids: Sequence[int], device):
         """Returns (cache, computed_ids) or None on miss."""
         path = self.cache_path(ids)
         if path is None or not path.exists():
@@ -93,7 +93,7 @@ def save_cache(cache, path: str | Path, extra_meta: Optional[dict] = None):
     save_file(tensors, str(path), metadata={"pie": json.dumps(meta)})
 
 
-def load_cache(path: str | Path, device="cpu"):
+def load_cache(path: str | Path, device):
     from safetensors import safe_open
     from safetensors.numpy import load_file
 

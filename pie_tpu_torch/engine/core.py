@@ -26,6 +26,7 @@ from pie_tpu_torch.ops.sampling import (
     sample,
     top_logprobs,
 )
+from pie_tpu_torch.utils.device import resolve_device
 
 PAD_TOKEN = -1
 
@@ -56,7 +57,7 @@ class PenaltyParams:
     def make(
         cls, batch: int, repetition: float = 1.0, presence: float = 0.0,
         frequency: float = 0.0, dry_multiplier: float = 0.0,
-        dry_base: float = 1.75, dry_allowed: int = 2, device="cpu",
+        dry_base: float = 1.75, dry_allowed: int = 2, *, device,
     ) -> "PenaltyParams":
         f32 = lambda v: torch.full((batch,), v, dtype=torch.float32, device=device)
         return cls(
@@ -95,8 +96,9 @@ class EngineCore:
         kv_dtype=torch.bfloat16,
         kv_quantized: bool = False,
         logprobs_k: int = 8,
-        device="cpu",
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         self.model = model
         self.params = params
         self.batch_size = batch_size
@@ -104,7 +106,6 @@ class EngineCore:
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
         self.logprobs_k = logprobs_k
-        self.device = torch.device(device)
 
     def new_state(self, seed: int = 0) -> DecodeState:
         cfg = self.model.config

@@ -25,6 +25,8 @@ from pie_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+#: decode chunks queued ahead of the one the host drains
+LOOKAHEAD = 3
 
 
 class InferenceError(Exception):
@@ -87,7 +89,6 @@ class InferenceEngine:
         seed: int = 0,
         prompt_cache: bool = True,
         prompt_cache_dir=None,
-        pipeline_chunks: bool = True,
         kv_quantize_threshold: Optional[int] = None,
         device="cuda",
     ):
@@ -103,7 +104,6 @@ class InferenceEngine:
         self.params = params
         self.tokenizer = tokenizer
         self.decode_chunk = decode_chunk
-        self.pipeline_chunks = pipeline_chunks
         self.core = EngineCore(
             model, params, batch_size=1, max_seq_len=max_seq_len,
             kv_dtype=kv_dtype, kv_quantized=kv_quantized,
@@ -364,14 +364,8 @@ class InferenceEngine:
             pending.append(outs)
 
         stopped = False
-        if not self.pipeline_chunks:
-            lookahead = 0
-        elif self.pipeline_chunks is True:
-            lookahead = 3
-        else:
-            lookahead = int(self.pipeline_chunks)
         while (pending or planned < max_tokens) and not stopped:
-            while planned < max_tokens and len(pending) <= lookahead:
+            while planned < max_tokens and len(pending) <= LOOKAHEAD:
                 dispatch_next()
             outs = pending.pop(0)
             if logprobs:

@@ -127,15 +127,15 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def from_jax_params(params_np, device="cpu"):
-    """Carry the JAX package's Llama params across.
+def from_jax_params(params_np, device):
+    """Carry the JAX package's Llama params across to ``device``.
 
     ``params_np`` is the JAX tree with every array converted by
     ``np.asarray`` and every QuantizedTensor given as a dict with keys
     packed, scales, biases, bits, group_size, shape. Codes are unpacked
     from the TPU's plane-paired packing and repacked in the port's layout;
     nothing is re-quantized."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if isinstance(params_np, dict):
         if {"packed", "scales", "biases", "bits"} <= params_np.keys():
             bits = int(params_np["bits"])

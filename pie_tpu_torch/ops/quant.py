@@ -39,6 +39,9 @@ class QuantizedTensor:
     biases:  [..., Kp // group_size, N] — per-(group, out-feature) bias.
     shape:   logical (K, N) before K padding.
     A leading layer axis ([L, ...]) makes a stacked tensor.
+
+    The layout is checked once, here, wherever a tensor is built, sliced or
+    moved; the kernel wrappers then only check what a call adds.
     """
 
     packed: torch.Tensor
@@ -47,6 +50,31 @@ class QuantizedTensor:
     bits: int
     group_size: int
     shape: tuple[int, int]
+
+    def __post_init__(self):
+        _check_format(self.bits, self.group_size)
+        p, s, b = self.packed, self.scales, self.biases
+        k, n = self.shape
+        kp = p.shape[-2] * (32 // self.bits) if p.dim() >= 2 else 0
+        want_s = tuple(p.shape[:-2]) + (kp // self.group_size, n)
+        problems = []
+        if p.dtype != torch.int32 or p.dim() not in (2, 3):
+            problems.append(f"packed must be int32 [(L,) Kp/ep, N], got "
+                            f"{p.dtype} {tuple(p.shape)}")
+        elif p.shape[-1] != n or kp < k or kp % PACK_TILE_K:
+            problems.append(f"packed {tuple(p.shape)} does not hold K={k} "
+                            f"(padded to {PACK_TILE_K}), N={n}")
+        if tuple(s.shape) != want_s or tuple(b.shape) != want_s:
+            problems.append(f"scales {tuple(s.shape)} / biases {tuple(b.shape)}, "
+                            f"want {want_s}")
+        if b.dtype != s.dtype or not s.is_floating_point():
+            problems.append(f"scales {s.dtype} / biases {b.dtype}")
+        if not (p.device == s.device == b.device):
+            problems.append(f"on {p.device}, {s.device}, {b.device}")
+        if not (p.is_contiguous() and s.is_contiguous() and b.is_contiguous()):
+            problems.append("not contiguous")
+        if problems:
+            raise ValueError("QuantizedTensor: " + "; ".join(problems))
 
     @property
     def el_per_int(self) -> int:

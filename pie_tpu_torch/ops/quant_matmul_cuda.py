@@ -20,7 +20,8 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
 
 Both are compiled with nvcc for ``sm_90a`` at first use into
 ``build/pie_tpu_torch/<hash of the sources>/`` and bound through ctypes.
-A wrapper checks device, dtype, shape and contiguity, allocates the
+A wrapper checks device, dtype, shape and contiguity (the weights' layout
+is checked once, where their ``QuantizedTensor`` is built), allocates the
 output with ``torch.empty``, launches on the current stream, raises if the
 C entry point reports a CUDA error, and adds one to its launch counter.
 
@@ -38,7 +39,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -68,18 +68,6 @@ _GEMV_TILE_K = 512
 _libs: dict = {}
 _lock = threading.Lock()
 _counters: dict = {}  # per device: K1's zeroed arrival counters
-# tensors already checked, so a decode step pays no per-call checks, keyed
-# by id() with a weak reference that confirms the entry is still that tensor
-_checked: dict = {}
-
-
-def _seen(t: torch.Tensor):
-    entry = _checked.get(id(t))
-    return entry[1] if entry is not None and entry[0]() is t else None
-
-
-def _remember(t: torch.Tensor, info) -> None:
-    _checked[id(t)] = (weakref.ref(t), info)
 
 
 def reset_counts() -> None:
@@ -222,48 +210,38 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
 
 def _weight_ptrs(qt: QuantizedTensor, layer, device) -> tuple[int, int, int]:
     """Device pointers of layer ``layer``'s packed words, scales and biases:
-    offsets into the stacked arrays (no copy). The tensors are checked once
-    and remembered."""
-    seen = _seen(qt.packed)
-    if seen is None or seen[0]() is not qt.scales or seen[1]() is not qt.biases:
-        lead = tuple(qt.packed.shape[:-2])
-        kp, n = qt.padded_k, qt.shape[1]
-        _check(qt.packed, "packed", torch.int32, lead + (kp // qt.el_per_int, n))
-        _check(qt.scales, "scales", torch.bfloat16, lead + (kp // qt.group_size, n))
-        _check(qt.biases, "biases", torch.bfloat16, lead + (kp // qt.group_size, n))
-        strides = tuple(t.stride(0) * t.element_size() if lead else 0
-                        for t in (qt.packed, qt.scales))
-        if any(st % 16 for st in strides):
-            raise ValueError("layer strides must be 16-byte multiples")
-        seen = (weakref.ref(qt.scales), weakref.ref(qt.biases), strides)
-        _remember(qt.packed, seen)
+    offsets into the stacked arrays (no copy). QuantizedTensor checked the
+    layout where it was built; a call checks what the kernel adds to it."""
     if qt.packed.device != device:
         raise ValueError(f"weights on {qt.packed.device}, x on {device}")
+    if qt.scales.dtype != torch.bfloat16:
+        raise ValueError(f"scales and biases must be bfloat16, got {qt.scales.dtype}")
     i = int(layer) if qt.stacked else 0
     if qt.stacked and not 0 <= i < qt.packed.shape[0]:
         raise IndexError(f"layer {i} of {qt.packed.shape[0]}")
-    ps, ss = seen[2]
-    return (qt.packed.data_ptr() + i * ps, qt.scales.data_ptr() + i * ss,
-            qt.biases.data_ptr() + i * ss)
+    ptrs = tuple(t.data_ptr() + i * t.stride(0) * t.element_size() if qt.stacked
+                 else t.data_ptr() for t in (qt.packed, qt.scales, qt.biases))
+    if any(p % 16 for p in ptrs):
+        raise ValueError("weights must be 16-byte aligned")
+    return ptrs
 
 
 def _ln_ptr(ln_w, layer, qt: QuantizedTensor) -> Optional[int]:
-    """Device pointer of the ln weight row for ``layer`` (checked once)."""
+    """Device pointer of the ln weight row for ``layer``."""
     if ln_w is None:
         return None
     row = qt.stacked and ln_w.dim() == 2
-    stride = _seen(ln_w)
-    if stride is None:
-        k = qt.shape[0]
-        _check(ln_w, "ln_w", torch.bfloat16,
-               (ln_w.shape[0], k) if row else (k,))
-        stride = ln_w.stride(0) * ln_w.element_size() if row else 0
-        if stride % 16:
-            raise ValueError("ln_w rows must be 16-byte aligned")
-        _remember(ln_w, stride)
-    if row and not 0 <= int(layer) < ln_w.shape[0]:
-        raise IndexError(f"ln_w row {int(layer)} of {ln_w.shape[0]}")
-    return ln_w.data_ptr() + (int(layer) * stride if row else 0)
+    k = qt.shape[0]
+    _check(ln_w, "ln_w", torch.bfloat16, (ln_w.shape[0], k) if row else (k,))
+    if not row:
+        return ln_w.data_ptr()
+    i = int(layer)
+    if not 0 <= i < ln_w.shape[0]:
+        raise IndexError(f"ln_w row {i} of {ln_w.shape[0]}")
+    ptr = ln_w.data_ptr() + i * ln_w.stride(0) * ln_w.element_size()
+    if ptr % 16:
+        raise ValueError("ln_w rows must be 16-byte aligned")
+    return ptr
 
 
 def _x_padded(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:

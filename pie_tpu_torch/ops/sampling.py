@@ -41,7 +41,7 @@ class SamplingParams:
     def make(
         cls, batch: int, temperature: float = 1.0, top_p: float = 1.0,
         min_p: float = 0.0, top_k: int = -1, xtc_probability: float = 0.0,
-        xtc_threshold: float = 0.1, device="cpu",
+        xtc_threshold: float = 0.1, *, device,
     ) -> "SamplingParams":
         full = lambda v, dt: torch.full((batch,), v, dtype=dt, device=device)
         return cls(

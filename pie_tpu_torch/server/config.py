@@ -1,4 +1,9 @@
-"""Server settings from environment / .env (reference server/config.py:4-19)."""
+"""Server settings from environment / .env (reference server/config.py:4-19).
+
+Only the settings the port reads are kept. The reference's MAX_SEQ_LEN,
+KV_QUANTIZED, NUM_LANES, NUM_PAGES and NATIVE_SCHEDULER configure the model
+loader and the batching engine, which are not ported yet (ROADMAP queues A9
+and A7); ``create_app`` refuses MODEL_PATH and BATCHING=1 until then."""
 
 from __future__ import annotations
 
@@ -14,14 +19,7 @@ class Settings:
     host: str = "0.0.0.0"
     port: int = 8000
     log_level: str = "INFO"
-    max_seq_len: int = 4096
-    kv_quantized: bool = False
     batching: bool = False
-    num_lanes: int = 8
-    num_pages: int = 1024
-    # NATIVE_SCHEDULER=1: drive the batching engine with the C++ host
-    # scheduler (runtime/native_scheduler) instead of the python planner
-    native_scheduler: bool = False
 
     @classmethod
     def load(cls) -> "Settings":
@@ -39,13 +37,7 @@ class Settings:
             host=get("HOST", "0.0.0.0"),
             port=int(get("PORT", "8000")),
             log_level=get("LOG_LEVEL", "INFO"),
-            max_seq_len=int(get("MAX_SEQ_LEN", "4096")),
-            kv_quantized=get("KV_QUANTIZED", "0") in ("1", "true", "True"),
             batching=get("BATCHING", "0") in ("1", "true", "True"),
-            num_lanes=int(get("NUM_LANES", "8")),
-            num_pages=int(get("NUM_PAGES", "1024")),
-            native_scheduler=get("NATIVE_SCHEDULER", "0")
-            in ("1", "true", "True"),
         )
 
 

@@ -51,7 +51,7 @@ def _pair(weights: str):
     kw = dict(max_seq_len=128, decode_chunk=8)
     je = JEngine(model=jm, params=jp, kv_dtype=jnp.float32, **kw)
     te = InferenceEngine(model=LlamaModel(LlamaConfig.from_dict(cfg)),
-                         params=from_jax_params(jax_to_np(jp)),
+                         params=from_jax_params(jax_to_np(jp), "cpu"),
                          kv_dtype=torch.float32, device="cpu", **kw)
     return je, te
 
@@ -220,7 +220,7 @@ def test_processors_match_jax(proc):
 def _port_draws(logits, n, **params):
     """n draws of the port's filtered sampler (one batched call)."""
     lt = torch.from_numpy(np.repeat(logits, n, axis=0))
-    p = ts.SamplingParams.make(n, **params)
+    p = ts.SamplingParams.make(n, **params, device="cpu")
     gen = torch.Generator().manual_seed(0)
     return ts.sample(lt, p, gen, kind="filtered").numpy()
 

@@ -63,12 +63,16 @@ def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
 
 
 def test_entry_points_default_to_cuda():
-    """Without a device argument the engine, the app and the random
-    initializer ask for CUDA; where there is none they raise."""
+    """Without a device argument the engine, its core, the app and the
+    random initializers ask for CUDA, and where there is none they raise;
+    the helpers that allocate state take no default device at all."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
+    from pie_tpu_torch.cache.kv_cache import make_kv_cache
     from pie_tpu_torch.engine import InferenceEngine
-    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from pie_tpu_torch.engine.core import EngineCore, PenaltyParams
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, from_jax_params
+    from pie_tpu_torch.ops.sampling import SamplingParams
     from pie_tpu_torch.server.app import create_app
 
     model = LlamaModel(LlamaConfig(hidden_size=64, num_hidden_layers=1,
@@ -78,7 +82,19 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model=model, params=params)
     with pytest.raises(RuntimeError, match="CUDA"):
+        EngineCore(model, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
         model.init_quantized_params(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_params({"norm": params["norm"].numpy()}, "cuda")
+    for make in (lambda: make_kv_cache(1, 1, 8, 2, 16),
+                 lambda: SamplingParams.make(1),
+                 lambda: PenaltyParams.make(1),
+                 lambda: from_jax_params({})):
+        with pytest.raises(TypeError, match="device"):
+            make()
     with pytest.raises(RuntimeError, match="CUDA"):
         create_app(engine=InferenceEngine(model=model, params=params,
                                           device="cpu"))

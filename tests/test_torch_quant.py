@@ -95,7 +95,7 @@ def test_quantize_and_converter_match_jax(bits, group_size):
     w = np.random.default_rng(2).standard_normal((2, 640, 256)).astype(np.float32)
     qj = jax.vmap(lambda m: jq.quantize(m, group_size, bits))(jnp.asarray(w))
     want = np.asarray(jq.dequantize(qj, jnp.float32))
-    qt = from_jax_params(_np_qt(qj))
+    qt = from_jax_params(_np_qt(qj), "cpu")
     np.testing.assert_array_equal(tq.dequantize(qt, torch.float32).numpy(), want)
     np.testing.assert_array_equal(
         tq.dequantize(qt.layer(1), torch.float32).numpy(), want[1]
@@ -127,7 +127,7 @@ def _stacked_case(bits, g, hq, hkv, dh, k, seed):
     w = rng.standard_normal((2, k, n)).astype(np.float32) * 0.05
     qj = jax.vmap(lambda m: jq.quantize(m, g, bits))(jnp.asarray(w))
     lnw = (1.0 + 0.1 * rng.standard_normal((2, k))).astype(np.float32)
-    return qj, from_jax_params(_np_qt(qj)), lnw, n
+    return qj, from_jax_params(_np_qt(qj), "cpu"), lnw, n
 
 
 @pytest.mark.parametrize("variant", ["plain", "ln", "rope64", "rope128", "ln_rope128"])
@@ -187,7 +187,7 @@ def test_ref_matches_pallas_prefill_branch(bits, group_size):
     x = rng.standard_normal((m, k)).astype(np.float32)
     qj = jq.quantize(jnp.asarray(w), group_size, bits)
     want = quant_matmul_pallas(jnp.asarray(x), qj, interpret=True)
-    got = qmc.quant_matmul_ref(torch.from_numpy(x), from_jax_params(_np_qt(qj)))
+    got = qmc.quant_matmul_ref(torch.from_numpy(x), from_jax_params(_np_qt(qj), "cpu"))
     assert _norm_err(got.numpy(), want) < 0.025
 
 
@@ -203,3 +203,27 @@ def test_stacked_needs_layer():
     qt = tq.quantize(torch.randn(2, 512, 128), 64, 4)
     with pytest.raises(ValueError):
         tq.quantized_matmul(torch.randn(1, 512), qt)
+
+
+_BAD_LAYOUTS = {
+    "packed_dtype": lambda qt: dict(packed=qt.packed.to(torch.int64)),
+    "packed_k_unpadded": lambda qt: dict(packed=qt.packed[:, :40]),
+    "scales_shape": lambda qt: dict(scales=qt.scales[:, :4]),
+    "biases_dtype": lambda qt: dict(biases=qt.biases.to(torch.float64)),
+    "not_contiguous": lambda qt: dict(
+        scales=qt.scales.t().contiguous().t(), biases=qt.biases.t().contiguous().t()
+    ),
+    "bits": lambda qt: dict(bits=2),
+}
+
+
+@pytest.mark.parametrize("bad", list(_BAD_LAYOUTS))
+def test_quantized_tensor_checks_its_layout(bad):
+    """The layout the kernels rely on is checked where a QuantizedTensor is
+    built, so a malformed one never reaches a wrapper."""
+    import dataclasses
+
+    qt = tq.quantize(torch.randn(512, 128), 64, 4)
+    with pytest.raises(ValueError):
+        dataclasses.replace(qt, **_BAD_LAYOUTS[bad](qt))
+    assert dataclasses.replace(qt).shape == (512, 128)  # the valid one builds
