@@ -24,6 +24,14 @@
 // with this step's multiplies (one barrier per step). Ragged M and N edges
 // are masked on load and store. Not yet done: TMA, wgmma and warp
 // specialisation, which the full tensor-core rate needs.
+//
+// Epilogue: the block's 128x128 f32 tile goes through shared memory (the
+// operand stages are free by then) and leaves as coalesced bf16 rows. With
+// rope_dim != 0 it first rotates each dh-sized head group exactly as K1's
+// epilogue does, y*cos + roll_half(y)*sin with the cos/sin rows of
+// rope_qkv_cs: dh divides 128, so a head and its rotation partners dh/2
+// further on lie in the same tile (the mixed continuous-batching step fuses
+// rope into its QKV projection at M = lanes + rider).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,9 +46,11 @@ constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int kThreads = 256;
 constexpr int AP = BK + 8;  // padded smem row lengths (bf16 elements)
 constexpr int BP = BN + 8;
+constexpr int CP = BN + 4;  // f32 epilogue tile row length
 
-constexpr int kSmemBytes =
-    2 * (BM * AP + BK * BP) * 2 + 8 * 16 * 16 * 4;  // two stages + epilogue
+constexpr int kStageBytes = 2 * (BM * AP + BK * BP) * 2;  // two operand stages
+constexpr int kTileBytes = BM * CP * 4;                   // epilogue tile, aliased
+constexpr int kSmemBytes = kStageBytes > kTileBytes ? kStageBytes : kTileBytes;
 
 template <int BITS>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
@@ -48,8 +58,10 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const uint32_t* __restrict__ packed,       // [Kp / ep, N]
     const __nv_bfloat16* __restrict__ scales,  // [Kp / g, N]
     const __nv_bfloat16* __restrict__ biases,  // [Kp / g, N]
+    const float* __restrict__ cosv,            // [M, N] or null
+    const float* __restrict__ sinv,            // [M, N] or null
     __nv_bfloat16* __restrict__ y,             // [M, N]
-    int M, int Kp, int N, int g) {
+    int M, int Kp, int N, int g, int rope_dim) {
   constexpr int EP = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   constexpr int A_LOADS = BM * BK / 8 / kThreads;    // 16-byte x loads per thread
@@ -57,9 +69,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BM * AP]
   __nv_bfloat16* Bs = As + 2 * BM * AP;                        // [2][BK * BP]
-  float* Cs = reinterpret_cast<float*>(Bs + 2 * BK * BP);      // [8][16 * 16]
+  float* Ct = reinterpret_cast<float*>(smem);                  // [BM * CP], after the loop
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64, cols wn*32
 
@@ -151,29 +163,34 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     __syncthreads();
   }
 
-  // epilogue: each warp stages one 16x16 f32 fragment at a time, then
-  // writes the in-range part as bf16
-  float* cw = Cs + warp * 256;
+  // epilogue: the f32 tile through shared memory (the last barrier of the
+  // loop released the operand stages), rope, bf16 rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cw, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = row0 + wm * 64 + i * 16 + e / 16;
-        const int c = col0 + wn * 32 + j * 16 + e % 16;
-        if (r < M && c < N) y[(size_t)r * N + c] = __float2bfloat16_rn(cw[e]);
-      }
-      __syncwarp();
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Ct + (wm * 64 + i * 16) * CP + wn * 32 + j * 16, acc[i][j],
+                              CP, wmma::mem_row_major);
+  __syncthreads();
+  const int half = rope_dim / 2;
+  for (int e = tid; e < BM * BN; e += kThreads) {
+    const int r = e / BN, c = e % BN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr >= M || gc >= N) continue;
+    float v = Ct[r * CP + c];
+    const size_t o = (size_t)gr * N + gc;
+    if (rope_dim != 0) {
+      const int pc = c % rope_dim < half ? c + half : c - half;  // partner column
+      v = v * cosv[o] + Ct[r * CP + pc] * sinv[o];
     }
+    y[o] = __float2bfloat16_rn(v);
   }
 }
 
 template <int BITS>
 cudaError_t launch(const void* x, const void* packed, const void* scales,
-                   const void* biases, void* y, int M, int Kp, int N, int g,
-                   cudaStream_t stream) {
+                   const void* biases, const void* cosv, const void* sinv, void* y,
+                   int M, int Kp, int N, int g, int rope_dim, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -185,24 +202,34 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
   gemm_kernel<BITS><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(packed),
       static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(biases), static_cast<__nv_bfloat16*>(y),
-      M, Kp, N, g);
+      static_cast<const __nv_bfloat16*>(biases), static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(y), M, Kp, N, g,
+      rope_dim);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y[M, N] = x[M, Kp] @ bf16(dequant(W)); returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for arguments the kernel does not take).
+// y[M, N] = x[M, Kp] @ bf16(dequant(W)) (+ the rope epilogue when
+// rope_dim != 0: cos/sin [M, N] f32, dh in {32, 64, 128}, dh | N); returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
 extern "C" int pie_quant_gemm(const void* x, const void* packed,
-                              const void* scales, const void* biases, void* y,
+                              const void* scales, const void* biases,
+                              const void* cosv, const void* sinv, void* y,
                               int M, int Kp, int N, int bits, int group_size,
-                              void* stream) {
+                              int rope_dim, void* stream) {
   if (M < 1 || N < 1 || Kp % BK != 0 ||
-      (group_size != 32 && group_size != 64 && group_size != 128))
+      (group_size != 32 && group_size != 64 && group_size != 128) ||
+      (rope_dim != 0 && (rope_dim % 32 != 0 || BN % rope_dim != 0 ||
+                         N % rope_dim != 0 || cosv == nullptr || sinv == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4) return (int)launch<4>(x, packed, scales, biases, y, M, Kp, N, group_size, st);
-  if (bits == 8) return (int)launch<8>(x, packed, scales, biases, y, M, Kp, N, group_size, st);
+  if (bits == 4)
+    return (int)launch<4>(x, packed, scales, biases, cosv, sinv, y, M, Kp, N, group_size,
+                          rope_dim, st);
+  if (bits == 8)
+    return (int)launch<8>(x, packed, scales, biases, cosv, sinv, y, M, Kp, N, group_size,
+                          rope_dim, st);
   return (int)cudaErrorInvalidValue;
 }

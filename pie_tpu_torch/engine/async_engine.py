@@ -1,0 +1,210 @@
+"""Batching engine service: a background scheduler thread and per-request
+streaming, with the generate / chat surface of InferenceEngine, so the
+server can serve many concurrent requests with continuous batching.
+
+Port of the JAX package's ``pie_tpu/engine/async_engine.py`` with its
+Python scheduler. Requests from any thread go through a thread-safe queue
+into the shared ``Scheduler``; tokens stream back per request. Not ported
+yet, and refused with ``InferenceError``: the native scheduler
+(``scheduler_impl="native"``, ROADMAP A7), image inputs (A9) and
+constrained decoding (A8).
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+from typing import Iterator, Optional, Sequence as Seq
+
+import torch
+
+from pie_tpu_torch.engine.engine import (
+    GenerationResult,
+    InferenceError,
+    StreamedToken,
+    _chat_run,
+)
+from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, Sequence
+from pie_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+_SENTINEL = object()
+
+
+class BatchedInferenceEngine:
+    """Engine with continuous batching underneath: the public surface of
+    InferenceEngine (generate / generate_stream / chat / chat_stream),
+    safe for concurrent callers, whose requests decode together."""
+
+    def __init__(
+        self,
+        model=None,
+        params=None,
+        tokenizer=None,
+        model_path: Optional[str] = None,
+        num_lanes: int = 8,
+        num_pages: int = 1024,
+        max_pages_per_seq: int = 64,
+        prefill_chunk: int = 256,
+        kv_dtype=torch.bfloat16,
+        kv_quantized: bool = False,
+        decode_steps: int = 8,
+        seed: int = 0,
+        scheduler_impl: str = "python",
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if scheduler_impl != "python":
+            raise InferenceError(
+                f"scheduler_impl={scheduler_impl!r}: only the python scheduler "
+                "is ported (the native one is ROADMAP A7)")
+        if model is None:
+            if model_path is not None:
+                raise NotImplementedError(
+                    "loading a checkpoint (model_path) is not ported yet "
+                    "(ROADMAP queue A9)")
+            raise ValueError("need model+params")
+        self.model = model
+        self.params = params
+        self.tokenizer = tokenizer
+        self.core = PagedEngine(
+            model, params, num_lanes=num_lanes, num_pages=num_pages,
+            max_pages_per_seq=max_pages_per_seq, prefill_chunk=prefill_chunk,
+            kv_dtype=kv_dtype, kv_quantized=kv_quantized, seed=seed,
+            device=self.device,
+        )
+        self.scheduler = Scheduler(self.core, decode_steps=decode_steps)
+        self._submit_q: queue.Queue = queue.Queue()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._start_lock = threading.Lock()
+        self._id_lock = threading.Lock()
+        self._id_counter = 0
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self):
+        with self._start_lock:
+            if self._thread is not None:
+                return
+            self._thread = threading.Thread(target=self._loop, name="pie-scheduler",
+                                            daemon=True)
+            self._thread.start()
+
+    def shutdown(self):
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    def _loop(self):
+        sched = self.scheduler
+        while not self._stop.is_set():
+            try:
+                while True:
+                    sched.waiting.append(self._submit_q.get_nowait())
+            except queue.Empty:
+                pass
+            if not sched.has_work:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
+            try:
+                sched.step()
+            except Exception:
+                logger.exception("scheduler step failed")
+                # fail every sequence, freeing its lane and pages, so its
+                # caller unblocks and the engine goes on serving
+                sched._inflight.clear()
+                sched._dev_state = None
+                for seq in list(sched.running.values()) + list(sched.waiting):
+                    sched._finish(seq, "error: scheduler failure")
+                sched.waiting.clear()
+
+    # -- request path ----------------------------------------------------
+
+    def _next_id(self) -> int:
+        with self._id_lock:
+            self._id_counter += 1
+            return self._id_counter
+
+    def generate_stream(
+        self,
+        prompt_ids: Seq[int],
+        max_completion_tokens: int = 256,
+        stop_token_ids: Seq[int] = (),
+        logprobs: bool = False,
+        pixel_values=None,
+        **kwargs,
+    ) -> Iterator[StreamedToken]:
+        """Same contract as InferenceEngine.generate_stream (StopIteration
+        value = GenerationResult). Logprobs are not reported on the batched
+        path, as in the JAX package."""
+        if not prompt_ids:
+            raise InferenceError("empty prompt")
+        if pixel_values is not None:
+            raise InferenceError("image inputs are not ported yet")
+        self.start()
+        out_q: queue.Queue = queue.Queue()
+        seq = Sequence(
+            seq_id=self._next_id(),
+            prompt_ids=list(prompt_ids),
+            max_new_tokens=max_completion_tokens,
+            stop_token_ids=tuple(stop_token_ids),
+            temperature=float(kwargs.get("temperature", 1.0)),
+            top_p=float(kwargs.get("top_p", 1.0)),
+            min_p=float(kwargs.get("min_p", 0.0)),
+            top_k=int(kwargs.get("top_k", -1)),
+            repetition_penalty=float(kwargs.get("repetition_penalty", 1.0)),
+            presence_penalty=float(kwargs.get("presence_penalty", 0.0)),
+            frequency_penalty=float(kwargs.get("frequency_penalty", 0.0)),
+            logit_bias=dict(kwargs.get("logit_bias") or {}),
+        )
+        seq.on_token = lambda s, t: out_q.put(t)
+        seq.on_finish = lambda s: out_q.put(_SENTINEL)
+        self._submit_q.put(seq)
+        self._wake.set()
+        try:
+            while True:
+                tok = out_q.get()
+                if tok is _SENTINEL:
+                    break
+                yield StreamedToken(int(tok))
+        except GeneratorExit:
+            seq.cancelled = True
+            raise
+        if seq.finish_reason and seq.finish_reason.startswith("error"):
+            raise InferenceError(seq.finish_reason)
+        return GenerationResult(
+            token_ids=list(seq.output_ids),
+            finish_reason=seq.finish_reason or "length",
+            prompt_tokens=len(seq.prompt_ids),
+            completion_tokens=len(seq.output_ids),
+        )
+
+    def generate(self, prompt_ids, **kw) -> GenerationResult:
+        gen = self.generate_stream(prompt_ids, **kw)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as e:
+                return e.value
+
+    def generate_constrained(self, *args, **kwargs):
+        raise InferenceError("constrained decoding is not ported yet")
+
+    # chat surface shared with InferenceEngine
+    def chat_stream(self, interactions, **kw):
+        return _chat_run(self, interactions, **kw)
+
+    def chat(self, interactions, **kw):
+        gen = _chat_run(self, interactions, **kw)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as e:
+                return e.value

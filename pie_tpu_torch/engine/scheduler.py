@@ -1,0 +1,883 @@
+"""Continuous-batching scheduler over the paged KV pool (PyTorch).
+
+Port of the JAX package's ``pie_tpu/engine/scheduler.py`` text paths:
+sequences move WAITING -> PREFILLING -> DECODING -> COMPLETED over fixed
+batch lanes; one ``Scheduler.step()`` plans a CHUNK of device steps on the
+host (admissions, prefill-rider slices, the steps at which lanes wake) and
+runs it, and the host reads the chunk's tokens once, when it drains it.
+
+Each device step advances every live decode lane one token. A step whose
+plan carries a prefill-rider slice runs ``LlamaModel.mixed_forward`` (the
+lanes plus the rider, one pass over the weights); a step without one runs
+``paged_forward`` at M = lanes. The JAX package compiles one program per
+chunk and therefore picks one of the two for the whole chunk; here the
+choice is host data per step, so rider-free steps of a mixed chunk take
+the decode path. Long prompt bodies prefill through dedicated programs
+(``PagedEngine._prefill``) before the chunk. In steady decode the next
+chunk is dispatched on the previous chunk's device state before that
+chunk's tokens are read (pipelining): nothing inside a chunk reads the
+device, so PyTorch queues chunk k+1 while the host drains chunk k.
+
+The pool is written in place; inputs go to the card through pinned host
+buffers (a copy from pageable memory would wait for the device). Not
+ported: constrained decoding, image prompts and M-RoPE (requests carrying
+them are refused by ``BatchedInferenceEngine``), and the native
+scheduler's ``_decode_impl`` / ``_sample_first_impl`` (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+import logging
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from pie_tpu_torch.cache.paged import (
+    PAGE_SIZE,
+    PagedCacheManager,
+    PagedKVPool,
+    PrefixStore,
+)
+from pie_tpu_torch.engine.core import PAD_TOKEN, PenaltyParams
+from pie_tpu_torch.ops.sampling import (
+    SamplingParams,
+    apply_logit_bias,
+    dry_penalty,
+    presence_frequency_penalty,
+    repetition_penalty,
+    sample,
+    sampler_kind_for,
+)
+from pie_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+HISTORY_LEN = 64  # recent tokens per lane the penalties read
+MAX_STOP_IDS = 8  # stop tokens per request the device checks
+MAX_BIAS = 16  # logit-bias entries per request
+# prompt bodies longer than this prefill through dedicated programs;
+# shorter ones ride mixed steps
+DIRECT_PREFILL_MIN = 32
+
+
+class SeqStatus(enum.Enum):
+    WAITING = "waiting"
+    PREFILLING = "prefilling"
+    DECODING = "decoding"
+    COMPLETED = "completed"
+    CANCELLED = "cancelled"
+    ERROR = "error"
+
+
+@dataclasses.dataclass
+class Sequence:
+    """One request."""
+
+    seq_id: int
+    prompt_ids: list[int]
+    max_new_tokens: int = 256
+    stop_token_ids: tuple[int, ...] = ()
+    temperature: float = 1.0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    top_k: int = -1
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    xtc_probability: float = 0.0
+    xtc_threshold: float = 0.1
+    dry_multiplier: float = 0.0
+    dry_base: float = 1.75
+    dry_allowed_length: int = 2
+    # sparse per-request logit bias {token_id: bias}
+    logit_bias: dict = dataclasses.field(default_factory=dict)
+
+    status: SeqStatus = SeqStatus.WAITING
+    output_ids: list[int] = dataclasses.field(default_factory=list)
+    prefill_pos: int = 0  # pending tokens already written to the pool
+    lane: int = -1
+    finish_reason: Optional[str] = None
+    cancelled: bool = False
+    on_token: Optional[Callable[["Sequence", int], None]] = None
+    on_finish: Optional[Callable[["Sequence"], None]] = None
+    # tokens whose KV still needs writing, starting at pool position
+    # pending_base; the LAST pending token is the wake token (its KV is
+    # written during its own decode step)
+    pending: list[int] = dataclasses.field(default_factory=list)
+    pending_base: int = 0
+    # the prompt's full pages are registered in the PrefixStore (at first wake)
+    prefix_cached: bool = False
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt_ids) + len(self.output_ids)
+
+
+@dataclasses.dataclass
+class LaneState:
+    """Per-lane decode state carried from step to step on the device."""
+
+    last: torch.Tensor  # [B] int32 next input token
+    ctx: torch.Tensor  # [B] int32 tokens in the pool
+    hist: torch.Tensor  # [B, H] int32 recent tokens (-1 pad)
+    done: torch.Tensor  # [B] bool frozen (finished / not yet woken)
+    prod: torch.Tensor  # [B] int32 tokens generated so far
+
+
+@dataclasses.dataclass
+class LaneParams:
+    """Per-lane request parameters on the device (constant within a chunk)."""
+
+    max_new: torch.Tensor  # [B] int32
+    stop_ids: torch.Tensor  # [B, S] int32 (-1 pad)
+    sampling: SamplingParams
+    pen: PenaltyParams
+    bias_ids: torch.Tensor  # [B, NB] int32 (-1 pad)
+    bias_vals: torch.Tensor  # [B, NB] f32
+
+
+@dataclasses.dataclass
+class RiderPlan:
+    """Host plan of a chunk's prefill-rider slices, one per step."""
+
+    ids: np.ndarray  # [N, Cs] int32 tokens (-1 pad)
+    pos: np.ndarray  # [N, Cs] int32 positions (-1 pad)
+    lane: np.ndarray  # [N] lane whose table each slice uses
+    ctx: np.ndarray  # [N] rider-lane pool tokens after each slice
+
+
+@dataclasses.dataclass
+class WakePlan:
+    """Host plan of the lanes that start decoding inside a chunk."""
+
+    step: np.ndarray  # [B] step at which the lane wakes (-1 never)
+    tokens: np.ndarray  # [B] the prompt's final token (first decode input)
+    ctx: np.ndarray  # [B] pool tokens at wake
+    prod: np.ndarray  # [B] produced count at wake
+    hist: np.ndarray  # [B, H] history seeded with the prompt tail
+
+
+class PagedEngine:
+    """The device side of the scheduler: the pool, the parameters and the
+    two programs (direct prefill, chunk)."""
+
+    def __init__(
+        self,
+        model,
+        params,
+        num_lanes: int = 8,
+        num_pages: int = 512,
+        max_pages_per_seq: int = 32,
+        # direct-prefill programs: bigger chunks are fewer passes over the
+        # weights (one per chunk)
+        prefill_chunk: int = 1024,
+        # M = num_lanes + rider_width = 256 for a mixed step
+        rider_width: int = 248,
+        kv_dtype=torch.bfloat16,
+        kv_quantized: bool = False,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        cfg = model.config
+        self.model = model
+        self.params = params
+        self.num_lanes = num_lanes
+        self.max_pages_per_seq = max_pages_per_seq
+        self.prefill_chunk = prefill_chunk
+        self.rider_width = rider_width
+        self.pool = PagedKVPool.create(
+            cfg.num_hidden_layers, num_pages, cfg.num_key_value_heads,
+            cfg.resolved_head_dim, kv_dtype, kv_quantized, device=self.device,
+        )
+        self.key = torch.Generator(device=self.device).manual_seed(seed)
+        #: device steps dispatched (decode or mixed; a direct prefill is
+        #: not one): each runs the paged attention once per layer
+        self.device_steps = 0
+
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A copy of host array ``a`` on the engine's device, queued without
+        waiting for the device (pinned staging buffer)."""
+        t = torch.from_numpy(np.array(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    # -- device programs -------------------------------------------------
+
+    @torch.no_grad()
+    def _prefill(self, params, ids, positions, block_table, context_len):
+        """One prefill chunk of ONE sequence: writes its K/V into the pool;
+        no logits (the prompt's final token is its lane's first decode
+        input). ids, positions [1, T]; block_table [1, maxP]."""
+        self.model.paged_forward(params, ids, self.pool, block_table, positions,
+                                 context_len, with_logits=False)
+
+    @torch.no_grad()
+    def _chunk(
+        self,
+        params,
+        state: LaneState,
+        block_tables: torch.Tensor,  # [B, maxP] int32
+        lp: LaneParams,
+        num_steps: int,
+        sampler_kind: str,
+        use_penalties: bool,
+        use_bias: bool,
+        rider: Optional[RiderPlan] = None,
+        wake: Optional[WakePlan] = None,
+    ):
+        """``num_steps`` continuous-batching steps on the device with no read
+        back to the host: lanes wake at their planned step, sample, and
+        freeze on a stop token or their length budget (frozen lanes emit
+        PAD). Returns (emitted [N, B] int32, final LaneState)."""
+        model, dev = self.model, self.device
+        last, ctx, hist, done, prod = (state.last, state.ctx, state.hist,
+                                       state.done, state.prod)
+        if rider is not None:
+            pf_ids = self.to_device(rider.ids)
+            pf_pos = self.to_device(rider.pos)
+            rides = (rider.ids >= 0).any(axis=1)
+        if wake is not None:
+            w_step = self.to_device(wake.step)
+            w_tok, w_ctx, w_prod, w_hist = (
+                self.to_device(a) for a in (wake.tokens, wake.ctx, wake.prod, wake.hist))
+            woken = set(int(s) for s in wake.step if s >= 0)
+        pad = torch.full_like(last, PAD_TOKEN)
+        emitted = []
+        for s in range(num_steps):
+            self.device_steps += 1
+            if wake is not None and s in woken:
+                w = w_step == s
+                last = torch.where(w, w_tok, last)
+                ctx = torch.where(w, w_ctx, ctx)
+                prod = torch.where(w, w_prod, prod)
+                hist = torch.where(w[:, None], w_hist, hist)
+                done = done & ~w
+            active = ~done
+            dec_pos = torch.where(active, ctx, pad)
+            dec_ctx = torch.where(active, ctx + 1, torch.ones_like(ctx))
+            if rider is not None and rides[s]:
+                logits, _ = model.mixed_forward(
+                    params, self.pool, last, dec_pos, dec_ctx, block_tables,
+                    pf_ids[s], pf_pos[s], int(rider.lane[s]), int(rider.ctx[s]),
+                )
+            else:
+                logits, _ = model.paged_forward(
+                    params, last[:, None], self.pool, block_tables,
+                    dec_pos[:, None], dec_ctx,
+                )
+                logits = logits[:, 0]
+            if use_penalties:
+                logits = repetition_penalty(logits, hist, lp.pen.repetition)
+                logits = presence_frequency_penalty(
+                    logits, hist, lp.pen.presence, lp.pen.frequency)
+                logits = dry_penalty(logits, hist, lp.pen.dry_multiplier,
+                                     lp.pen.dry_base, lp.pen.dry_allowed)
+            if use_bias:
+                logits = apply_logit_bias(logits, lp.bias_ids, lp.bias_vals)
+            tok = sample(logits, lp.sampling, self.key, kind=sampler_kind)
+            tok = torch.where(active, tok, last)
+            emitted.append(torch.where(active, tok, pad))
+            hit_stop = (tok[:, None] == lp.stop_ids).any(dim=1)
+            step = active.to(torch.int32)
+            prod = prod + step
+            done = done | (active & (hit_stop | (prod >= lp.max_new)))
+            ctx = ctx + step
+            hist = torch.where(active[:, None],
+                               torch.cat([hist[:, 1:], tok[:, None]], dim=1), hist)
+            last = tok
+        return torch.stack(emitted), LaneState(last, ctx, hist, done, prod)
+
+
+class Scheduler:
+    """Host-side continuous-batching orchestrator.
+
+    One ``step()`` = one CHUNK of up to ``decode_steps`` device steps: plan
+    (admissions, direct prefills, rider slices, wake schedule), dispatch,
+    and drain with one read of the device per chunk."""
+
+    def __init__(
+        self,
+        engine: PagedEngine,
+        decode_steps: int = 8,
+        prefix_cache: bool = True,
+    ):
+        self.engine = engine
+        self.decode_steps = decode_steps
+        self.manager = PagedCacheManager(engine.pool.num_pages,
+                                         engine.max_pages_per_seq)
+        self.prefix_store = PrefixStore(self.manager) if prefix_cache else None
+        self.waiting: deque[Sequence] = deque()
+        self.running: dict[int, Sequence] = {}  # lane -> seq
+        self.free_lanes = list(range(engine.num_lanes - 1, -1, -1))
+        self._ids = itertools.count()
+        b = engine.num_lanes
+        h = HISTORY_LEN
+        # host mirrors of lane state (shipped to the device per chunk)
+        self.last_tokens = np.zeros((b,), np.int32)
+        self.context_lens = np.zeros((b,), np.int32)
+        self.block_tables = np.full((b, engine.max_pages_per_seq), -1, np.int32)
+        self.histories = np.full((b, h), PAD_TOKEN, np.int32)
+        self.done = np.ones((b,), bool)
+        self.produced = np.zeros((b,), np.int32)
+        self.max_new = np.ones((b,), np.int32)
+        self.stop_ids = np.full((b, MAX_STOP_IDS), -1, np.int32)
+        self.samp = {
+            "temperature": np.ones((b,), np.float32),
+            "top_p": np.ones((b,), np.float32),
+            "min_p": np.zeros((b,), np.float32),
+            "top_k": np.full((b,), -1, np.int32),
+            "xtc_probability": np.zeros((b,), np.float32),
+            "xtc_threshold": np.full((b,), 0.1, np.float32),
+        }
+        self.pen = {
+            "repetition": np.ones((b,), np.float32),
+            "presence": np.zeros((b,), np.float32),
+            "frequency": np.zeros((b,), np.float32),
+            "dry_multiplier": np.zeros((b,), np.float32),
+            "dry_base": np.full((b,), 1.75, np.float32),
+            "dry_allowed": np.full((b,), 2, np.int32),
+        }
+        self.bias_ids = np.full((b, MAX_BIAS), -1, np.int32)
+        self.bias_vals = np.zeros((b, MAX_BIAS), np.float32)
+        self._lane_params: Optional[LaneParams] = None  # device copy of the above
+        # steady-state pipelining: the last dispatched chunk's device lane
+        # state and the chunks in flight, oldest first, as (emitted, n).
+        # Host mirrors lag the device while a chunk is in flight; draining
+        # its emitted tokens alone reconstructs them exactly.
+        self._dev_state: Optional[LaneState] = None
+        self._inflight: deque = deque()
+        self.pipeline_depth = 1
+
+    # -- public API ------------------------------------------------------
+
+    def add_request(self, prompt_ids, **kw) -> Sequence:
+        seq = Sequence(seq_id=next(self._ids), prompt_ids=list(prompt_ids), **kw)
+        self.waiting.append(seq)
+        return seq
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running or self._inflight)
+
+    @property
+    def _hold(self) -> int:
+        """Device steps already dispatched but not yet drained."""
+        return sum(n for _, n in self._inflight)
+
+    def run_to_completion(self, max_steps: int = 100000) -> None:
+        for _ in range(max_steps):
+            if not self.has_work:
+                return
+            self.step()
+        raise RuntimeError("scheduler did not drain")
+
+    # -- one scheduling step (= one device chunk) ------------------------
+
+    def _all_decoding(self) -> bool:
+        return bool(self.running) and all(
+            s.status == SeqStatus.DECODING and not s.cancelled
+            for s in self.running.values()
+        )
+
+    def step(self) -> list[Sequence]:
+        """Admit -> plan a chunk -> dispatch -> drain. Returns the sequences
+        that finished.
+
+        While prefill work is pending the chunk is sized to the rider slices
+        it needs (a power of two, at most ``decode_steps``); steady decode
+        chunks are ``decode_steps`` long. In steady decode (every lane
+        decoding, nothing queued) the next chunk is dispatched on the
+        device-chained lane state before the previous one is drained."""
+        if not self.waiting and self._all_decoding():
+            n = self.decode_steps
+            ok = True
+            while ok and len(self._inflight) < self.pipeline_depth:
+                hold = self._hold
+                for lane, seq in self.running.items():
+                    if not self.manager.extend_seq(
+                        seq.seq_id, int(self.context_lens[lane]) + hold + n
+                    ):
+                        ok = False
+                        break
+                    self._sync_table(lane, seq)
+                if ok:
+                    self._inflight.append((self._dispatch_steady(n), n))
+            if self._inflight:
+                return self._drain_inflight()
+        # admission and direct prefill before the pipeline flush: new lanes
+        # touch only free lanes and the pool, and their prefill programs
+        # queue behind the chunk in flight
+        if self._inflight and self.waiting:
+            clean = self._all_decoding()
+            pre_lanes = set(self.running)
+            self._admit()
+            self._direct_prefill()
+            if clean:
+                new = [(l, s) for l, s in sorted(self.running.items())
+                       if l not in pre_lanes]
+                if new and all(len(s.pending) - 1 == s.prefill_pos for _, s in new):
+                    # fully prefilled new lanes wake at step 0 of a chunk
+                    # dispatched on the chained state before the old drains
+                    out = self._dispatch_pipelined_wake(new)
+                    if out is not None:
+                        return out
+        # pipeline flush: exact host mirrors before any planning
+        finished_prev = []
+        while self._inflight:
+            finished_prev.extend(self._drain_inflight())
+        self._dev_state = None
+        self._admit()
+        self._direct_prefill()
+        cs = self.engine.rider_width
+        need = 0
+        for s in self.running.values():
+            if s.status == SeqStatus.PREFILLING:
+                rem = len(s.pending) - 1 - s.prefill_pos
+                need += -(-rem // cs) if rem > 0 else 1  # wake-only: one step
+        n = _bucket_chunk(need, self.decode_steps) if need else self.decode_steps
+        plan = self._plan_chunk(n)
+        if plan is None:
+            return finished_prev
+        return finished_prev + self._dispatch_and_drain(plan, n)
+
+    # -- device dispatch -------------------------------------------------
+
+    def _sampler_kind(self) -> str:
+        lanes = [lane for lane, s in self.running.items()
+                 if s.status == SeqStatus.DECODING]
+        if not lanes:
+            return "greedy"
+        return sampler_kind_for(
+            self.samp["temperature"][lanes], self.samp["top_p"][lanes],
+            self.samp["min_p"][lanes], self.samp["top_k"][lanes],
+            self.samp["xtc_probability"][lanes],
+        )
+
+    def _device_params(self) -> LaneParams:
+        """The lanes' request parameters on the device, uploaded again only
+        after an admission changed them."""
+        if self._lane_params is None:
+            up = self.engine.to_device
+            self._lane_params = LaneParams(
+                max_new=up(self.max_new),
+                stop_ids=up(self.stop_ids),
+                sampling=SamplingParams(**{k: up(v) for k, v in self.samp.items()}),
+                pen=PenaltyParams(**{k: up(v) for k, v in self.pen.items()}),
+                bias_ids=up(self.bias_ids),
+                bias_vals=up(self.bias_vals),
+            )
+        return self._lane_params
+
+    def _host_state(self) -> LaneState:
+        up = self.engine.to_device
+        return LaneState(up(self.last_tokens), up(self.context_lens),
+                         up(self.histories), up(self.done), up(self.produced))
+
+    def _run_chunk(self, state, n, rider=None, wake=None):
+        """Dispatch one chunk; returns (emitted, final state) on the device."""
+        e = self.engine
+        pen_on = (
+            (self.pen["repetition"] != 1.0).any()
+            or (self.pen["presence"] != 0.0).any()
+            or (self.pen["frequency"] != 0.0).any()
+            or (self.pen["dry_multiplier"] > 0.0).any()
+        )
+        return e._chunk(
+            e.params, state, e.to_device(self.block_tables),
+            self._device_params(), num_steps=n,
+            sampler_kind=self._sampler_kind(), use_penalties=bool(pen_on),
+            use_bias=bool((self.bias_ids >= 0).any()), rider=rider, wake=wake,
+        )
+
+    def _dispatch_steady(self, n: int) -> torch.Tensor:
+        """Dispatch a decode-only chunk on the lane state chained from the
+        previous chunk's device outputs (no host round trip)."""
+        state = self._dev_state if self._dev_state is not None else self._host_state()
+        emitted, self._dev_state = self._run_chunk(state, n)
+        return emitted
+
+    def _dispatch_pipelined_wake(self, new) -> Optional[list[Sequence]]:
+        """Dispatch a decode-only chunk that wakes freshly admitted, fully
+        prefilled lanes at step 0, chained on the in-flight chunk's device
+        state. Returns the old chunk's finished sequences, or None when page
+        growth for the old lanes fails (the caller then flushes)."""
+        e = self.engine
+        b = e.num_lanes
+        # a single late joiner wakes in a 1-step chunk, so its first token
+        # comes back at the very next drain; bursts keep full chunks
+        n = 1 if len(new) == 1 else self.decode_steps
+        hold = self._hold
+        new_lanes = {lane for lane, _ in new}
+        for lane, seq in self.running.items():
+            if lane in new_lanes:
+                continue  # admission allocated prompt + max_new up front
+            if not self.manager.extend_seq(
+                seq.seq_id, int(self.context_lens[lane]) + hold + n
+            ):
+                return None
+            self._sync_table(lane, seq)
+        wake = WakePlan(
+            step=np.full((b,), -1, np.int32), tokens=np.zeros((b,), np.int32),
+            ctx=np.zeros((b,), np.int32), prod=np.zeros((b,), np.int32),
+            hist=self.histories.copy(),
+        )
+        h = HISTORY_LEN
+        for lane, seq in new:
+            wake.step[lane] = 0
+            wake.tokens[lane] = seq.pending[-1]
+            wake.ctx[lane] = seq.pending_base + len(seq.pending) - 1
+            tail = seq.prompt_ids[-h:]
+            wake.hist[lane] = PAD_TOKEN
+            wake.hist[lane, -len(tail):] = tail
+            seq.status = SeqStatus.DECODING
+            # optimistic host mirrors (the drain advances them as in steady)
+            self.context_lens[lane] = wake.ctx[lane]
+            self.last_tokens[lane] = wake.tokens[lane]
+            self.histories[lane] = wake.hist[lane]
+            self.done[lane] = False
+            self.produced[lane] = 0
+            if self.prefix_store is not None and not seq.prefix_cached:
+                seq.prefix_cached = True
+                self.prefix_store.insert(seq.prompt_ids,
+                                         self.manager.block_table(seq.seq_id))
+        emitted, state = self._run_chunk(self._dev_state, n, wake=wake)
+        finished = []
+        while self._inflight:
+            finished.extend(self._drain_inflight())
+        self._dev_state = state
+        self._inflight.append((emitted, n))
+        return finished
+
+    def _drain_inflight(self) -> list[Sequence]:
+        """Read a pipelined chunk's emitted tokens (the one host read of the
+        chunk) and rebuild the host mirrors from them: every active step
+        emitted a non-PAD token, so per-lane counts recover ctx / produced
+        and the values recover last / history."""
+        if not self._inflight:
+            return []
+        emitted_dev, n = self._inflight.popleft()
+        emitted = emitted_dev.cpu().numpy()  # [n, B]
+        h = HISTORY_LEN
+        for lane in range(self.engine.num_lanes):
+            seq = self.running.get(lane)
+            if seq is None or seq.status != SeqStatus.DECODING:
+                continue
+            toks = emitted[:, lane]
+            valid = toks[toks != PAD_TOKEN]
+            cnt = len(valid)
+            if cnt:
+                self.last_tokens[lane] = valid[-1]
+                self.histories[lane] = np.concatenate(
+                    [self.histories[lane], valid])[-h:]
+            self.context_lens[lane] += cnt
+            self.produced[lane] += cnt
+        return self._emit_chunk(emitted, n)
+
+    def _emit_chunk(self, emitted: np.ndarray, n: int) -> list[Sequence]:
+        """Hand a drained chunk's tokens to their sequences, in step order;
+        a cancellation (possibly raised by a callback during this drain)
+        drops the lane's remaining tokens."""
+        finished: list[Sequence] = []
+        for lane in list(self.running.keys()):
+            seq = self.running[lane]
+            if seq.status != SeqStatus.DECODING:
+                continue
+            for s in range(n):
+                if seq.cancelled:
+                    self._finish(seq, "cancelled")
+                    finished.append(seq)
+                    break
+                tok = int(emitted[s, lane])
+                if tok == PAD_TOKEN:
+                    continue
+                self._emit(seq, tok)
+                if seq.status != SeqStatus.DECODING:
+                    finished.append(seq)
+                    break
+            else:
+                if seq.cancelled:
+                    self._finish(seq, "cancelled")
+                    finished.append(seq)
+        return finished
+
+    def _dispatch_and_drain(self, plan, n: int) -> list[Sequence]:
+        rider, wake = plan
+        emitted, st = self._run_chunk(self._host_state(), n, rider=rider, wake=wake)
+        # one read of the device for the whole chunk: everything packed into
+        # one int32 buffer
+        b, h = self.engine.num_lanes, HISTORY_LEN
+        packed = torch.cat([
+            emitted.reshape(-1), st.last, st.ctx, st.hist.reshape(-1),
+            st.done.to(torch.int32), st.prod,
+        ]).cpu().numpy()
+        cuts = np.cumsum([n * b, b, b, b * h, b])
+        em, last, ctx, hist, done, prod = np.split(packed, cuts)
+        self.last_tokens = last.copy()
+        self.context_lens = ctx.copy()
+        self.histories = hist.reshape(b, h).copy()
+        self.done = done.astype(bool)
+        self.produced = prod.copy()
+        return self._emit_chunk(em.reshape(n, b), n)
+
+    # -- planning --------------------------------------------------------
+
+    def _direct_prefill(self):
+        """Prefill long prompt bodies with dedicated programs (one pass over
+        the weights per ``prefill_chunk`` tokens) instead of rider slices;
+        short bodies ride mixed steps, which also advance every lane.
+        Queued on the device without a read back."""
+        e = self.engine
+        for lane, seq in sorted(self.running.items()):
+            if seq.status != SeqStatus.PREFILLING:
+                continue
+            plen1 = len(seq.pending) - 1
+            if plen1 - seq.prefill_pos <= DIRECT_PREFILL_MIN:
+                continue
+            while plen1 - seq.prefill_pos > 0:
+                c = min(e.prefill_chunk, plen1 - seq.prefill_pos)
+                bucket = 16
+                while bucket < c:
+                    bucket *= 2
+                bucket = min(bucket, e.prefill_chunk)
+                if not self.manager.extend_seq(
+                    seq.seq_id, seq.pending_base + seq.prefill_pos + c
+                ):
+                    self._finish(seq, "error: out of pages")
+                    break
+                self._sync_table(lane, seq)
+                ids = np.zeros((1, bucket), np.int32)
+                pos = np.full((1, bucket), -1, np.int32)
+                ids[0, :c] = seq.pending[seq.prefill_pos:seq.prefill_pos + c]
+                pos[0, :c] = seq.pending_base + np.arange(
+                    seq.prefill_pos, seq.prefill_pos + c)
+                e._prefill(
+                    e.params, e.to_device(ids), e.to_device(pos),
+                    e.to_device(self.block_tables[lane:lane + 1]),
+                    e.to_device(np.full(
+                        (1,), seq.pending_base + seq.prefill_pos + c, np.int32)),
+                )
+                seq.prefill_pos += c
+                self.context_lens[lane] = seq.pending_base + seq.prefill_pos
+
+    def _admit(self):
+        while self.waiting and self.free_lanes:
+            seq = self.waiting[0]
+            if seq.cancelled:
+                self.waiting.popleft()
+                self._finish(seq, "cancelled")
+                continue
+            need = len(seq.prompt_ids) + seq.max_new_tokens
+            if self.manager.pages_needed(need) > self.engine.max_pages_per_seq:
+                self.waiting.popleft()
+                self._finish(seq, "error: sequence exceeds max pages")
+                continue
+            # prefix-cache hit: splice the cached full pages into the new
+            # table (refcounted, never written by this lane) and prefill only
+            # the suffix
+            store = self.prefix_store
+            while True:
+                shared = store.match(seq.prompt_ids) if store is not None else []
+                if self.manager.allocate_seq_with_prefix(seq.seq_id, need, shared):
+                    break
+                shortfall = self.manager.pages_needed(need) - len(shared)
+                if store is None or store.evict(shortfall) == 0:
+                    shared = None
+                    break
+            if shared is None:
+                break  # pool exhausted: stay queued
+            self.waiting.popleft()
+            lane = self.free_lanes.pop()
+            seq.lane = lane
+            seq.status = SeqStatus.PREFILLING
+            seq.prefill_pos = 0
+            seq.pending = list(seq.prompt_ids[len(shared) * PAGE_SIZE:])
+            seq.pending_base = len(shared) * PAGE_SIZE
+            self.running[lane] = seq
+            table = self.manager.block_table(seq.seq_id)
+            self.block_tables[lane] = -1
+            self.block_tables[lane, :len(table)] = table
+            self.context_lens[lane] = seq.pending_base
+            self.histories[lane] = PAD_TOKEN
+            self.done[lane] = True  # frozen until its wake step
+            self.produced[lane] = 0
+            self.max_new[lane] = seq.max_new_tokens
+            self.stop_ids[lane] = -1
+            sids = list(seq.stop_token_ids)[:MAX_STOP_IDS]
+            self.stop_ids[lane, :len(sids)] = sids
+            self.samp["temperature"][lane] = seq.temperature
+            self.samp["top_p"][lane] = seq.top_p
+            self.samp["min_p"][lane] = seq.min_p
+            self.samp["top_k"][lane] = seq.top_k
+            self.samp["xtc_probability"][lane] = seq.xtc_probability
+            self.samp["xtc_threshold"][lane] = seq.xtc_threshold
+            self.pen["repetition"][lane] = seq.repetition_penalty
+            self.pen["presence"][lane] = seq.presence_penalty
+            self.pen["frequency"][lane] = seq.frequency_penalty
+            self.pen["dry_multiplier"][lane] = seq.dry_multiplier
+            self.pen["dry_base"][lane] = seq.dry_base
+            self.pen["dry_allowed"][lane] = seq.dry_allowed_length
+            self.bias_ids[lane] = -1
+            self.bias_vals[lane] = 0.0
+            for i, (tid, bv) in enumerate(sorted(seq.logit_bias.items())[:MAX_BIAS]):
+                self.bias_ids[lane, i] = int(tid)
+                self.bias_vals[lane, i] = float(bv)
+            self._lane_params = None
+
+    def _plan_chunk(self, n: int):
+        """The host plan of one chunk: rider slices (one lane's prompt per
+        step), the wake schedule of lanes whose prefill completes, and page
+        pre-allocation. None when there is nothing to run."""
+        e = self.engine
+        cs = e.rider_width
+        b = e.num_lanes
+        rider = RiderPlan(
+            ids=np.full((n, cs), -1, np.int32), pos=np.full((n, cs), -1, np.int32),
+            lane=np.zeros((n,), np.int32), ctx=np.zeros((n,), np.int32),
+        )
+        wake = WakePlan(
+            step=np.full((b,), -1, np.int32), tokens=np.zeros((b,), np.int32),
+            ctx=np.zeros((b,), np.int32), prod=np.zeros((b,), np.int32),
+            hist=self.histories.copy(),
+        )
+
+        # cancelled lanes are finished host-side before planning
+        for lane, seq in list(self.running.items()):
+            if seq.cancelled:
+                self._finish(seq, "cancelled")
+
+        prefilling = [(lane, s) for lane, s in sorted(self.running.items())
+                      if s.status == SeqStatus.PREFILLING]
+
+        def wake_at(lane, seq, s):
+            # the final pending token becomes the lane's decode input at this
+            # very step (the rider slice's KV is written before the lanes'
+            # attention reads it)
+            wake.step[lane] = s
+            wake.tokens[lane] = seq.pending[-1]
+            wake.ctx[lane] = seq.pending_base + len(seq.pending) - 1
+            tail = (seq.prompt_ids + seq.output_ids)[-HISTORY_LEN:]
+            wake.hist[lane] = PAD_TOKEN
+            wake.hist[lane, -len(tail):] = tail
+            seq.status = SeqStatus.DECODING
+            self.produced[lane] = len(seq.output_ids)
+            wake.prod[lane] = self.produced[lane]
+            if (self.prefix_store is not None and not seq.prefix_cached
+                    and seq.pending_base + len(seq.pending) == len(seq.prompt_ids)):
+                # this very chunk writes the prompt's KV; device order makes
+                # it visible before any later chunk reads it
+                seq.prefix_cached = True
+                self.prefix_store.insert(seq.prompt_ids,
+                                         self.manager.block_table(seq.seq_id))
+
+        qi = iter(prefilling)
+        cur = next(qi, None)
+        for s in range(n):
+            while cur is not None:
+                lane, seq = cur
+                base = seq.pending_base
+                rem = len(seq.pending) - 1 - seq.prefill_pos
+                if rem <= 0:
+                    # nothing left to prefill: wake without using the slice
+                    wake_at(lane, seq, s)
+                    cur = next(qi, None)
+                    continue
+                cnt = min(cs, rem)
+                rider.ids[s, :cnt] = seq.pending[seq.prefill_pos:seq.prefill_pos + cnt]
+                rider.pos[s, :cnt] = base + np.arange(seq.prefill_pos,
+                                                      seq.prefill_pos + cnt)
+                rider.lane[s] = lane
+                seq.prefill_pos += cnt
+                rider.ctx[s] = base + seq.prefill_pos
+                self.context_lens[lane] = base + seq.prefill_pos
+                if seq.prefill_pos >= len(seq.pending) - 1:
+                    wake_at(lane, seq, s)
+                    cur = next(qi, None)
+                break  # this step's rider slice is used
+
+        decoding = [lane for lane, s in self.running.items()
+                    if s.status == SeqStatus.DECODING]
+        if not decoding and not prefilling:
+            return None
+
+        # pages for every token this chunk can write
+        for lane in decoding:
+            seq = self.running[lane]
+            woken = wake.step[lane] >= 0
+            start = int(wake.ctx[lane]) if woken else int(self.context_lens[lane])
+            steps = n - max(int(wake.step[lane]), 0)
+            if not self.manager.extend_seq(seq.seq_id, start + steps):
+                self._finish(seq, "error: out of pages")
+                wake.step[lane] = -1
+                continue
+            self._sync_table(lane, seq)
+        dead = set()
+        for lane, seq in prefilling:
+            if seq.status == SeqStatus.PREFILLING:
+                if not self.manager.extend_seq(seq.seq_id,
+                                               seq.pending_base + seq.prefill_pos):
+                    self._finish(seq, "error: out of pages")
+                    dead.add(lane)
+                    continue
+                self._sync_table(lane, seq)
+        for s in range(n):
+            if dead and int(rider.lane[s]) in dead and (rider.ids[s] >= 0).any():
+                # the failed lane's pages are freed: its slices must not write
+                rider.ids[s] = -1
+                rider.pos[s] = -1
+                rider.lane[s] = 0
+                rider.ctx[s] = 0
+        return rider, wake
+
+    def _sync_table(self, lane: int, seq: Sequence):
+        table = self.manager.block_table(seq.seq_id)
+        self.block_tables[lane, :len(table)] = table
+
+    def _emit(self, seq: Sequence, tok: int):
+        seq.output_ids.append(tok)
+        if seq.on_token:
+            try:
+                seq.on_token(seq, tok)
+            except Exception:  # pragma: no cover
+                logger.exception("on_token callback failed")
+        if tok in seq.stop_token_ids:
+            self._finish(seq, "stop")
+        elif len(seq.output_ids) >= seq.max_new_tokens:
+            self._finish(seq, "length")
+
+    def _finish(self, seq: Sequence, reason: str):
+        seq.finish_reason = reason
+        seq.status = (
+            SeqStatus.CANCELLED if reason == "cancelled"
+            else SeqStatus.ERROR if reason.startswith("error")
+            else SeqStatus.COMPLETED
+        )
+        if seq.lane >= 0:
+            self.running.pop(seq.lane, None)
+            self.free_lanes.append(seq.lane)
+            self.block_tables[seq.lane] = -1
+            self.context_lens[seq.lane] = 0
+            # freeze the lane so the next chunk cannot write into its (now
+            # freed, possibly re-allocated) pages
+            self.done[seq.lane] = True
+            seq.lane = -1
+        self.manager.free_seq(seq.seq_id)
+        if seq.on_finish:
+            try:
+                seq.on_finish(seq)
+            except Exception:  # pragma: no cover
+                logger.exception("on_finish callback failed")
+
+
+def _bucket_chunk(n: int, max_chunk: int) -> int:
+    """Round a chunk step count up to the next power of two (capped)."""
+    c = 1
+    while c < n:
+        c *= 2
+    return min(c, max_chunk)

@@ -1,13 +1,16 @@
 """Llama-3 family decoder in PyTorch (also mistral / qwen2 config flags).
 
-Port of the JAX package's ``pie_tpu/models/llama.py`` single-stream forward
-(``LlamaModel.__call__``): the same parameter dictionary (decoder layers
+Port of the JAX package's ``pie_tpu/models/llama.py``: the single-stream
+forward (``LlamaModel.__call__``) and the two forwards of the
+continuous-batching path over the paged KV pool (``paged_forward`` and
+``mixed_forward``), with the same parameter dictionary (decoder layers
 stacked on a leading axis, fused ``wqkv``/``wgu`` when quantized), the same
-fused-ln / fused-rope gates on the decode path, and the same cast points.
-The layer ``scan`` becomes a Python loop; the KV cache is written IN PLACE
-(see ``cache/kv_cache.py``). Quantized projections go through
-``ops.quant.quantized_matmul``: the CUDA kernels for tensors on the card,
-the plain version for tensors on the CPU.
+fused-ln / fused-rope gates and the same cast points. The layer ``scan``
+becomes a Python loop; the KV cache and the paged pool are written IN
+PLACE (see ``cache/kv_cache.py`` and ``cache/paged.py``). Quantized
+projections go through ``ops.quant.quantized_matmul`` and decode lanes
+through ``ops.paged_attention.paged_attention_decode``: the CUDA kernels
+for tensors on the card, the plain versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -19,9 +22,16 @@ import numpy as np
 import torch
 
 from pie_tpu_torch.cache.kv_cache import QuantizedKVCache, quantize_kv, scatter_drop
+from pie_tpu_torch.cache.paged import (
+    PAGE_SIZE,
+    gather_pages,
+    page_slots,
+    scatter_tokens,
+)
 from pie_tpu_torch.models.config import BaseConfig, _filter_kwargs
 from pie_tpu_torch.models.registry import register_model
 from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
+from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import (
     QuantizedTensor,
     pack_codes,
@@ -449,3 +459,181 @@ class LlamaModel:
         else:
             logits = self.unembed(params, rms_norm(h, params["norm"], eps))
         return logits.to(torch.float32), cache
+
+    # -- paged-pool forwards (continuous-batching path) ----------------------
+
+    def _gathered_attn(self, pool, layer, tables, q, mask, scale):
+        """Masked dense attention of q [B, T, Hq, dh] over the pages that
+        ``tables`` [B, maxP] names, gathered from the pool (INT8 pages stay
+        int8; their scales fold into the dots)."""
+        k = gather_pages(pool.k, layer, tables)
+        v = gather_pages(pool.v, layer, tables)
+        if pool.quantized:
+            ks = gather_pages(pool.k_scale, layer, tables)[..., None]
+            vs = gather_pages(pool.v_scale, layer, tables)[..., None]
+            return sdpa_quantized(q, k, ks, v, vs, mask, scale)
+        return sdpa(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
+
+    def paged_forward(
+        self,
+        params: dict,
+        input_ids: torch.Tensor,  # [B, T]
+        pool,  # PagedKVPool, written in place
+        block_tables: torch.Tensor,  # [B, maxP] int32 (-1 pad)
+        positions: torch.Tensor,  # [B, T] int32 (-1 = no write)
+        context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
+        with_logits: bool = True,
+    ):
+        """Forward over the global paged KV pool. Decode (T == 1) attends
+        through the paged decode-attention kernel (K3 on the card); a
+        prefill chunk gathers its pages to dense KV. Returns (logits
+        [B, T, V] f32, pool); with_logits=False stops after the last layer
+        (a prefill whose logits nobody reads) and returns (None, pool)."""
+        cfg = self.config
+        dh = cfg.resolved_head_dim
+        hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        h = self.embed(params, input_ids)
+        b, t = h.shape[0], h.shape[1]
+        dev = h.device
+        decode = t == 1
+        p = params["layers"]
+        inv_freq = self.inv_freq(dev)
+        # decode: rope is the QKV projection's epilogue, ln1 its prologue
+        fused_rope = decode and "wqkv" in p and dh in (64, 128)
+        rope_cs = None
+        if fused_rope:
+            rope_cs = rope_qkv_cs(positions[:, 0], inv_freq, hq, hkv, dh)
+        else:
+            cos, sin = rope_tables(positions, inv_freq)
+        scale = dh**-0.5
+        eps = cfg.rms_norm_eps
+        fused_ln = decode and b * t <= 32
+        phys, slot = page_slots(block_tables, positions, pool.num_pages)
+        if not decode:
+            mask = attention_mask(positions,
+                                  _paged_kv_positions(block_tables, context_lens))
+
+        for i in range(cfg.num_hidden_layers):
+            if fused_ln:
+                x, ln_kw = h, dict(ln_w=p["ln1"], ln_eps=eps)
+            else:
+                x, ln_kw = rms_norm(h, _row(p["ln1"], i), eps), {}
+            q, k, v = self._attn_proj(
+                p, x, b, t, layer=i, rope_cs=rope_cs,
+                rope_dim=dh if fused_rope else 0, **ln_kw,
+            )
+            if not fused_rope:
+                q = apply_rope_tables(q, cos, sin)
+                k = apply_rope_tables(k, cos, sin)
+            scatter_tokens(pool, i, phys, slot, k, v)
+            if decode:
+                attn = paged_attention_decode(
+                    q[:, 0].contiguous(), pool.k, pool.v, pool.k_scale,
+                    pool.v_scale, i, block_tables, context_lens, scale,
+                )[:, None]
+            else:
+                attn = self._gathered_attn(pool, i, block_tables, q, mask, scale)
+            h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps)
+        if not with_logits:
+            return None, pool
+        if fused_ln and "lm_head" in params:
+            logits = self.unembed(params, h, params["norm"], eps)
+        else:
+            logits = self.unembed(params, rms_norm(h, params["norm"], eps))
+        return logits.to(torch.float32), pool
+
+    def mixed_forward(
+        self,
+        params: dict,
+        pool,  # PagedKVPool, written in place
+        dec_tokens: torch.Tensor,  # [B] int decode-lane tokens
+        dec_positions: torch.Tensor,  # [B] write position per lane (-1 frozen)
+        dec_ctx: torch.Tensor,  # [B] int32 context len incl. this token (>= 1)
+        block_tables: torch.Tensor,  # [B, maxP] int32
+        pf_ids: torch.Tensor,  # [Cs] prefill-rider tokens (-1 pad)
+        pf_positions: torch.Tensor,  # [Cs] their positions (-1 pad)
+        pf_lane: int,  # lane whose table the rider uses
+        pf_ctx: int,  # rider-lane tokens in the pool AFTER this slice
+        pf_any: bool = True,  # the rider carries a token
+    ):
+        """One mixed continuous-batching step: every decode lane advances one
+        token AND a chunk of prefill tokens rides along, sharing one pass
+        over the weights (flat token axis M = B + Cs). Lanes attend through
+        the paged decode-attention kernel, the rider by masked dense
+        attention over its lane's gathered pages. The rider's lane, context
+        and emptiness are host values from the scheduler's plan (JAX's
+        ``lax.cond`` on the device becomes a branch on the host), so nothing
+        is read back. Returns (decode logits [B, V] f32, pool)."""
+        cfg = self.config
+        dh = cfg.resolved_head_dim
+        hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        b = dec_tokens.shape[0]
+        cs = pf_ids.shape[0]
+        m = b + cs
+        dev = dec_tokens.device
+        scale = dh**-0.5
+        eps = cfg.rms_norm_eps
+        p = params["layers"]
+        inv_freq = self.inv_freq(dev)
+
+        flat_ids = torch.cat([dec_tokens, pf_ids])  # [M]
+        positions = torch.cat([dec_positions, pf_positions])  # [M]
+        # rope fused into the QKV projection epilogue at any M (K1 / K2); pad
+        # rows rotate by garbage angles, their K is not kept and their
+        # attention output is discarded
+        fused_rope = "wqkv" in p and dh in (64, 128)
+        if fused_rope:
+            rope_cs = rope_qkv_cs(positions, inv_freq, hq, hkv, dh)
+        else:
+            cos, sin = rope_tables(positions[None], inv_freq)
+        h = self.embed(params, torch.clamp(flat_ids, min=0)[None])  # [1, M, D]
+
+        pf_table = block_tables[pf_lane]  # [maxP]
+        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
+                                        pool.num_pages)
+        pf_phys, pf_slot = page_slots(pf_table[None], pf_positions[None],
+                                      pool.num_pages)
+        phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
+        slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
+        if pf_any:
+            pf_ctx_t = torch.full((1,), pf_ctx, dtype=torch.int32, device=dev)
+            pf_mask = attention_mask(pf_positions[None],
+                                     _paged_kv_positions(pf_table[None], pf_ctx_t))
+
+        for i in range(cfg.num_hidden_layers):
+            x = rms_norm(h, _row(p["ln1"], i), eps)
+            q, k, v = self._attn_proj(
+                p, x, 1, m, layer=i, rope_cs=rope_cs if fused_rope else None,
+                rope_dim=dh if fused_rope else 0,
+            )  # [1, M, H, dh]
+            if not fused_rope:
+                q = apply_rope_tables(q, cos, sin)
+                k = apply_rope_tables(k, cos, sin)
+            scatter_tokens(pool, i, phys, slot, k[0], v[0])
+            attn_dec = paged_attention_decode(
+                q[0, :b].contiguous(), pool.k, pool.v, pool.k_scale,
+                pool.v_scale, i, block_tables, dec_ctx, scale,
+            )
+            if pf_any:
+                attn_pf = self._gathered_attn(pool, i, pf_table[None], q[:, b:],
+                                              pf_mask, scale)[0]
+            else:
+                attn_pf = torch.zeros((cs, hq, dh), dtype=q.dtype, device=dev)
+            attn = torch.cat([attn_dec, attn_pf])[None]  # [1, M, Hq, dh]
+            h2 = h + linear(attn.reshape(1, m, hq * dh), p["wo"], layer=i)
+            x = rms_norm(h2, _row(p["ln2"], i), eps)
+            h = h2 + self._mlp(p, x, layer=i)
+        h = rms_norm(h[:, :b], params["norm"], eps)  # lanes only
+        return self.unembed(params, h)[0].to(torch.float32), pool
+
+
+def _paged_kv_positions(block_tables: torch.Tensor,
+                        context_lens: torch.Tensor) -> torch.Tensor:
+    """kv slot positions [B, maxP*PAGE] of gathered paged KV: slot j of
+    logical page i holds position i*PAGE + j when < context_len, else -1."""
+    b, mp = block_tables.shape
+    pos = torch.arange(mp * PAGE_SIZE, device=block_tables.device)[None, :]
+    valid = (pos < context_lens[:, None]) & torch.repeat_interleave(
+        block_tables >= 0, PAGE_SIZE, dim=1
+    )
+    return torch.where(valid, pos, torch.full_like(pos, -1))

@@ -14,12 +14,16 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
   with one shift and one logic op.
 - **K2** (``csrc/quant_gemm.cu``, M > 32, the prefill branch): a tiled GEMM
   that dequantizes each 64x128 weight tile to bf16 in shared memory and
-  multiplies on the tensor cores with ``wmma``. Bound by operations:
-  2*M*K*N over 989 TFLOP/s bf16. Its first design double-buffers the
-  tiles through registers; no TMA or ``wgmma`` yet.
+  multiplies on the tensor cores with ``wmma``, with the same rope
+  epilogue as K1 (the mixed continuous-batching step fuses rope into its
+  QKV projection at M = lanes + rider). Bound by operations: 2*M*K*N over
+  989 TFLOP/s bf16. Its first design double-buffers the tiles through
+  registers; no TMA or ``wgmma`` yet.
 
-Both are compiled with nvcc for ``sm_90a`` at first use into
-``build/pie_tpu_torch/<hash of the sources>/`` and bound through ctypes.
+``build`` compiles every source under ``csrc/`` (K1, K2 and the paged
+attention kernel K3 of ``ops/paged_attention.py``) with nvcc for
+``sm_90a`` at first use into ``build/pie_tpu_torch/<hash of the
+sources>/``; ``kernel`` binds a library's C entry point through ctypes.
 A wrapper checks device, dtype, shape and contiguity (the weights' layout
 is checked once, where their ``QuantizedTensor`` is built), allocates the
 output with ``torch.empty``, launches on the current stream, raises if the
@@ -51,19 +55,21 @@ DECODE_MAX_M = 32
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pie_tpu_torch"
-SOURCES = {"gemv": "quant_gemv.cu", "gemm": "quant_gemm.cu"}
+#: every kernel source under csrc/, by library name
+SOURCES = {p.stem: p.name for p in sorted(CSRC.glob("*.cu"))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 #: kernel launches since the last reset, by kernel name
-launch_counts = {"K1": 0, "K2": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0}
 
 #: K1 splits K across blocks until about this many blocks are in flight
 #: (4 per SM of an H100)
 GEMV_TARGET_BLOCKS = 4 * 132
 _GEMV_TILE_K = 512
+_GEMM_TILE_N = 128  # K2's output tile width: a rope head must fit inside it
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -127,18 +133,25 @@ def build(verbose: bool = False) -> dict[str, Path]:
     return paths
 
 
-def _lib(name: str):
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point and argument types of each library
+ENTRY_POINTS = {
+    "quant_gemv": ("pie_quant_gemv", [_vp] * 10 + [_ci] * 8 + [_cf, _vp]),
+    "quant_gemm": ("pie_quant_gemm", [_vp] * 7 + [_ci] * 6 + [_vp]),
+    "paged_attention": ("pie_paged_attention",
+                        [_vp] * 10 + [_ci] * 9 + [_cf, _ci, _vp]),
+}
+
+
+def kernel(name: str):
+    """The C entry point of library ``name``, built at first use; each
+    returns cudaGetLastError() after its launch."""
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build()[name]))
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            if name == "gemv":
-                fn = lib.pie_quant_gemv
-                fn.argtypes = [vp] * 10 + [ci] * 8 + [cf, vp]
-            else:
-                fn = lib.pie_quant_gemm
-                fn.argtypes = [vp] * 5 + [ci] * 5 + [vp]
-            fn.restype = ci
+            symbol, argtypes = ENTRY_POINTS[name]
+            fn = getattr(ctypes.CDLL(str(build()[name])), symbol)
+            fn.argtypes = argtypes
+            fn.restype = _ci
             _libs[name] = fn
         return _libs[name]
 
@@ -262,6 +275,24 @@ def gemv_splits(n: int, padded_k: int) -> int:
     return -(-tiles // per)
 
 
+def _rope_tables(rope_cs, rope_dim: int, m: int, n: int):
+    """Checked (cos, sin) [M, N] f32 of the rope epilogue, or (None, None).
+    Both kernels pair a head's first-half columns with their partners dh/2
+    further on inside one block, so they need 32 | dh and dh | N."""
+    if not rope_dim:
+        return None, None
+    if rope_dim % 32 or n % rope_dim:
+        raise ValueError(f"rope epilogue needs 32 | dh and dh | N ({rope_dim}, {n})")
+    cos, sin = rope_cs
+    _check(cos, "cos", torch.float32, (m, n))
+    _check(sin, "sin", torch.float32, (m, n))
+    return cos, sin
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
                ln_eps=0.0) -> torch.Tensor:
     """K1: ``y = [rms_norm(x)*ln_w] @ dequant(W[layer])`` (+ rope), M <= 32.
@@ -273,13 +304,7 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
     _check(xm, "x", torch.bfloat16)
     wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
     lw = _ln_ptr(ln_w, layer, qt)
-    cos = sin = None
-    if rope_dim:
-        if rope_dim % 32 or n % rope_dim:
-            raise ValueError(f"rope epilogue needs 32 | dh and dh | N ({rope_dim}, {n})")
-        cos, sin = rope_cs
-        _check(cos, "cos", torch.float32, (m, n))
-        _check(sin, "sin", torch.float32, (m, n))
+    cos, sin = _rope_tables(rope_cs, rope_dim, m, n)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
     splits = gemv_splits(n, qt.padded_k)
     ws = counters = None
@@ -289,10 +314,9 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
         if counters is None:
             counters = torch.zeros(4096, dtype=torch.int32, device=xm.device)
             _counters[xm.device] = counters
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = _lib("gemv")(
-        xm.data_ptr(), wp, sp, bp, lw, ptr(cos), ptr(sin), y.data_ptr(),
-        ptr(ws), ptr(counters), splits,
+    err = kernel("quant_gemv")(
+        xm.data_ptr(), wp, sp, bp, lw, _ptr(cos), _ptr(sin), y.data_ptr(),
+        _ptr(ws), _ptr(counters), splits,
         m, qt.shape[0], qt.padded_k, n, qt.bits, qt.group_size,
         int(rope_dim), float(ln_eps), torch.cuda.current_stream().cuda_stream,
     )
@@ -302,17 +326,21 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
     return y
 
 
-def quant_gemm(x, qt, layer=None) -> torch.Tensor:
-    """K2: ``y = x @ bf16(dequant(W[layer]))``, M > 32. x [M, K] bf16 CUDA;
-    returns [M, N] bf16."""
+def quant_gemm(x, qt, layer=None, rope_cs=None, rope_dim=0) -> torch.Tensor:
+    """K2: ``y = x @ bf16(dequant(W[layer]))`` (+ rope, with K1's head
+    pairing), M > 32. x [M, K] bf16 CUDA; returns [M, N] bf16."""
     xm = _x_padded(x, qt)
     m, n = xm.shape[0], qt.shape[1]
     _check(xm, "x", torch.bfloat16)
     wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
+    cos, sin = _rope_tables(rope_cs, rope_dim, m, n)
+    if rope_dim and _GEMM_TILE_N % rope_dim:
+        raise ValueError(f"K2's rope epilogue needs dh | {_GEMM_TILE_N}, got {rope_dim}")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
-    err = _lib("gemm")(
-        xm.data_ptr(), wp, sp, bp, y.data_ptr(), m, qt.padded_k, n, qt.bits,
-        qt.group_size, torch.cuda.current_stream().cuda_stream,
+    err = kernel("quant_gemm")(
+        xm.data_ptr(), wp, sp, bp, _ptr(cos), _ptr(sin), y.data_ptr(),
+        m, qt.padded_k, n, qt.bits, qt.group_size, int(rope_dim),
+        torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError(f"K2 (quant_gemm) launch failed: CUDA error {err}")
@@ -322,14 +350,15 @@ def quant_gemm(x, qt, layer=None) -> torch.Tensor:
 
 def quant_matmul_cuda(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
                       ln_eps=0.0) -> torch.Tensor:
-    """Route a CUDA matmul to K1 (M <= 32) or K2 (M > 32); x [..., K]."""
+    """Route a CUDA matmul to K1 (M <= 32) or K2 (M > 32); x [..., K]. The
+    rope epilogue runs at any M; the ln prologue is decode-only (K1)."""
     batch_shape = x.shape[:-1]
     m = x.numel() // x.shape[-1]
     if m <= DECODE_MAX_M:
         y = quant_gemv(x, qt, layer=layer, rope_cs=rope_cs,
                        rope_dim=rope_dim, ln_w=ln_w, ln_eps=ln_eps)
     else:
-        if ln_w is not None or rope_dim:
-            raise ValueError("the ln prologue and rope epilogue are decode-only")
-        y = quant_gemm(x, qt, layer=layer)
+        if ln_w is not None:
+            raise ValueError("the ln prologue is decode-only (M <= 32)")
+        y = quant_gemm(x, qt, layer=layer, rope_cs=rope_cs, rope_dim=rope_dim)
     return y.reshape(*batch_shape, qt.shape[1])

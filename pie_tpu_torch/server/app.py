@@ -1,21 +1,27 @@
 """aiohttp application: OpenAI-compatible endpoints over the port's
-single-stream engine.
+engines.
 
 Port of the JAX package's ``pie_tpu/server/app.py``: the same handlers,
-wire schemas and error mapping. Engine calls run in a worker thread behind
-a lock (the engine is single-stream). The batching engine (BATCHING=1) and
-checkpoint loading (MODEL_PATH) are not ported yet and raise.
+wire schemas and error mapping. Engine calls run in worker threads: behind
+a lock for the single-stream ``InferenceEngine``, without one for the
+continuous-batching ``BatchedInferenceEngine``, which decodes concurrent
+requests (and the choices of an ``n > 1`` chat) as lanes of one batch.
+Checkpoint loading (MODEL_PATH) is not ported yet and raises, so the app
+needs an engine.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
+import threading
 from typing import Any, Optional
 
 from aiohttp import web
 
+from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
 from pie_tpu_torch.engine.engine import InferenceEngine, InferenceError
 from pie_tpu_torch.server import schemas as S
 from pie_tpu_torch.server.config import Settings, get_settings
@@ -85,7 +91,11 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
         req = S.ChatCompletionRequest.model_validate(await request.json())
     except Exception as e:
         return _err(422, f"invalid request: {e}")
-    # n>1 degrades to one choice on the single-stream engine
+    n_choices = max(1, req.n or 1)
+    if n_choices > 1 and (req.stream or not isinstance(engine, BatchedInferenceEngine)):
+        # the single-stream engine and streaming degrade to one choice; the
+        # batching engine decodes the choices as concurrent lanes
+        n_choices = 1
     kw = _gen_kwargs(req)
     max_tokens = req.max_completion_tokens or req.max_tokens or 1024
     tools = [t.model_dump() for t in req.tools] if req.tools else None
@@ -121,16 +131,22 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
         )
 
         try:
-            inter = await _run_blocking(
-                app, engine.chat, interactions, **chat_kwargs
-            )
+            inters = await _chat_choices(app, engine, interactions, chat_kwargs,
+                                         n_choices)
         except (InferenceError, ValueError) as e:
             get_metrics().record_request(0, 0, None, timer.elapsed, error=True)
             return _err(400, str(e))
-        get_metrics().record_request(
-            inter.prompt_tokens, inter.completion_tokens, None, timer.elapsed
-        )
-        resp = _chat_response(engine, req, inter)
+        pt = inters[0].prompt_tokens
+        ct = sum(i.completion_tokens for i in inters)
+        get_metrics().record_request(pt, ct, None, timer.elapsed)
+        resp = _chat_response(engine, req, inters[0])
+        for idx, inter in enumerate(inters[1:], start=1):
+            choice = _chat_response(engine, req, inter).choices[0]
+            choice.index = idx
+            resp.choices.append(choice)
+        if len(inters) > 1:
+            resp.usage = S.Usage(prompt_tokens=pt, completion_tokens=ct,
+                                 total_tokens=pt + ct)
         return web.json_response(resp.model_dump(exclude_none=True))
 
     # -- SSE streaming (reference chat.py:160-249) --
@@ -224,6 +240,36 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
     await resp.write(b"data: [DONE]\n\n")
     await resp.write_eof()
     return resp
+
+
+async def _chat_choices(app, engine, interactions, chat_kwargs, n_choices):
+    """The assistant turns of one chat request: one, or ``n_choices``
+    decoded as concurrent lanes of the batching engine. When one choice
+    fails, its siblings are cancelled instead of decoding on."""
+    if n_choices == 1:
+        return [await _run_blocking(app, engine.chat, interactions, **chat_kwargs)]
+    cancel_evt = threading.Event()
+
+    def one_choice():
+        gen = engine.chat_stream(interactions, **chat_kwargs)
+        try:
+            while True:
+                if cancel_evt.is_set():
+                    gen.close()  # cancels the sequence
+                    raise InferenceError("cancelled: sibling choice failed")
+                next(gen)
+        except StopIteration as e:
+            return e.value
+
+    tasks = [asyncio.ensure_future(_run_blocking(app, one_choice))
+             for _ in range(n_choices)]
+    done, pending = await asyncio.wait(tasks, return_when=asyncio.FIRST_EXCEPTION)
+    first_err = next((t.exception() for t in done if t.exception()), None)
+    if first_err is not None:
+        cancel_evt.set()
+        await asyncio.gather(*pending, return_exceptions=True)
+        raise first_err
+    return [t.result() for t in tasks]
 
 
 def _chat_response(engine, req, inter) -> S.ChatCompletionResponse:
@@ -450,17 +496,16 @@ def create_app(
     dev = resolve_device(device)
     settings = settings or get_settings()
     logging.basicConfig(level=settings.log_level)
-    if settings.batching:
-        raise NotImplementedError(
-            "BATCHING=1: the continuous-batching engine is not ported yet "
-            "(ROADMAP queue A7)"
-        )
     if engine is None:
         if not settings.model_path:
             raise RuntimeError("MODEL_PATH is not set")
         raise NotImplementedError(
             "MODEL_PATH: checkpoint loading is not ported yet (ROADMAP queue A9)"
         )
+    concurrent = isinstance(engine, BatchedInferenceEngine)
+    if settings.batching and not concurrent:
+        raise ValueError("BATCHING=1 asks for continuous batching, but the "
+                         "engine given is the single-stream InferenceEngine")
     if engine.device != dev:
         raise ValueError(f"engine runs on {engine.device}, app asked for {dev}")
     app = web.Application()
@@ -468,8 +513,8 @@ def create_app(
 
     async def _init_lock(app):
         # created at startup so the lock binds to the serving event loop;
-        # the single-stream engine serves one request at a time
-        app[LOCK_KEY] = asyncio.Lock()
+        # the batching engine handles concurrency itself
+        app[LOCK_KEY] = contextlib.nullcontext() if concurrent else asyncio.Lock()
 
     app.on_startup.append(_init_lock)
     app.router.add_post("/v1/chat/completions", handle_chat)

@@ -1,9 +1,10 @@
 """Server settings from environment / .env (reference server/config.py:4-19).
 
 Only the settings the port reads are kept. The reference's MAX_SEQ_LEN,
-KV_QUANTIZED, NUM_LANES, NUM_PAGES and NATIVE_SCHEDULER configure the model
-loader and the batching engine, which are not ported yet (ROADMAP queues A9
-and A7); ``create_app`` refuses MODEL_PATH and BATCHING=1 until then."""
+KV_QUANTIZED, NUM_LANES, NUM_PAGES and NATIVE_SCHEDULER configure the
+engine that the model loader builds, which is not ported yet (ROADMAP
+queues A9 and A7): ``create_app`` refuses MODEL_PATH, takes the engine from
+its caller, and refuses BATCHING=1 with a single-stream engine."""
 
 from __future__ import annotations
 

@@ -41,6 +41,28 @@ def test_port_imports_no_jax():
     assert int(out.stdout.split()[0]) > 30  # every module was imported
 
 
+@pytest.mark.parametrize("module", [
+    "pie_tpu_torch.runtime.allocator",
+    "pie_tpu_torch.cache.paged",
+    "pie_tpu_torch.ops.paged_attention",
+    "pie_tpu_torch.engine.scheduler",
+    "pie_tpu_torch.engine.async_engine",
+])
+def test_batching_modules_import_no_jax(module):
+    """Each module of the continuous-batching path, imported alone in a
+    fresh process, brings in neither JAX nor the JAX package."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "pie_tpu"))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
     """chip_smoke.py imports neither JAX nor the JAX package, and where no
     CUDA card is present it exits non-zero without a result line."""
@@ -69,8 +91,11 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     from pie_tpu_torch.cache.kv_cache import make_kv_cache
+    from pie_tpu_torch.cache.paged import PagedKVPool
     from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
     from pie_tpu_torch.engine.core import EngineCore, PenaltyParams
+    from pie_tpu_torch.engine.scheduler import PagedEngine
     from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, from_jax_params
     from pie_tpu_torch.ops.sampling import SamplingParams
     from pie_tpu_torch.server.app import create_app
@@ -84,12 +109,17 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         EngineCore(model, params)
     with pytest.raises(RuntimeError, match="CUDA"):
+        PagedEngine(model, params, num_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedInferenceEngine(model=model, params=params, num_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
         model.init_quantized_params(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init_params(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         from_jax_params({"norm": params["norm"].numpy()}, "cuda")
     for make in (lambda: make_kv_cache(1, 1, 8, 2, 16),
+                 lambda: PagedKVPool.create(1, 4, 2, 16),
                  lambda: SamplingParams.make(1),
                  lambda: PenaltyParams.make(1),
                  lambda: from_jax_params({})):

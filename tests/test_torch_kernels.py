@@ -1,14 +1,19 @@
-"""The hand-written CUDA kernels K1 (decode GEMV) and K2 (prefill GEMM)
-against their plain PyTorch version, on a CUDA card. Imports no JAX, so it
-runs on the card's machine: python -m pytest tests/test_torch_kernels.py.
-Elsewhere every test skips: the kernels have no CPU mode."""
+"""The hand-written CUDA kernels K1 (decode GEMV), K2 (prefill GEMM) and K3
+(paged decode attention) against their plain PyTorch versions, on a CUDA
+card. Imports no JAX, so it runs on the card's machine (the conftest
+imports JAX: skip it there):
+python -m pytest --noconftest tests/test_torch_kernels.py. Elsewhere every
+test skips: the kernels have no CPU mode."""
 
 import pytest
 import torch
 
+from pie_tpu_torch.ops import paged_attention as pa
 from pie_tpu_torch.ops import quant as tq
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 from pie_tpu_torch.ops.rope import rope_qkv_cs
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -23,22 +28,25 @@ def _norm_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("m", [1, 32, 200])
+@pytest.mark.parametrize("m", [1, 32, 40, 200, 256])
 @pytest.mark.parametrize("bits,group_size", [(4, 64), (4, 32), (4, 128), (8, 64)])
-def test_kernel_matches_plain(cuda, m, bits, group_size):
-    hq, hkv, dh, k = 8, 2, 128, 1024
+@pytest.mark.parametrize("dh", [64, 128])
+def test_kernel_matches_plain(cuda, m, bits, group_size, dh):
+    """Both kernels with the rope epilogue at any M (the mixed step's QKV
+    projection runs K2 with rope at M = lanes + rider); the ln prologue on
+    the decode branch only."""
+    hq, hkv, k = 8, 2, 1024
     n = (hq + 2 * hkv) * dh
     gen = torch.Generator(device=cuda).manual_seed(m)
     w = (torch.randn((2, k, n), generator=gen, device=cuda) * 0.05).bfloat16()
     qt = tq.quantize(w, group_size, bits)
     x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
-    kw = {}
+    pos = torch.arange(m, device=cuda, dtype=torch.int32) * 5
+    inv = torch.rand(dh // 2, generator=gen, device=cuda)
+    kw = dict(rope_dim=dh, rope_cs=rope_qkv_cs(pos, inv, hq, hkv, dh))
     if m <= qmc.DECODE_MAX_M:
         lnw = (1 + 0.1 * torch.randn((2, k), generator=gen, device=cuda)).to(torch.bfloat16)
-        pos = torch.arange(m, device=cuda, dtype=torch.int32) * 5
-        inv = torch.rand(dh // 2, generator=gen, device=cuda)
-        kw = dict(ln_w=lnw, ln_eps=1e-5, rope_dim=dh,
-                  rope_cs=rope_qkv_cs(pos, inv, hq, hkv, dh))
+        kw.update(ln_w=lnw, ln_eps=1e-5)
     qmc.reset_counts()
     got = tq.quantized_matmul(x, qt, layer=1, **kw)
     torch.cuda.synchronize()
@@ -56,3 +64,130 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # prologue on the prefill branch
         qmc.quant_matmul_cuda(torch.randn((64, 512), device=cuda).bfloat16(), qt,
                               ln_w=torch.ones(512, device=cuda).bfloat16())
+    wide = tq.quantize(torch.randn((512, 512), device=cuda).bfloat16(), 64, 4)
+    pos = torch.arange(64, device=cuda, dtype=torch.int32)
+    cs = rope_qkv_cs(pos, torch.rand(128, device=cuda), 2, 0, 256)
+    with pytest.raises(ValueError):  # a 256-wide head does not fit K2's tile
+        qmc.quant_gemm(torch.randn((64, 512), device=cuda).bfloat16(), wide,
+                       rope_cs=cs, rope_dim=256)
+
+
+# -- K3: paged decode attention ------------------------------------------------
+
+
+def paged_inputs(dev, lens, hq, hkv, d, quantized, layers=2, maxp=4, seed=0):
+    """Random pool [L, P + 1, Hkv, 64, D] (bf16, or int8 with f32 scales),
+    block tables of shuffled pages with -1 pads, bf16 queries."""
+    g = torch.Generator().manual_seed(seed)
+    b = len(lens)
+    p = b * maxp + 2
+    shape = (layers, p + 1, hkv, 64, d)
+    if quantized:
+        k, v = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:4], generator=g) * 0.02 + 0.005 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g).bfloat16() for _ in range(2))
+        ks = vs = None
+    perm = torch.randperm(p, generator=g).to(torch.int32)
+    tables = torch.full((b, maxp), -1, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        need = -(-n // 64)
+        tables[i, :need] = perm[i * maxp:i * maxp + need]
+    q = torch.randn((b, hq, d), generator=g).bfloat16()
+    ctx = torch.tensor(lens, dtype=torch.int32)
+    to = lambda t: None if t is None else t.to(dev)
+    return tuple(to(t) for t in (q, k, v, ks, vs, tables, ctx))
+
+
+LENS = (1, 63, 64, 65, 130, 200, 7)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [0, 1, 64, 100])
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4), (16, 2)])
+def test_paged_attention_matches_plain(cuda, monkeypatch, d, quantized, window,
+                                       split, hq, hkv):
+    """K3 against paged_attention_ref: ragged lengths, shuffled tables with
+    -1 pads, sliding windows, layer 1 of 2, the page walk split across
+    blocks or not; bf16 output within 2e-2 of the f32 plain version."""
+    if not split:
+        monkeypatch.setattr(pa, "TARGET_BLOCKS", 1)
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, LENS, hq, hkv, d, quantized)
+    scale = d ** -0.5
+    qmc.reset_counts()
+    got = pa.paged_attention_decode(q, k, v, ks, vs, 1, tables, ctx, scale, window)
+    torch.cuda.synchronize()
+    assert qmc.launch_counts["K3"] == 1
+    want = pa.paged_attention_ref(q.float(), k, v, ks, vs, 1, tables, ctx, scale,
+                                  window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _norm_err(got, want) < 2e-2
+    # a second call finds the arrival counters reset
+    again = pa.paged_attention_decode(q, k, v, ks, vs, 1, tables, ctx, scale, window)
+    assert torch.equal(again, got)
+
+
+def test_paged_attention_rejects_what_it_does_not_take(cuda):
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, (70, 5), 8, 2, 128, True)
+    args = (tables, ctx, 0.1)
+    with pytest.raises(ValueError):  # f32 queries
+        pa.paged_attention_decode(q.float(), k, v, ks, vs, 0, *args)
+    with pytest.raises(ValueError):  # INT8 pool without its scales
+        pa.paged_attention_decode(q, k, v, None, None, 0, *args)
+    with pytest.raises(ValueError):  # pool on the CPU
+        pa.paged_attention_decode(q, k.cpu(), v, ks, vs, 0, *args)
+    with pytest.raises(IndexError):  # layer out of range
+        pa.paged_attention_decode(q, k, v, ks, vs, 2, *args)
+    q96, k96, v96, _, _, t96, c96 = paged_inputs(cuda, (70,), 8, 2, 96, False)
+    with pytest.raises(ValueError):  # head dim 96
+        pa.paged_attention_decode(q96, k96, v96, None, None, 0, t96, c96, 0.1)
+
+
+# -- the continuous-batching path on the card ----------------------------------
+
+
+def test_chunk_dispatch_reads_nothing_back(cuda, monkeypatch):
+    """After a warm-up request (which fills one-time caches), every device
+    program the scheduler queues (direct prefills, and chunks with riders,
+    wakes and frozen lanes) runs with CUDA's sync debug mode set to raise,
+    so none of them reads the device back: the drain is the chunk's one
+    host read. K3 runs once per layer per device step."""
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, SeqStatus
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    model = LlamaModel(LlamaConfig(
+        model_type="llama", hidden_size=512, intermediate_size=1024,
+        num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2,
+        head_dim=64, vocab_size=1024, rope_theta=500000.0,
+        tie_word_embeddings=False))
+    params = model.init_quantized_params(seed=0, device=cuda)
+    engine = PagedEngine(model, params, num_lanes=4, num_pages=32, max_pages_per_seq=8,
+                         prefill_chunk=64, rider_width=44, kv_quantized=True,
+                         device=cuda)
+    sched = Scheduler(engine, decode_steps=4)
+    sched.add_request(list(range(1, 101)), max_new_tokens=4, temperature=0.0)
+    sched.add_request([5, 6, 7], max_new_tokens=4, temperature=0.0)
+    sched.run_to_completion(max_steps=100)
+    for name in ("_chunk", "_prefill"):
+        real = getattr(engine, name)
+
+        def strict(*args, _real=real, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        monkeypatch.setattr(engine, name, strict)
+    qmc.reset_counts()
+    steps0 = engine.device_steps
+    seqs = [sched.add_request(list(range(1, 1 + n)), max_new_tokens=12, temperature=0.0)
+            for n in (100, 10, 3)]  # a direct prefill, two riders
+    sched.run_to_completion(max_steps=100)
+    torch.cuda.synchronize()
+    assert all(s.status == SeqStatus.COMPLETED and len(s.output_ids) == 12 for s in seqs)
+    assert qmc.launch_counts["K3"] == 2 * (engine.device_steps - steps0) > 0
+    assert qmc.launch_counts["K2"] > 0  # the mixed steps' M = 4 + 44 projections

@@ -232,11 +232,15 @@ def test_completions_logit_bias_forces_text(engine_fixture):
 
 
 def test_unported_settings_raise(engine_fixture):
-    with pytest.raises(NotImplementedError, match="A7"):
+    """Checkpoint loading is not ported, with or without BATCHING=1, and
+    BATCHING=1 refuses the single-stream engine."""
+    with pytest.raises(ValueError, match="BATCHING"):
         create_app(engine=engine_fixture, settings=Settings(batching=True),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        create_app(settings=Settings(model_path="/nonexistent"), device="cpu")
+    for batching in (False, True):
+        with pytest.raises(NotImplementedError, match="A9"):
+            create_app(settings=Settings(model_path="/nonexistent",
+                                         batching=batching), device="cpu")
 
 
 def test_constrained_request_is_refused(engine_fixture):
