@@ -14,13 +14,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    over 8 rotating weight copies with CUDA events (device time from a
    captured CUDA graph, and back-to-back calls from the host), beside the
    plain version, a torch.matmul yardstick on a pre-dequantized bf16
-   weight, and the least time the card could take. Then K3 (paged decode
-   attention) against its plain version at the 8B heads (D 128) and the 1B
-   heads (D 64), bf16 and INT8 pools, 8 lanes of contexts 1..2048, windows
-   0 and 256, layer 3 of a 4-layer pool (normalized max error < 2e-2), and
-   timed at 8 lanes x 2,048 tokens (INT8 and bf16) over rotating layers
-   beside the plain version and scaled_dot_product_attention on K/V
-   gathered and dequantized beforehand.
+   weight, and the least time the card could take; K1 and K2 again at the
+   Llama-3.2-1B shapes (wqkv with ln + rope and the tied lm_head at M = 1,
+   wgu at M = 512). Then K4 (the fused decode MLP block) against its plain
+   version (normalized max error < 0.02) at the 1B shapes (INT4 g64 at
+   M = 1 and 8, INT8 g64 at M = 8) and, recorded only, the 8B shapes,
+   timed beside the plain version, the port's unfused block and a
+   torch.matmul chain on bf16 weights dequantized beforehand. Then K3 (paged
+   decode attention) against its plain version at the 8B heads (D 128) and
+   the 1B heads (D 64), bf16 and INT8 pools, 8 lanes of contexts 1..2048,
+   windows 0 and 256, layer 3 of a 4-layer pool (normalized max error
+   < 2e-2), and timed at 8 lanes x 2,048 tokens (INT8 and bf16) over
+   rotating layers beside the plain version and
+   scaled_dot_product_attention on K/V gathered and dequantized beforehand.
 3. model: a 2-layer model at the full 8B widths, same weights on the card
    (kernels) and on the CPU (plain versions): prefill 16 tokens, 4
    teacher-forced decode steps, then a 40-token chunk (so K2 runs too);
@@ -46,9 +52,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefix cache) as tok/s.
 7. batched requests: create_app over a BatchedInferenceEngine on the 8B
    weights answers 4 concurrent chats and one n=2 chat over HTTP.
+3b. (run after 3) model 1B: a 2-layer model at the full Llama-3.2-1B widths
+   (tied INT4 head, llama3 rope), card against CPU: __call__ (16-token
+   prefill, 4 decode steps), paged_forward over an INT8 pool (8 lanes) and
+   one mixed_forward step; normalized max error < 0.03, K4 exactly twice
+   per decode step and never in a prefill or mixed step.
+8. snapshot: the full 16-layer 1B model with random bf16 weights written as
+   an HF snapshot (config.json with an INT4 g64 quantization block,
+   model.safetensors, the word-level tokenizer's files) into a temporary
+   directory.
+9. serve: `MODEL_PATH=<snapshot> python -m pie_tpu_torch.server` as a
+   subprocess: a chat, a streamed chat and a completion; then again with
+   BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8: 4 concurrent chats and one n=2
+   chat. Every request returns 200; startup and request times printed.
+10. 1B engines from the snapshot, in process: InferenceEngine(model_path=)
+   (load time, quantized bytes, K4 16 and K1 17 per decoded token, TTFT
+   p50 at 512 tokens, best-of-3 decode tok/s, idle share) and
+   BatchedInferenceEngine(model_path=, kv_quantized=True, num_lanes=8)
+   through its scheduler in bench.py's paged configuration (aggregate
+   tok/s best of 2, K4 16 per decode device step and none in mixed steps,
+   TTFT under load, idle share over one steady chunk).
 
-Prints one JSON line per phase, then the kernel summary line, the card's
-name and power limit, and as the last line
+Prints one JSON line per phase and one with each phase's seconds, then the
+kernel summary line (K1-K4), the card's name and power limit, and as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -57,7 +84,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -67,6 +96,11 @@ ROTATE = 8  # distinct weight copies per timing (the 50 MB L2 holds wqkv/wo)
 
 # Llama-3-8B geometry (bench.py's llama3_8b_config)
 D, DI, HQ, HKV, DH, VOCAB, LAYERS = 4096, 14336, 32, 8, 128, 128256, 32
+# Llama-3.2-1B geometry (bench.py's llama32_1b_config): tied embeddings
+D1, DI1, HQ1, HKV1, DH1, LAYERS1 = 2048, 8192, 32, 8, 64, 16
+ROPE1 = {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+         "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
+EPS = 1e-5
 
 
 def emit(obj) -> None:
@@ -128,7 +162,7 @@ def device_ms(fn, iters: int = 40) -> float:
 # -- phase 2 -------------------------------------------------------------------
 
 
-def random_qt(k, n, bits, g, copies, gen):
+def random_qt(k, n, bits, g, copies, gen, scale_dtype=torch.bfloat16):
     """Stacked random quantized weights [copies, K, N] on the card."""
     from pie_tpu_torch.ops.quant import QuantizedTensor
 
@@ -138,18 +172,19 @@ def random_qt(k, n, bits, g, copies, gen):
     sc = 0.02 / k**0.5
     scales = (torch.rand((copies, k // g, n), generator=gen, device="cuda") + 0.5) * sc
     biases = -scales * (2**bits - 1) / 2
-    return QuantizedTensor(packed=packed, scales=scales.bfloat16(),
-                           biases=biases.bfloat16(), bits=bits, group_size=g,
+    return QuantizedTensor(packed=packed, scales=scales.to(scale_dtype),
+                           biases=biases.to(scale_dtype), bits=bits, group_size=g,
                            shape=(k, n))
 
 
-def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0):
+def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0,
+                heads=(HQ, HKV, DH), scale_dtype=torch.bfloat16):
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
     from pie_tpu_torch.ops.quant import dequantize
     from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qt = random_qt(k, n, bits, g, ROTATE, gen)
+    qt = random_qt(k, n, bits, g, ROTATE, gen, scale_dtype)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     kw = {}
     if ln:
@@ -157,9 +192,10 @@ def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0):
                                               device="cuda")).bfloat16(),
                   ln_eps=1e-5)
     if rope:
-        inv = torch.from_numpy(make_inv_freq(DH, 500000.0)).cuda()
+        hq, hkv, dh = heads
+        inv = torch.from_numpy(make_inv_freq(dh, 500000.0)).cuda()
         pos = torch.arange(m, dtype=torch.int32, device="cuda") + 100
-        kw.update(rope_cs=rope_qkv_cs(pos, inv, HQ, HKV, DH), rope_dim=DH)
+        kw.update(rope_cs=rope_qkv_cs(pos, inv, hq, hkv, dh), rope_dim=dh)
     kern = qmc.quant_matmul_cuda
     got = kern(x, qt, layer=0, **kw)
     want = qmc.quant_matmul_ref(x, qt, layer=0, **kw)
@@ -177,13 +213,15 @@ def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0):
     library_ms = device_ms(lambda i: torch.matmul(x, wlib[i % ROTATE]))
     del wlib
     ep = 32 // bits
-    nbytes = (k // ep * n * 4 + 2 * (k // g) * n * 2 + m * k * 2 + m * n * 2
+    nbytes = (k // ep * n * 4 + 2 * (k // g) * n * qt.scales.element_size()
+              + m * k * 2 + m * n * 2
               + (k * 2 if ln else 0) + (2 * m * n * 4 if rope else 0))
     flops = 2 * m * k * n
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     row = dict(
         phase="kernels", case=name, kernel="K1" if m <= qmc.DECODE_MAX_M else "K2",
         m=m, k=k, n=n, bits=bits, group_size=g, ln=ln, rope=rope,
+        scales=str(qt.scales.dtype).replace("torch.", ""),
         max_abs_err=diff, norm_err=norm, kernel_ms=ms, kernel_host_ms=host_ms,
         plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(bound_bytes, bound_ops),
@@ -220,6 +258,113 @@ def phase_kernels():
     for m in (40, 256):
         kernel_case(f"wqkv M={m} (rope)", D, (HQ + 2 * HKV) * DH, m, rope=True)
     torch.cuda.empty_cache()
+    return rows
+
+
+# per decoded token at 1B: K1 for wqkv per layer and the tied lm_head (its
+# scales f32: quantized from the f32 transpose of the embedding, as the JAX
+# package does); the rest of each layer is K4
+MAIN_SHAPES_1B = [  # name, K, N, per-token launches, ln, rope, scale dtype
+    ("wqkv", D1, (HQ1 + 2 * HKV1) * DH1, LAYERS1, True, True, torch.bfloat16),
+    ("lm_head", D1, VOCAB, 1, True, False, torch.float32),
+]
+
+
+def phase_kernels_1b():
+    """K1 and K2 at the Llama-3.2-1B shapes: the per-token K1 launches at
+    M = 1, and wgu and the tied head of a 512-token prefill (K2)."""
+    heads = (HQ1, HKV1, DH1)
+    rows = [(per, kernel_case(f"1B {name} M=1", k, n, 1, ln=ln, rope=rope, heads=heads,
+                              scale_dtype=sd))
+            for name, k, n, per, ln, rope, sd in MAIN_SHAPES_1B]
+    kernel_case("1B wgu M=512", D1, 2 * DI1, 512)
+    kernel_case("1B lm_head M=512 (f32 scales)", D1, VOCAB, 512,
+                scale_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 2, K4 ---------------------------------------------------------------
+
+
+def fused_case(name, d, di, m, bits=4, g=64, seed=0):
+    """K4 against its plain version on the same card inputs (normalized max
+    error < 0.02), then its device time over 8 rotating weight copies beside
+    the plain version, the port's unfused block (three K1 launches and the
+    glue), a torch.matmul chain on bf16 weights dequantized beforehand with
+    the same glue (yardstick only), and the least time the card could take."""
+    import torch.nn.functional as F
+
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, rms_norm
+    from pie_tpu_torch.ops import fused_mlp as fm
+    from pie_tpu_torch.ops.quant import dequantize
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wo, wgu, wd = (random_qt(k, n, bits, g, ROTATE, gen)
+                   for k, n in ((d, d), (d, 2 * di), (di, d)))
+    ln2 = (1 + 0.1 * torch.randn((ROTATE, d), generator=gen, device="cuda")).bfloat16()
+    attn = torch.randn((m, d), generator=gen, device="cuda").bfloat16()
+    h = torch.randn((m, d), generator=gen, device="cuda").bfloat16()
+    got = fm.fused_mlp_stacked(attn, h, ln2, 0, wo, wgu, wd, EPS)
+    want = fm.fused_mlp_ref(attn, h, ln2, 0, wo, wgu, wd, EPS)
+    torch.cuda.synchronize()
+    if not (got.dtype == torch.bfloat16 and got.shape == (m, d)
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: K4 output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs().max().item()
+    norm = diff / want.float().abs().max().item()
+    if not norm < 0.02:
+        raise AssertionError(f"{name}: K4 vs plain normalized err {norm}")
+
+    kern = lambda i: fm.fused_mlp_stacked(attn, h, ln2, i % ROTATE, wo, wgu, wd, EPS)
+    ms = device_ms(kern)  # the cooperative launch captures into a graph
+    host_ms = cuda_ms(kern, 50)
+    plain_ms = cuda_ms(lambda i: fm.fused_mlp_ref(attn, h, ln2, i % ROTATE, wo, wgu,
+                                                  wd, EPS), 3, warmup=1)
+    model = LlamaModel(LlamaConfig(hidden_size=d, intermediate_size=di,
+                                   num_hidden_layers=ROTATE))
+    p = {"wo": wo, "wgu": wgu, "wd": wd, "ln2": ln2}
+    unfused_ms = device_ms(lambda i: model._mlp_block(
+        p, h[:, None], attn[:, None], i % ROTATE, EPS, False, fused_ln=True))
+    dense = [tuple(dequantize(w.layer(i), torch.bfloat16) for w in (wo, wgu, wd))
+             for i in range(ROTATE)]
+
+    def library(i):
+        dwo, dwgu, dwd = dense[i % ROTATE]
+        h2 = h + attn @ dwo
+        gu = rms_norm(h2, ln2[i % ROTATE], EPS) @ dwgu
+        return h2 + (F.silu(gu[:, :di]) * gu[:, di:]) @ dwd
+
+    library_ms = device_ms(library)
+    del dense
+    ep = 32 // bits
+    wbytes = sum(k // ep * n * 4 + 2 * (k // g) * n * 2
+                 for k, n in ((d, d), (d, 2 * di), (di, d)))
+    nbytes = wbytes + 3 * m * d * 2 + d * 2  # attn, h in, out; the ln2 row
+    flops = 2 * m * (d * d + d * 2 * di + di * d)
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    row = dict(
+        phase="kernels", case=name, kernel="K4", m=m, d=d, di=di, bits=bits,
+        group_size=g, max_abs_err=diff, norm_err=norm, kernel_ms=ms,
+        kernel_host_ms=host_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+        library_ms=library_ms, bound_ms=max(bound_bytes, bound_ops),
+        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        bytes=nbytes, weight_bytes=wbytes, flops=flops,
+    )
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_fused_mlp():
+    """K4 at the 1B shapes (INT4 g64 at M = 1 and 8, INT8 g64 at M = 8) and,
+    recorded only, the 8B shapes at M = 1 and 8 (the model's gate keeps K4
+    off above hidden 2048)."""
+    rows = {(4, 1): fused_case("1B mlp block M=1", D1, DI1, 1),
+            (4, 8): fused_case("1B mlp block M=8", D1, DI1, 8),
+            (8, 8): fused_case("1B mlp block M=8 int8 g64", D1, DI1, 8, bits=8)}
+    for m in (1, 8):
+        fused_case(f"8B mlp block M={m} (recorded only)", D, DI, m)
     return rows
 
 
@@ -495,6 +640,104 @@ def paged_model_check(model, cpu_params, gpu_params):
               widths="llama3-8b", kv="int8 paged", norm_err=max(errs), launches=counts))
 
 
+def llama1b_config(layers):
+    from pie_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(
+        model_type="llama", hidden_size=D1, intermediate_size=DI1,
+        num_hidden_layers=layers, num_attention_heads=HQ1,
+        num_key_value_heads=HKV1, head_dim=DH1, vocab_size=VOCAB,
+        rope_theta=500000.0, rope_scaling=ROPE1, tie_word_embeddings=True,
+    )
+
+
+def phase_model_1b():
+    """A 2-layer model at the full 1B widths (tied INT4 g64 head quantized
+    from the embedding, llama3 rope), card against the CPU plain path:
+    __call__ (16-token prefill, 4 decode steps), paged_forward over an INT8
+    pool (8 lanes: a padded prefill chunk, 4 decode steps) and one
+    mixed_forward step (8 lanes + a 16-token rider). K4 runs twice per
+    decode step and never in a prefill or mixed step."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.kv_cache import make_kv_cache
+    from pie_tpu_torch.cache.paged import PagedKVPool
+    from pie_tpu_torch.models.llama import LlamaModel
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model = LlamaModel(llama1b_config(2))
+    gpu_params = model.quantize_params(model.init_params(seed=3, device="cuda"), 64, 4)
+    cpu_params = to_device(gpu_params, "cpu")
+    params = {"cpu": cpu_params, "cuda": gpu_params}
+    t = lambda a, d: torch.from_numpy(np.asarray(a, np.int32)).to(d)
+    errs, k4 = [], []
+
+    def compare(what, run, rows=slice(None)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            qmc.reset_counts()
+            with torch.no_grad():
+                out[dev] = run(dev).float().cpu()[rows]
+        torch.cuda.synchronize()
+        k4.append((what, qmc.launch_counts["K4"]))
+        err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+        if not (torch.isfinite(out["cuda"]).all() and err < 0.03):
+            raise AssertionError(f"1B model check, {what}: err {err}")
+        errs.append(err)
+
+    ids = np.random.default_rng(7).integers(0, VOCAB, (1, 20))
+    caches = {d: make_kv_cache(2, 1, 32, HKV1, DH1, dtype=torch.bfloat16, device=d)
+              for d in ("cpu", "cuda")}
+
+    def call(dev, start, n):
+        first = torch.tensor([start], dtype=torch.int32, device=dev)
+        pos = first[:, None] + torch.arange(n, dtype=torch.int32, device=dev)[None]
+        caches[dev] = caches[dev].advance(first, n)
+        logits, caches[dev] = model(params[dev], t(ids[:, start:start + n], dev),
+                                    caches[dev], pos)
+        return logits
+
+    for start, n in [(0, 16)] + [(i, 1) for i in range(16, 20)]:
+        compare(f"call {start}+{n}", lambda d: call(d, start, n))
+
+    lanes, maxp = 8, 2
+    pools = {d: PagedKVPool.create(2, lanes * maxp, HKV1, DH1, torch.bfloat16, True,
+                                   device=d) for d in ("cpu", "cuda")}
+    tables = np.arange(lanes * maxp, dtype=np.int32).reshape(lanes, maxp)[:, ::-1].copy()
+    rng = np.random.default_rng(8)
+    lens = rng.integers(4, 17, lanes)
+    pos = np.where(np.arange(16)[None] < lens[:, None], np.arange(16)[None], -1)
+    pids = np.where(pos >= 0, rng.integers(0, VOCAB, (lanes, 16)), 0)
+    compare("paged prefill", lambda d: model.paged_forward(
+        params[d], t(pids, d), pools[d], t(tables, d), t(pos, d), t(lens, d))[0],
+        torch.from_numpy(pos >= 0))
+    ctx, tok = lens.copy(), pids[np.arange(lanes), lens - 1]
+    for step in range(4):
+        compare(f"paged decode {step}", lambda d: model.paged_forward(
+            params[d], t(tok[:, None], d), pools[d], t(tables, d), t(ctx[:, None], d),
+            t(ctx + 1, d))[0][:, 0])
+        tok, ctx = rng.integers(0, VOCAB, lanes), ctx + 1
+    # one mixed step: lanes 1..7 decode, lane 0 frozen, a 16-token rider
+    # brings lane 0's next tokens
+    cs = 16
+    dpos = np.where(np.arange(lanes) == 0, -1, ctx)
+    dctx = np.where(np.arange(lanes) == 0, 1, ctx + 1)
+    rider = rng.integers(0, VOCAB, cs)
+    rpos = ctx[0] + np.arange(cs)
+    compare("mixed", lambda d: model.mixed_forward(
+        params[d], pools[d], t(tok, d), t(dpos, d), t(dctx, d), t(tables, d),
+        t(rider, d), t(rpos, d), 0, int(ctx[0]) + cs)[0],
+        torch.from_numpy(dpos >= 0))
+    want = [(w, 2 if ("decode" in w or w.endswith("+1")) else 0) for w, _ in k4]
+    if k4 != want:
+        raise AssertionError(f"K4 launches per 1B step {k4}, want {want}")
+    emit(dict(phase="model", geometry="llama3.2-1b", layers=2, kv="bf16 / int8 paged",
+              norm_err=max(errs), k4_per_step=k4))
+    del cpu_params, gpu_params, params
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 
@@ -575,13 +818,13 @@ def phase_engine(card):
 # -- phase 5 -------------------------------------------------------------------
 
 
-def word_tokenizer():
-    """Offline word-level tokenizer (the recipe of tests/test_server.py)."""
+def word_tokenizer_hf():
+    """Offline word-level HF tokenizer with the Llama-3 control tokens (the
+    recipe of tests/test_server.py)."""
     import transformers
     from tokenizers import Tokenizer as RawTok
     from tokenizers import models, pre_tokenizers
 
-    from pie_tpu_torch.tokenizer import Tokenizer
     from pie_tpu_torch.tokenizer.control_tokens import LLAMA3
 
     words = ["hello", "world", "how", "are", "you", "fine", "thanks", "user",
@@ -591,11 +834,17 @@ def word_tokenizer():
     raw = RawTok(models.WordLevel(vocab, unk_token="<unk>"))
     raw.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
     raw.add_special_tokens(specials)
-    hf = transformers.PreTrainedTokenizerFast(
+    return transformers.PreTrainedTokenizerFast(
         tokenizer_object=raw, bos_token="<|begin_of_text|>",
         eos_token="<|end_of_text|>", unk_token="<unk>",
     )
-    return Tokenizer(hf, LLAMA3)
+
+
+def word_tokenizer():
+    from pie_tpu_torch.tokenizer import Tokenizer
+    from pie_tpu_torch.tokenizer.control_tokens import LLAMA3
+
+    return Tokenizer(word_tokenizer_hf(), LLAMA3)
 
 
 def phase_requests(engine):
@@ -886,7 +1135,363 @@ def phase_batched_requests(model, params):
               n2_ms=two_ms, content=texts[0], n2_usage=two["usage"]))
 
 
+# -- phase 8: the 1B snapshot ---------------------------------------------------
+
+
+def write_snapshot_1b(path):
+    """A Llama-3.2-1B HF snapshot with random bf16 weights from a seed:
+    config.json (bench.py's llama32_1b_config and an INT4 g64 quantization
+    block), model.safetensors (HF names, [N, K] linear weights, tied
+    embeddings: no lm_head) and the word-level tokenizer's files."""
+    from safetensors.torch import save_file
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def w(n, k):
+        return (torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5).bfloat16().cpu()
+
+    def norm():
+        return (1 + 0.1 * torch.randn((D1,), generator=gen, device="cuda")).bfloat16().cpu()
+
+    sd = {"model.embed_tokens.weight": (torch.randn((VOCAB, D1), generator=gen,
+                                                    device="cuda") * 0.02).bfloat16().cpu(),
+          "model.norm.weight": norm()}
+    for i in range(LAYERS1):
+        pre = f"model.layers.{i}."
+        sd.update({
+            pre + "self_attn.q_proj.weight": w(HQ1 * DH1, D1),
+            pre + "self_attn.k_proj.weight": w(HKV1 * DH1, D1),
+            pre + "self_attn.v_proj.weight": w(HKV1 * DH1, D1),
+            pre + "self_attn.o_proj.weight": w(D1, HQ1 * DH1),
+            pre + "mlp.gate_proj.weight": w(DI1, D1),
+            pre + "mlp.up_proj.weight": w(DI1, D1),
+            pre + "mlp.down_proj.weight": w(D1, DI1),
+            pre + "input_layernorm.weight": norm(),
+            pre + "post_attention_layernorm.weight": norm(),
+        })
+    save_file(sd, str(path / "model.safetensors"), metadata={"format": "pt"})
+    config = dict(
+        architectures=["LlamaForCausalLM"], model_type="llama", hidden_size=D1,
+        intermediate_size=DI1, num_hidden_layers=LAYERS1, num_attention_heads=HQ1,
+        num_key_value_heads=HKV1, head_dim=DH1, vocab_size=VOCAB, rms_norm_eps=EPS,
+        rope_theta=500000.0, rope_scaling=ROPE1, tie_word_embeddings=True,
+        max_position_embeddings=131072, torch_dtype="bfloat16",
+        quantization={"group_size": 64, "bits": 4},
+    )
+    (path / "config.json").write_text(json.dumps(config, indent=1))
+    word_tokenizer_hf().save_pretrained(str(path))
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    del sd
+    row = dict(phase="snapshot", geometry="llama3.2-1b", layers=LAYERS1,
+               dtype="bfloat16", bytes=nbytes, write_s=time.perf_counter() - t0,
+               files=sorted(f.name for f in path.iterdir()))
+    emit(row)
+    return row
+
+
+def quantized_bytes(params) -> int:
+    """Bytes a decoded token streams from the quantized weights: packed
+    words, scales and biases of every layer's projections and the head."""
+    from pie_tpu_torch.ops.quant import QuantizedTensor
+
+    leaves = list(params["layers"].values()) + [params["lm_head"]]
+    return sum(t.numel() * t.element_size() for q in leaves
+               if isinstance(q, QuantizedTensor) for t in (q.packed, q.scales, q.biases))
+
+
+# -- phase 9: the server from MODEL_PATH -----------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(method, url, body=None, timeout=300):
+    """(status, seconds, decoded body) of one request on localhost."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode()
+    return status, time.perf_counter() - t0, text
+
+
+def serve_and_ask(snap, env_extra, ask):
+    """Start `python -m pie_tpu_torch.server` on MODEL_PATH=snap, wait for
+    /health, run ask(url), stop the server. Returns (startup s, ask's
+    result)."""
+    import os
+    import urllib.error
+
+    port = free_port()
+    env = dict(os.environ, MODEL_PATH=str(snap), PORT=str(port), HOST="127.0.0.1",
+               LOG_LEVEL="WARNING", **env_extra)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "pie_tpu_torch.server"], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"server exited {proc.returncode}:\n"
+                                     f"{proc.stdout.read()[-4000:]}")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("server did not answer /health in 600 s")
+            try:
+                if http("GET", f"{url}/health", timeout=5)[0] == 200:
+                    break
+            except (urllib.error.URLError, OSError):
+                pass
+            time.sleep(0.5)
+        startup = time.perf_counter() - t0
+        return startup, ask(url)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase_serve(snap):
+    """The snapshot served through the normal entry point, single-stream and
+    with BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8; every request must be 200.
+    A logit_bias on an in-vocabulary word makes the replies certain."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    hello = word_tokenizer().encode("hello", add_bos=False)[0]
+    chat = dict(messages=[{"role": "user", "content": "hello world"}], max_tokens=8,
+                temperature=0.0, logit_bias={str(hello): 100.0})
+
+    def ok(status, secs, text, what):
+        if status != 200:
+            raise AssertionError(f"{what}: {status} {text[:2000]}")
+        return secs * 1e3, text
+
+    def single(url):
+        ms_chat, text = ok(*http("POST", f"{url}/v1/chat/completions", chat), "chat")
+        content = json.loads(text)["choices"][0]["message"]["content"]
+        ms_sse, text = ok(*http("POST", f"{url}/v1/chat/completions",
+                                dict(chat, stream=True)), "chat stream")
+        if not (text.rstrip().endswith("data: [DONE]") and "hello" in text):
+            raise AssertionError(f"chat stream: {text[:2000]}")
+        ms_cmp, text = ok(*http("POST", f"{url}/v1/completions", dict(
+            prompt="hello world how", max_tokens=6, temperature=0.0,
+            logit_bias={str(hello): 100.0})), "completion")
+        if "hello" not in content or "hello" not in json.loads(text)["choices"][0]["text"]:
+            raise AssertionError(f"replies without the forced word: {content!r}, {text}")
+        return dict(chat_ms=ms_chat, chat_sse_ms=ms_sse, completion_ms=ms_cmp,
+                    content=content)
+
+    def batched(url):
+        ok(*http("POST", f"{url}/v1/chat/completions", chat), "warm-up chat")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            many = list(pool.map(lambda _: ok(*http(
+                "POST", f"{url}/v1/chat/completions", chat), "concurrent chat"), range(4)))
+        wall = (time.perf_counter() - t0) * 1e3
+        ms_n2, text = ok(*http("POST", f"{url}/v1/chat/completions", dict(chat, n=2)),
+                         "n=2 chat")
+        texts = [json.loads(t)["choices"][0]["message"]["content"] for _, t in many]
+        two = [c["message"]["content"] for c in json.loads(text)["choices"]]
+        if len(set(texts)) != 1 or "hello" not in texts[0] or two != texts[:1] * 2:
+            raise AssertionError(f"batched replies differ: {texts}, n=2 {two}")
+        return dict(concurrent_ms=[ms for ms, _ in many], concurrent_wall_ms=wall,
+                    n2_ms=ms_n2, content=texts[0])
+
+    rows = []
+    for env, ask in (({}, single),
+                     ({"BATCHING": "1", "KV_QUANTIZED": "1", "NUM_LANES": "8"}, batched)):
+        startup, out = serve_and_ask(snap, env, ask)
+        row = dict(phase="serve", entry="python -m pie_tpu_torch.server", env=env,
+                   startup_s=startup, **out)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# -- phase 10: the 1B engines from the snapshot -----------------------------------
+
+
+def phase_engine_1b(snap, card):
+    """InferenceEngine(model_path=snap): load time and quantized bytes, one
+    counted request (64-token prompt, 128 decoded tokens: K4 16 and K1 17
+    per decoded token, K2 65 per prefill), TTFT p50 of 512-token prompts,
+    best-of-3 decode tok/s, the idle share over a profiled request."""
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    t0 = time.perf_counter()
+    engine = InferenceEngine(model_path=str(snap), max_seq_len=1024, decode_chunk=128)
+    load_s = time.perf_counter() - t0
+    wbytes = quantized_bytes(engine.params)
+    prompt = list(range(1, 65))
+    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)  # warm up
+    qmc.reset_counts()
+    res = engine.generate([p + 7 for p in prompt], max_completion_tokens=129,
+                          temperature=0.0)
+    torch.cuda.synchronize()
+    launches = dict(qmc.launch_counts)
+    decoded = res.completion_tokens - 1
+    if not (decoded == 128 and launches["K4"] == LAYERS1 * decoded
+            and launches["K1"] == (LAYERS1 + 1) * decoded
+            and launches["K2"] == 4 * LAYERS1 + 1):
+        raise AssertionError(f"1B main path launches {launches} for {decoded} tokens")
+
+    def fresh_prompt(salt):
+        return [1 + (i * 37 + salt * 101) % 100000 for i in range(512)]
+
+    engine.generate(fresh_prompt(99), max_completion_tokens=1, temperature=0.0)
+    ttfts = []
+    for salt in range(5):
+        gen = engine.generate_stream(fresh_prompt(salt), max_completion_tokens=2,
+                                     temperature=0.0)
+        t1 = time.perf_counter()
+        next(gen)
+        ttfts.append(time.perf_counter() - t1)
+        for _ in gen:
+            pass
+    ttfts.sort()
+    best = 0.0
+    for _ in range(3):
+        gen = engine.generate_stream(prompt, max_completion_tokens=129, temperature=0.0)
+        next(gen)
+        n, t1 = 0, time.perf_counter()
+        for _ in gen:
+            n += 1
+        best = max(best, n / (time.perf_counter() - t1))
+    trace = profiled(lambda: engine.generate([p + 3 for p in prompt],
+                                             max_completion_tokens=33, temperature=0.0))
+    row = dict(phase="engine", geometry="llama3.2-1b int4 g64 (snapshot)",
+               layers=LAYERS1, load_s=load_s, quantized_weight_bytes=wbytes,
+               ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
+               decode_tok_s=best, k4_per_decoded_token=launches["K4"] / decoded,
+               k1_per_decoded_token=launches["K1"] / decoded,
+               k2_per_prefill=launches["K2"], launches=launches, trace=trace, card=card)
+    emit(row)
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_paged_engine_1b(snap, card):
+    """BatchedInferenceEngine(model_path=snap, kv_quantized=True,
+    num_lanes=8) driven through its scheduler in bench.py's paged
+    configuration: 8 x (64-token prompt, 128 new), aggregate tok/s best of
+    2 (K4 16 per decode device step, none in mixed steps or prefills), TTFT
+    of a 512-token prompt under 7 busy lanes, the idle share over one
+    steady chunk."""
+    import gc
+
+    from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
+    from pie_tpu_torch.engine.scheduler import SeqStatus
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    lanes = 8
+    service = BatchedInferenceEngine(model_path=str(snap), num_lanes=lanes,
+                                     num_pages=112, max_pages_per_seq=12,
+                                     kv_quantized=True)
+    sched, engine = service.scheduler, service.core
+    mixed = []
+    real_mixed = engine.model.mixed_forward
+
+    def counting_mixed(*a, **kw):
+        mixed.append(1)
+        return real_mixed(*a, **kw)
+
+    engine.model.mixed_forward = counting_mixed
+    prompt = list(range(1, 65))
+    sched.add_request(prompt, max_new_tokens=17, temperature=0.0)  # warm up
+    sched.run_to_completion()
+    best = 0.0
+    for rep in range(2):
+        qmc.reset_counts()
+        steps0, mixed0 = engine.device_steps, len(mixed)
+        seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
+                for _ in range(lanes)]
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        best = max(best, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
+        if rep == 0:
+            launches = dict(qmc.launch_counts)
+            steps = engine.device_steps - steps0
+            mixed_steps = len(mixed) - mixed0
+    decode_steps = steps - mixed_steps
+    if not (decode_steps > 0 and launches["K4"] == LAYERS1 * decode_steps
+            and launches["K3"] == LAYERS1 * steps):
+        raise AssertionError(f"1B paged path: {launches} over {steps} steps "
+                             f"({mixed_steps} mixed)")
+    seqs = [sched.add_request(prompt, max_new_tokens=64, temperature=0.0)
+            for _ in range(lanes)]
+    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
+        sched.step()
+    sched.step()
+    steps0 = engine.device_steps
+    trace = profiled(sched.step)
+    trace["device_steps"] = engine.device_steps - steps0
+    sched.run_to_completion()
+    busy = [sched.add_request(prompt, max_new_tokens=400, temperature=0.0)
+            for _ in range(lanes - 1)]
+    while any(not s.output_ids for s in busy):
+        sched.step()
+
+    def ttft_of(salt):
+        t0 = time.perf_counter()
+        late = sched.add_request([1 + (i * 37 + salt * 101) % 100000 for i in range(512)],
+                                 max_new_tokens=8, temperature=0.0)
+        while not late.output_ids:
+            sched.step()
+        dt = time.perf_counter() - t0
+        while late.finish_reason is None:
+            sched.step()
+        return dt
+
+    ttft_of(50)
+    ttfts = sorted(ttft_of(s) for s in range(3))
+    for s in busy:
+        s.cancelled = True
+    sched.run_to_completion()
+    del engine.model.mixed_forward
+    service.shutdown()
+    del sched, engine, service
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(phase="paged_engine", geometry="llama3.2-1b int4 g64 (snapshot)",
+               layers=LAYERS1, lanes=lanes, kv="int8 paged", decode_tok_s=best,
+               ttft_under_load_p50_ms=ttfts[1] * 1e3,
+               ttft_under_load_ms=[t * 1e3 for t in ttfts], device_steps=steps,
+               mixed_steps=mixed_steps, k4_per_decode_step=launches["K4"] / decode_steps,
+               launches=launches, steady_chunk=trace, card=card)
+    emit(row)
+    return row
+
+
 # -- main ----------------------------------------------------------------------
+
+
+def timed(name, fn, *args):
+    """fn(*args), then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(dict(phase_seconds=name, seconds=time.perf_counter() - t0))
+    return out
 
 
 def main() -> int:
@@ -907,31 +1512,43 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libs=sorted(str(p) for p in paths.values())))
 
-    rows = phase_kernels()
-    k3_rows, k3_err = phase_paged_kernel()
-    phase_model()
-    engine, eng = phase_engine(card)
-    phase_requests(engine)
-    paged = phase_paged_engine(engine.model, engine.params, card)
-    phase_batched_requests(engine.model, engine.params)
+    rows = timed("kernels K1/K2 8B", phase_kernels)
+    rows_1b = timed("kernels K1/K2 1B", phase_kernels_1b)
+    k4_rows = timed("kernels K4", phase_fused_mlp)
+    k3_rows, k3_err = timed("kernels K3", phase_paged_kernel)
+    timed("model 8B", phase_model)
+    timed("model 1B", phase_model_1b)
+    engine, eng = timed("engine 8B", phase_engine, card)
+    timed("requests 8B", phase_requests, engine)
+    paged = timed("paged engine 8B", phase_paged_engine, engine.model, engine.params, card)
+    timed("batched requests 8B", phase_batched_requests, engine.model, engine.params)
+    del engine
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="pie-1b-") as tmp:
+        snap = Path(tmp)
+        timed("snapshot 1B", write_snapshot_1b, snap)
+        timed("serve 1B", phase_serve, snap)
+        eng1b = timed("engine 1B", phase_engine_1b, snap, card)
+        paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
 
     summary = []
-    for kname, src, what in (
-        ("K1", "pie_tpu_torch/csrc/quant_gemv.cu", "per decoded token"),
-        ("K2", "pie_tpu_torch/csrc/quant_gemm.cu", "per 512-token prefill"),
+    for kname, src, what, per_rows in (
+        ("K1", "pie_tpu_torch/csrc/quant_gemv.cu", "8B int4 g64, per decoded token",
+         rows["K1"]),
+        ("K2", "pie_tpu_torch/csrc/quant_gemm.cu", "8B int4 g64, per 512-token prefill",
+         rows["K2"]),
     ):
-        per_rows = rows[kname]
         total = lambda key: sum(per * r[key] for per, r in per_rows)
         bb = sum(per * r["bytes"] for per, r in per_rows) / HBM_BYTES_PER_S * 1e3
         bo = sum(per * r["flops"] for per, r in per_rows) / BF16_FLOP_PER_S * 1e3
         summary.append(dict(
-            name=f"{kname} {'quant_gemv' if kname == 'K1' else 'quant_gemm'} "
-                 f"(8B int4 g64, {what})",
+            name=f"{kname} {'quant_gemv' if kname == 'K1' else 'quant_gemm'} ({what})",
             route="cuda", source=src,
             replaces="pie_tpu/ops/quant_matmul_pallas.py:593",
             launches=eng["launches"][kname],
             max_abs_err=max(r["max_abs_err"] for _, r in per_rows),
-            ms=total("kernel_ms"), plain_ms=total("plain_ms"),
+            ms=total("kernel_ms"), kernel_ms=total("kernel_ms"), plain_ms=total("plain_ms"),
             bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
             library_ms=total("library_ms"),
         ))
@@ -942,10 +1559,27 @@ def main() -> int:
         route="cuda", source="pie_tpu_torch/csrc/paged_attention.cu",
         replaces="pie_tpu/ops/paged_attention.py:510",
         launches=paged["launches"]["K3"], max_abs_err=k3_err,
-        ms=LAYERS * k3["kernel_ms"], plain_ms=LAYERS * k3["plain_ms"],
-        bound_ms=LAYERS * k3["bound_ms"], bound_by=k3["bound_by"],
-        library_ms=LAYERS * k3["library_ms"],
+        ms=LAYERS * k3["kernel_ms"], kernel_ms=LAYERS * k3["kernel_ms"],
+        plain_ms=LAYERS * k3["plain_ms"], bound_ms=LAYERS * k3["bound_ms"],
+        bound_by=k3["bound_by"], library_ms=LAYERS * k3["library_ms"],
     ))
+    k4 = k4_rows[(4, 1)]  # per decoded token at 1B: one launch per layer
+    summary.append(dict(
+        name="K4 fused_mlp (1B int4 g64, M = 1, per decoded token)",
+        route="cuda", source="pie_tpu_torch/csrc/fused_mlp.cu",
+        replaces="pie_tpu/ops/fused_mlp_pallas.py:270",
+        launches=eng1b["launches"]["K4"],
+        max_abs_err=max(r["max_abs_err"] for r in k4_rows.values()),
+        ms=LAYERS1 * k4["kernel_ms"], kernel_ms=LAYERS1 * k4["kernel_ms"],
+        plain_ms=LAYERS1 * k4["plain_ms"], bound_ms=LAYERS1 * k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=LAYERS1 * k4["library_ms"],
+        unfused_ms=LAYERS1 * k4["unfused_ms"],
+        paged_launches=paged1b["launches"]["K4"],
+    ))
+    k1_1b = sum(per * r["kernel_ms"] for per, r in rows_1b)
+    emit(dict(phase="summary 1B", k1_ms_per_decoded_token=k1_1b,
+              k4_ms_per_decoded_token=LAYERS1 * k4["kernel_ms"],
+              decode_tok_s=eng1b["decode_tok_s"], paged_tok_s=paged1b["decode_tok_s"]))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "quant_tile.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -56,12 +58,12 @@ template <int BITS>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const __nv_bfloat16* __restrict__ x,       // [M, Kp]
     const uint32_t* __restrict__ packed,       // [Kp / ep, N]
-    const __nv_bfloat16* __restrict__ scales,  // [Kp / g, N]
-    const __nv_bfloat16* __restrict__ biases,  // [Kp / g, N]
+    const void* __restrict__ scales,           // [Kp / g, N] bf16 or f32
+    const void* __restrict__ biases,           // [Kp / g, N] as scales
     const float* __restrict__ cosv,            // [M, N] or null
     const float* __restrict__ sinv,            // [M, N] or null
     __nv_bfloat16* __restrict__ y,             // [M, N]
-    int M, int Kp, int N, int g, int rope_dim) {
+    int M, int Kp, int N, int g, int rope_dim, bool f32s) {
   constexpr int EP = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   constexpr int A_LOADS = BM * BK / 8 / kThreads;    // 16-byte x loads per thread
@@ -108,8 +110,8 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
       rs[h] = rb[h] = 0.f;
       if (col_ok) {
         const size_t gi = (size_t)((k0 + h * (BK / 2)) / g) * N + gcol;
-        rs[h] = __bfloat162float(scales[gi]);
-        rb[h] = __bfloat162float(biases[gi]);
+        rs[h] = pie::load_affine(scales, gi, f32s);
+        rb[h] = pie::load_affine(biases, gi, f32s);
       }
     }
   };
@@ -190,7 +192,8 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
 template <int BITS>
 cudaError_t launch(const void* x, const void* packed, const void* scales,
                    const void* biases, const void* cosv, const void* sinv, void* y,
-                   int M, int Kp, int N, int g, int rope_dim, cudaStream_t stream) {
+                   int M, int Kp, int N, int g, int rope_dim, bool f32s,
+                   cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -201,10 +204,8 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<BITS><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(biases), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(y), M, Kp, N, g,
-      rope_dim);
+      scales, biases, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<__nv_bfloat16*>(y), M, Kp, N, g, rope_dim, f32s);
   return cudaGetLastError();
 }
 
@@ -213,12 +214,13 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
 // y[M, N] = x[M, Kp] @ bf16(dequant(W)) (+ the rope epilogue when
 // rope_dim != 0: cos/sin [M, N] f32, dh in {32, 64, 128}, dh | N); returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
-// the kernel does not take).
+// the kernel does not take). Scales and biases are bf16, or f32 when
+// scale_f32 != 0.
 extern "C" int pie_quant_gemm(const void* x, const void* packed,
                               const void* scales, const void* biases,
                               const void* cosv, const void* sinv, void* y,
                               int M, int Kp, int N, int bits, int group_size,
-                              int rope_dim, void* stream) {
+                              int scale_f32, int rope_dim, void* stream) {
   if (M < 1 || N < 1 || Kp % BK != 0 ||
       (group_size != 32 && group_size != 64 && group_size != 128) ||
       (rope_dim != 0 && (rope_dim % 32 != 0 || BN % rope_dim != 0 ||
@@ -227,9 +229,9 @@ extern "C" int pie_quant_gemm(const void* x, const void* packed,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits == 4)
     return (int)launch<4>(x, packed, scales, biases, cosv, sinv, y, M, Kp, N, group_size,
-                          rope_dim, st);
+                          rope_dim, scale_f32 != 0, st);
   if (bits == 8)
     return (int)launch<8>(x, packed, scales, biases, cosv, sinv, y, M, Kp, N, group_size,
-                          rope_dim, st);
+                          rope_dim, scale_f32 != 0, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,8 @@
 // - A code becomes the exact float 1 + q/2^bits with one shift and one
 //   logic op (it lands in the top mantissa bits of 1.0): no int-to-float
 //   conversion. sum x*(1 + q/2^bits) - sum x = sum x*q / 2^bits, so the group
-//   scale applies as 2^bits*s to that difference.
+//   scale applies as 2^bits*s to that difference. The tile loads, the x
+//   staging and this accumulation live in quant_tile.cuh, shared with K4.
 // - For the rope epilogue a block's 32 columns are 16 columns of a head's
 //   first half and the 16 partner columns dh/2 further on: the rotation
 //   partner of lane l is lane l^16 of the same block, so the epilogue needs
@@ -46,19 +47,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_tile.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 512;                      // K rows per block iteration
-constexpr int kRowsPerWarp = kTileK / kWarps;    // 64
-constexpr int kSums = kTileK / 32;               // 32-row x sums per tile
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using pie::kSums;
+using pie::kThreads;
+using pie::kTileK;
+using pie::kWarps;
+using pie::warp_sum;
 
 // Output column of lane `lane` in column block `blk`.
 __device__ __forceinline__ int column_of(int blk, int lane, int rope_dim) {
@@ -68,21 +65,12 @@ __device__ __forceinline__ int column_of(int blk, int lane, int rope_dim) {
   return head * rope_dim + p * 16 + (lane & 15) + (lane >> 4) * (rope_dim / 2);
 }
 
-// Exact float 1 + q / 2^BITS for code i of word w.
-template <int BITS, int I>
-__device__ __forceinline__ float code_plus_one(uint32_t w) {
-  constexpr int sh = 23 - BITS - BITS * I;
-  constexpr uint32_t mask = ((1u << BITS) - 1u) << (23 - BITS);
-  const uint32_t v = sh >= 0 ? (w << (sh >= 0 ? sh : 0)) : (w >> (sh < 0 ? -sh : 0));
-  return __uint_as_float((v & mask) | 0x3F800000u);
-}
-
 template <int BITS, int MT>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(
     const __nv_bfloat16* __restrict__ x,       // [M, Kp]
     const uint32_t* __restrict__ packed,       // [Kp / ep, N]
-    const __nv_bfloat16* __restrict__ scales,  // [Kp / g, N]
-    const __nv_bfloat16* __restrict__ biases,  // [Kp / g, N]
+    const void* __restrict__ scales,           // [Kp / g, N] bf16 or f32
+    const void* __restrict__ biases,           // [Kp / g, N] as scales
     const __nv_bfloat16* __restrict__ lnw,     // [K] or null
     const float* __restrict__ cosv,            // [M, N] or null
     const float* __restrict__ sinv,            // [M, N] or null
@@ -90,9 +78,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
     float* __restrict__ ws,                    // [gridDim.y, M, N] when split
     int* __restrict__ counters,                // [gridDim.x], zero between calls
     int M, int K, int Kp, int N, int g, int rope_dim, float eps,
-    int tiles_per_split) {
-  constexpr int EP = 32 / BITS;
-  constexpr int WROWS = kRowsPerWarp / EP;  // word rows per warp per tile
+    int tiles_per_split, bool f32s) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [MT][kTileK]
   float* xsum = xs + MT * kTileK;                // [MT][kSums]
@@ -104,30 +90,13 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
   const bool col_ok = col < N;
   const int m_cnt = min(MT, M);
 
-  const int sg = g < kRowsPerWarp ? g : kRowsPerWarp;  // rows per sub-group
-  const int nsub = kRowsPerWarp / sg;                  // 1 or 2
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(Kp / kTileK, t_begin + tiles_per_split);
 
-  uint32_t cur[WROWS], nxt[WROWS];
-  float cs[2], cb[2], ns[2], nb[2];
-  auto load_tile = [&](int t, uint32_t* w, float* s, float* b) {
-    const int r0 = t * kTileK + warp * kRowsPerWarp;
-#pragma unroll
-    for (int j = 0; j < WROWS; ++j)
-      w[j] = col_ok ? __ldg(packed + (size_t)(r0 / EP + j) * N + col) : 0u;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      s[q] = 0.f;
-      b[q] = 0.f;
-      if (q < nsub && col_ok) {
-        const size_t gi = (size_t)((r0 + q * sg) / g) * N + col;
-        s[q] = __bfloat162float(scales[gi]);
-        b[q] = __bfloat162float(biases[gi]);
-      }
-    }
-  };
-  load_tile(t_begin, cur, cs, cb);  // in flight during the prologue
+  pie::WarpTile<BITS> cur, nxt;
+  // in flight during the prologue
+  pie::load_warp_tile(cur, packed, scales, biases, f32s, N, col, col_ok, t_begin, warp,
+                      g);
 
   if (lnw != nullptr) {  // prologue: per-row rms statistic over logical K
     for (int m = 0; m < m_cnt; ++m) {
@@ -158,92 +127,33 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
     }
   }
 
+  // x (normalized under the prologue) as f32 values of bf16
+  auto load8 = [&](int m, int k0, float* v) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)m * Kp + k0);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = __bfloat162float(h[i]);
+      if (lnw != nullptr) {
+        const float w = k0 + i < K ? __bfloat162float(lnw[k0 + i]) : 0.f;
+        v[i] = __bfloat162float(__float2bfloat16_rn(v[i] * inv[m] * w));
+      }
+    }
+  };
+
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
 
   for (int t = t_begin; t < t_end; ++t) {
     __syncthreads();  // inv ready; previous tile's x reads done
-    // stage x (normalized under the prologue) as f32, with 32-row sums
-    for (int idx = threadIdx.x; idx < MT * (kTileK / 8); idx += kThreads) {
-      const int m = idx / (kTileK / 8), c8 = idx % (kTileK / 8);
-      const int k0 = t * kTileK + c8 * 8;
-      float v[8];
-      if (m < m_cnt) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)m * Kp + k0);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[i] = __bfloat162float(h[i]);
-          if (lnw != nullptr) {
-            const float w = k0 + i < K ? __bfloat162float(lnw[k0 + i]) : 0.f;
-            v[i] = __bfloat162float(__float2bfloat16_rn(v[i] * inv[m] * w));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = 0.f;
-      }
-      float4* dst = reinterpret_cast<float4*>(xs + m * kTileK + c8 * 8);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-      float p = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      if ((lane & 3) == 0) xsum[m * kSums + c8 / 4] = p;
-    }
+    pie::stage_x<MT>(xs, xsum, t, m_cnt, load8);
     __syncthreads();
-    if (t + 1 < t_end) load_tile(t + 1, nxt, ns, nb);
-
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (q >= nsub) break;
-      const int kl0 = warp * kRowsPerWarp + q * sg;  // first tile row of the sub-group
-      const int j0 = q * sg / EP, j1 = j0 + sg / EP;
-      float ag[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) ag[m] = 0.f;
-#pragma unroll
-      for (int j = 0; j < WROWS; ++j) {
-        if (j < j0 || j >= j1) continue;
-        const uint32_t w = cur[j];
-        float c[EP];
-        if constexpr (BITS == 4) {
-          c[0] = code_plus_one<4, 0>(w); c[1] = code_plus_one<4, 1>(w);
-          c[2] = code_plus_one<4, 2>(w); c[3] = code_plus_one<4, 3>(w);
-          c[4] = code_plus_one<4, 4>(w); c[5] = code_plus_one<4, 5>(w);
-          c[6] = code_plus_one<4, 6>(w); c[7] = code_plus_one<4, 7>(w);
-        } else {
-          c[0] = code_plus_one<8, 0>(w); c[1] = code_plus_one<8, 1>(w);
-          c[2] = code_plus_one<8, 2>(w); c[3] = code_plus_one<8, 3>(w);
-        }
-        const int kl = warp * kRowsPerWarp + j * EP;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float4* xr = reinterpret_cast<const float4*>(xs + m * kTileK + kl);
-#pragma unroll
-          for (int h = 0; h < EP / 4; ++h) {
-            const float4 xv = xr[h];
-            ag[m] = fmaf(xv.x, c[4 * h + 0], ag[m]);
-            ag[m] = fmaf(xv.y, c[4 * h + 1], ag[m]);
-            ag[m] = fmaf(xv.z, c[4 * h + 2], ag[m]);
-            ag[m] = fmaf(xv.w, c[4 * h + 3], ag[m]);
-          }
-        }
-      }
-      const float s = cs[q] * (float)(1 << BITS), b = cb[q];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float sx = xsum[m * kSums + kl0 / 32];
-        if (sg == 64) sx += xsum[m * kSums + kl0 / 32 + 1];
-        acc[m] = fmaf(s, ag[m] - sx, fmaf(b, sx, acc[m]));
-      }
-    }
-    if (t + 1 < t_end) {
-#pragma unroll
-      for (int j = 0; j < WROWS; ++j) cur[j] = nxt[j];
-      cs[0] = ns[0]; cs[1] = ns[1]; cb[0] = nb[0]; cb[1] = nb[1];
-    }
+    if (t + 1 < t_end)
+      pie::load_warp_tile(nxt, packed, scales, biases, f32s, N, col, col_ok, t + 1, warp,
+                          g);
+    pie::accum_warp_tile<BITS, MT>(cur, xs, xsum, warp, g, acc);
+    if (t + 1 < t_end) cur = nxt;
   }
 
   // split-K reduction across the block's warps
@@ -299,7 +209,7 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
                    const void* biases, const void* lnw, const void* cosv,
                    const void* sinv, void* y, void* ws, void* counters,
                    int splits, int M, int K, int Kp, int N, int g,
-                   int rope_dim, float eps, cudaStream_t stream) {
+                   int rope_dim, float eps, bool f32s, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (MT * kTileK + MT * kSums + MT);
   static bool attr_set = false;
   if (!attr_set) {
@@ -314,12 +224,10 @@ cudaError_t launch(const void* x, const void* packed, const void* scales,
   const dim3 grid(rope_dim ? N / 32 : (N + 31) / 32, (n_tiles + per_split - 1) / per_split);
   gemv_kernel<BITS, MT><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(biases),
-      static_cast<const __nv_bfloat16*>(lnw), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(ws), static_cast<int*>(counters), M, K, Kp, N, g,
-      rope_dim, eps, per_split);
+      scales, biases, static_cast<const __nv_bfloat16*>(lnw),
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+      static_cast<int*>(counters), M, K, Kp, N, g, rope_dim, eps, per_split, f32s);
   return cudaGetLastError();
 }
 
@@ -328,11 +236,12 @@ cudaError_t dispatch_rows(const void* x, const void* packed, const void* scales,
                           const void* biases, const void* lnw, const void* cosv,
                           const void* sinv, void* y, void* ws, void* counters,
                           int splits, int M, int K, int Kp, int N, int g,
-                          int rope_dim, float eps, cudaStream_t st) {
+                          int rope_dim, float eps, bool f32s, cudaStream_t st) {
 #define PIE_GEMV_ROWS(MT)                                                     \
   if (M <= MT)                                                                \
     return launch<BITS, MT>(x, packed, scales, biases, lnw, cosv, sinv, y, ws, \
-                            counters, splits, M, K, Kp, N, g, rope_dim, eps, st);
+                            counters, splits, M, K, Kp, N, g, rope_dim, eps,    \
+                            f32s, st);
   PIE_GEMV_ROWS(1)
   PIE_GEMV_ROWS(2)
   PIE_GEMV_ROWS(4)
@@ -347,7 +256,8 @@ cudaError_t dispatch_rows(const void* x, const void* packed, const void* scales,
 
 // y[M, N] = xh[M, Kp] @ dequant(W), K split over `splits` blocks per
 // column range (ws: [splits, M, N] f32 scratch and counters: one zeroed int
-// per column block, both needed only when splits > 1); returns
+// per column block, both needed only when splits > 1); scales and biases
+// are bf16, or f32 when scale_f32 != 0; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take).
 extern "C" int pie_quant_gemv(const void* x, const void* packed,
@@ -355,8 +265,8 @@ extern "C" int pie_quant_gemv(const void* x, const void* packed,
                               const void* lnw, const void* cosv,
                               const void* sinv, void* y, void* ws,
                               void* counters, int splits, int M, int K, int Kp,
-                              int N, int bits, int group_size, int rope_dim,
-                              float eps, void* stream) {
+                              int N, int bits, int group_size, int scale_f32,
+                              int rope_dim, float eps, void* stream) {
   if (M < 1 || M > 32 || Kp % kTileK != 0 || K > Kp || splits < 1 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)) ||
       (group_size != 32 && group_size != 64 && group_size != 128) ||
@@ -367,10 +277,10 @@ extern "C" int pie_quant_gemv(const void* x, const void* packed,
   if (bits == 4)
     return (int)dispatch_rows<4>(x, packed, scales, biases, lnw, cosv, sinv, y,
                                  ws, counters, splits, M, K, Kp, N, group_size,
-                                 rope_dim, eps, st);
+                                 rope_dim, eps, scale_f32 != 0, st);
   if (bits == 8)
     return (int)dispatch_rows<8>(x, packed, scales, biases, lnw, cosv, sinv, y,
                                  ws, counters, splits, M, K, Kp, N, group_size,
-                                 rope_dim, eps, st);
+                                 rope_dim, eps, scale_f32 != 0, st);
   return (int)cudaErrorInvalidValue;
 }

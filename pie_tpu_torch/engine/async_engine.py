@@ -4,8 +4,9 @@ server can serve many concurrent requests with continuous batching.
 
 Port of the JAX package's ``pie_tpu/engine/async_engine.py`` with its
 Python scheduler. Requests from any thread go through a thread-safe queue
-into the shared ``Scheduler``; tokens stream back per request. Not ported
-yet, and refused with ``InferenceError``: the native scheduler
+into the shared ``Scheduler``; tokens stream back per request; a checkpoint
+(``model_path``) loads through ``models/loader.py``. Not ported yet, and
+refused with ``InferenceError``: the native scheduler
 (``scheduler_impl="native"``, ROADMAP A7), image inputs (A9) and
 constrained decoding (A8).
 """
@@ -61,11 +62,15 @@ class BatchedInferenceEngine:
                 f"scheduler_impl={scheduler_impl!r}: only the python scheduler "
                 "is ported (the native one is ROADMAP A7)")
         if model is None:
-            if model_path is not None:
-                raise NotImplementedError(
-                    "loading a checkpoint (model_path) is not ported yet "
-                    "(ROADMAP queue A9)")
-            raise ValueError("need model+params")
+            if model_path is None:
+                raise ValueError("need model+params or model_path")
+            from pie_tpu_torch.models.loader import load_model
+
+            model, params = load_model(model_path, device=self.device)
+            if tokenizer is None:
+                from pie_tpu_torch.tokenizer import load_tokenizer
+
+                tokenizer = load_tokenizer(model_path)
         self.model = model
         self.params = params
         self.tokenizer = tokenizer

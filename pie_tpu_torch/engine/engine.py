@@ -4,9 +4,10 @@ Port of the single-stream engine of the JAX package's
 ``pie_tpu/engine/engine.py``: bucketed prefill, chunked decode with a
 bounded lookahead of queued chunks, stop tokens, max tokens, logprobs,
 logit bias and penalties, the prompt cache, and the INT8 KV threshold;
-plus the chat API (``_chat_run`` / ``_chat``). Not ported yet: constrained
-decoding (``generate_constrained``) and image inputs; both raise
-``InferenceError`` rather than decode something else.
+plus the chat API (``_chat_run`` / ``_chat``) and loading a checkpoint
+(``model_path``: ``models/loader.py`` and the snapshot's tokenizer). Not
+ported yet: constrained decoding (``generate_constrained``) and image
+inputs; both raise ``InferenceError`` rather than decode something else.
 """
 
 from __future__ import annotations
@@ -94,12 +95,15 @@ class InferenceEngine:
     ):
         self.device = resolve_device(device)
         if model is None:
-            if model_path is not None:
-                raise NotImplementedError(
-                    "loading a checkpoint (model_path) is not ported yet "
-                    "(ROADMAP queue A9)"
-                )
-            raise ValueError("need model+params")
+            if model_path is None:
+                raise ValueError("need model+params or model_path")
+            from pie_tpu_torch.models.loader import load_model
+
+            model, params = load_model(model_path, device=self.device)
+            if tokenizer is None:
+                from pie_tpu_torch.tokenizer import load_tokenizer
+
+                tokenizer = load_tokenizer(model_path)
         self.model = model
         self.params = params
         self.tokenizer = tokenizer

@@ -5,12 +5,14 @@ forward (``LlamaModel.__call__``) and the two forwards of the
 continuous-batching path over the paged KV pool (``paged_forward`` and
 ``mixed_forward``), with the same parameter dictionary (decoder layers
 stacked on a leading axis, fused ``wqkv``/``wgu`` when quantized), the same
-fused-ln / fused-rope gates and the same cast points. The layer ``scan``
-becomes a Python loop; the KV cache and the paged pool are written IN
-PLACE (see ``cache/kv_cache.py`` and ``cache/paged.py``). Quantized
-projections go through ``ops.quant.quantized_matmul`` and decode lanes
-through ``ops.paged_attention.paged_attention_decode``: the CUDA kernels
-for tensors on the card, the plain versions for tensors on the CPU.
+fused-ln / fused-rope / fused-MLP gates and the same cast points, and the
+HF checkpoint mapping (``from_hf_state_dict``). The layer ``scan`` becomes
+a Python loop; the KV cache and the paged pool are written IN PLACE (see
+``cache/kv_cache.py`` and ``cache/paged.py``). Quantized projections go
+through ``ops.quant.quantized_matmul``, the decode MLP block through
+``ops.fused_mlp.fused_mlp_stacked`` and decode lanes through
+``ops.paged_attention.paged_attention_decode``: the CUDA kernels for
+tensors on the card, the plain versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from pie_tpu_torch.cache.paged import (
 from pie_tpu_torch.models.config import BaseConfig, _filter_kwargs
 from pie_tpu_torch.models.registry import register_model
 from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
+from pie_tpu_torch.ops.fused_mlp import fused_mlp_stacked, fused_mlp_supported
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import (
     QuantizedTensor,
@@ -170,6 +173,30 @@ class LlamaModel:
     # names of layer weights that are linear (quantizable)
     LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 
+    # HF checkpoint key mapping: our name -> HF per-layer suffix
+    HF_LAYER_MAP = {
+        "wq": "self_attn.q_proj.weight",
+        "wk": "self_attn.k_proj.weight",
+        "wv": "self_attn.v_proj.weight",
+        "wo": "self_attn.o_proj.weight",
+        "wg": "mlp.gate_proj.weight",
+        "wu": "mlp.up_proj.weight",
+        "wd": "mlp.down_proj.weight",
+        "ln1": "input_layernorm.weight",
+        "ln2": "post_attention_layernorm.weight",
+    }
+    HF_BIAS_MAP = {
+        "bq": "self_attn.q_proj.bias",
+        "bk": "self_attn.k_proj.bias",
+        "bv": "self_attn.v_proj.bias",
+    }
+    HF_PREFIX = "model.layers.{i}."
+    HF_TOP = {
+        "embed": "model.embed_tokens.weight",
+        "norm": "model.norm.weight",
+        "lm_head": "lm_head.weight",
+    }
+
     def __init__(self, config: LlamaConfig):
         self.config = config
         self.inv_freq_np = make_inv_freq(
@@ -215,6 +242,34 @@ class LlamaModel:
         }
         if not cfg.tie_word_embeddings:
             params["lm_head"] = w(d, cfg.vocab_size, scale=0.02)
+        return params
+
+    def from_hf_state_dict(self, weights: dict, dtype=torch.bfloat16) -> dict:
+        """Params on the host from an HF-style state dict (CPU tensors or
+        numpy arrays, linear weights [N, K]): linear weights turn to [K, N]
+        and every per-layer weight stacks over layers. Attention biases are
+        kept when the config asks for them and the checkpoint has them; a
+        tied model gets no ``lm_head``."""
+        cfg = self.config
+        as_t = lambda a: a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a))
+        use_bias = cfg.attention_bias and (
+            self.HF_PREFIX.format(i=0) + self.HF_BIAS_MAP["bq"]) in weights
+        names = {**self.HF_LAYER_MAP, **(self.HF_BIAS_MAP if use_bias else {})}
+        layers = {}
+        for name, suffix in names.items():
+            mats = []
+            for i in range(cfg.num_hidden_layers):
+                m = as_t(weights[self.HF_PREFIX.format(i=i) + suffix]).to(dtype)
+                mats.append(m.T if name in self.LINEAR_KEYS else m)
+            layers[name] = torch.stack(mats)
+        params = {
+            "embed": as_t(weights[self.HF_TOP["embed"]]).to(dtype).contiguous(),
+            "layers": layers,
+            "norm": as_t(weights[self.HF_TOP["norm"]]).to(dtype).contiguous(),
+        }
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = as_t(weights[self.HF_TOP["lm_head"]]).to(dtype).T.contiguous()
         return params
 
     def quantize_params(
@@ -333,12 +388,28 @@ class LlamaModel:
         return linear(_silu(g) * u, p["wd"], layer=layer)
 
     def _fused_mlp_ok(self, p, m: int) -> bool:
-        """Gate of the one-launch decode MLP-block kernel. Off in the port
-        until that kernel (fused_mlp_stacked) is ported."""
-        return False
+        """The JAX package's auto policy for the one-launch decode MLP block
+        (K4 on the card, its plain version on the CPU): small models
+        (hidden <= 2048), stacked quantized wo / wgu / wd, M <= 8 and the
+        kernel's own gate."""
+        if self.config.hidden_size > 2048:
+            return False
+        if not ("wo" in p and "wgu" in p and "wd" in p):
+            return False
+        if not isinstance(p["wo"], QuantizedTensor):
+            return False
+        return fused_mlp_supported(p["wo"], p["wgu"], p["wd"], m)
 
-    def _mlp_block(self, p, h, attn_flat, layer, eps, fused_ln=False):
-        """wo projection + residual + ln2 + gated MLP + residual."""
+    def _mlp_block(self, p, h, attn_flat, layer, eps, fused, fused_ln=False):
+        """wo projection + residual + ln2 + gated MLP + residual: one
+        launch (fused_mlp_stacked) when ``fused``."""
+        if fused:
+            b, t, dm = h.shape
+            out = fused_mlp_stacked(
+                attn_flat.reshape(b * t, -1).contiguous(), h.reshape(b * t, dm),
+                p["ln2"], layer, p["wo"], p["wgu"], p["wd"], eps=eps,
+            )
+            return out.reshape(b, t, dm)
         h = h + linear(attn_flat, p["wo"], layer=layer)
         if fused_ln:
             # ln2 folds into the wgu kernel prologue
@@ -412,6 +483,7 @@ class LlamaModel:
         eps = cfg.rms_norm_eps
         # decode: ln1 / ln2 fold into the projection kernels' prologue
         fused_ln = t == 1 and b * t <= 32
+        use_fused_mlp = self._fused_mlp_ok(p, b * t)
         if not quantized and cache.window is None:
             # contiguous slots: a dynamic_update_slice per sequence, whose
             # start clamps so the update fits (XLA semantics)
@@ -453,7 +525,7 @@ class LlamaModel:
                     scatter_drop(cv, write_slots, v.to(cv.dtype))
                 attn = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
             h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps,
-                                fused_ln=fused_ln)
+                                use_fused_mlp, fused_ln=fused_ln)
         if fused_ln and "lm_head" in params:
             logits = self.unembed(params, h, params["norm"], eps)
         else:
@@ -508,6 +580,7 @@ class LlamaModel:
         scale = dh**-0.5
         eps = cfg.rms_norm_eps
         fused_ln = decode and b * t <= 32
+        use_fused_mlp = decode and self._fused_mlp_ok(p, b * t)
         phys, slot = page_slots(block_tables, positions, pool.num_pages)
         if not decode:
             mask = attention_mask(positions,
@@ -533,7 +606,8 @@ class LlamaModel:
                 )[:, None]
             else:
                 attn = self._gathered_attn(pool, i, block_tables, q, mask, scale)
-            h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps)
+            h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps,
+                                use_fused_mlp)
         if not with_logits:
             return None, pool
         if fused_ln and "lm_head" in params:

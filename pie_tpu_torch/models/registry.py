@@ -32,8 +32,17 @@ def register_model(model_type: str) -> Callable:
     return deco
 
 
+# families the JAX package serves that the port does not yet
+_NOT_PORTED = {"gemma3", "qwen2_vl", "qwen2_5_vl"}
+
+
 def get_model_class(model_type: str):
     canonical = _ALIASES.get(model_type, model_type)
+    if canonical in _NOT_PORTED:
+        raise ValueError(
+            f"model architecture {model_type!r} is not ported yet "
+            "(ROADMAP A9: Gemma-3 and Qwen2-VL)"
+        )
     # Import the module to trigger registration.
     try:
         importlib.import_module(f"pie_tpu_torch.models.{canonical}")

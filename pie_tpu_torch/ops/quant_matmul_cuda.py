@@ -20,10 +20,11 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
   989 TFLOP/s bf16. Its first design double-buffers the tiles through
   registers; no TMA or ``wgmma`` yet.
 
-``build`` compiles every source under ``csrc/`` (K1, K2 and the paged
-attention kernel K3 of ``ops/paged_attention.py``) with nvcc for
-``sm_90a`` at first use into ``build/pie_tpu_torch/<hash of the
-sources>/``; ``kernel`` binds a library's C entry point through ctypes.
+``build`` compiles every source under ``csrc/`` (K1, K2, the paged
+attention kernel K3 of ``ops/paged_attention.py`` and the fused decode-MLP
+kernel K4 of ``ops/fused_mlp.py``) with nvcc for ``sm_90a`` at first use
+into ``build/pie_tpu_torch/<hash of the sources and headers>/``;
+``kernel`` binds a library's C entry point through ctypes.
 A wrapper checks device, dtype, shape and contiguity (the weights' layout
 is checked once, where their ``QuantizedTensor`` is built), allocates the
 output with ``torch.empty``, launches on the current stream, raises if the
@@ -63,7 +64,7 @@ NVCC_FLAGS = (
 )
 
 #: kernel launches since the last reset, by kernel name
-launch_counts = {"K1": 0, "K2": 0, "K3": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 #: K1 splits K across blocks until about this many blocks are in flight
 #: (4 per SM of an H100)
@@ -92,10 +93,12 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    """Build directory keyed by a hash of the sources and flags."""
+    """Build directory keyed by a hash of the flags, the sources and the
+    headers they include (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES.values()):
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -133,13 +136,14 @@ def build(verbose: bool = False) -> dict[str, Path]:
     return paths
 
 
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry point and argument types of each library
 ENTRY_POINTS = {
-    "quant_gemv": ("pie_quant_gemv", [_vp] * 10 + [_ci] * 8 + [_cf, _vp]),
-    "quant_gemm": ("pie_quant_gemm", [_vp] * 7 + [_ci] * 6 + [_vp]),
+    "quant_gemv": ("pie_quant_gemv", [_vp] * 10 + [_ci] * 9 + [_cf, _vp]),
+    "quant_gemm": ("pie_quant_gemm", [_vp] * 7 + [_ci] * 7 + [_vp]),
     "paged_attention": ("pie_paged_attention",
                         [_vp] * 10 + [_ci] * 9 + [_cf, _ci, _vp]),
+    "fused_mlp": ("pie_fused_mlp", [_vp] * 15 + [_ci] * 7 + [_cf, _cll, _vp]),
 }
 
 
@@ -227,8 +231,9 @@ def _weight_ptrs(qt: QuantizedTensor, layer, device) -> tuple[int, int, int]:
     layout where it was built; a call checks what the kernel adds to it."""
     if qt.packed.device != device:
         raise ValueError(f"weights on {qt.packed.device}, x on {device}")
-    if qt.scales.dtype != torch.bfloat16:
-        raise ValueError(f"scales and biases must be bfloat16, got {qt.scales.dtype}")
+    if qt.scales.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"scales and biases must be bfloat16 or float32, got "
+                         f"{qt.scales.dtype}")
     i = int(layer) if qt.stacked else 0
     if qt.stacked and not 0 <= i < qt.packed.shape[0]:
         raise IndexError(f"layer {i} of {qt.packed.shape[0]}")
@@ -237,6 +242,13 @@ def _weight_ptrs(qt: QuantizedTensor, layer, device) -> tuple[int, int, int]:
     if any(p % 16 for p in ptrs):
         raise ValueError("weights must be 16-byte aligned")
     return ptrs
+
+
+def _f32_scales(qt: QuantizedTensor) -> int:
+    """1 where the scales and biases are f32 (a tied head quantized from the
+    f32 transpose of the embedding, as the JAX package keeps it), else 0
+    (bf16)."""
+    return int(qt.scales.dtype == torch.float32)
 
 
 def _ln_ptr(ln_w, layer, qt: QuantizedTensor) -> Optional[int]:
@@ -317,7 +329,7 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
     err = kernel("quant_gemv")(
         xm.data_ptr(), wp, sp, bp, lw, _ptr(cos), _ptr(sin), y.data_ptr(),
         _ptr(ws), _ptr(counters), splits,
-        m, qt.shape[0], qt.padded_k, n, qt.bits, qt.group_size,
+        m, qt.shape[0], qt.padded_k, n, qt.bits, qt.group_size, _f32_scales(qt),
         int(rope_dim), float(ln_eps), torch.cuda.current_stream().cuda_stream,
     )
     if err:
@@ -339,7 +351,7 @@ def quant_gemm(x, qt, layer=None, rope_cs=None, rope_dim=0) -> torch.Tensor:
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
     err = kernel("quant_gemm")(
         xm.data_ptr(), wp, sp, bp, _ptr(cos), _ptr(sin), y.data_ptr(),
-        m, qt.padded_k, n, qt.bits, qt.group_size, int(rope_dim),
+        m, qt.padded_k, n, qt.bits, qt.group_size, _f32_scales(qt), int(rope_dim),
         torch.cuda.current_stream().cuda_stream,
     )
     if err:

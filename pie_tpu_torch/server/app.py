@@ -6,8 +6,9 @@ wire schemas and error mapping. Engine calls run in worker threads: behind
 a lock for the single-stream ``InferenceEngine``, without one for the
 continuous-batching ``BatchedInferenceEngine``, which decodes concurrent
 requests (and the choices of an ``n > 1`` chat) as lanes of one batch.
-Checkpoint loading (MODEL_PATH) is not ported yet and raises, so the app
-needs an engine.
+Without an engine, ``create_app`` builds one from the checkpoint that
+MODEL_PATH names (``python -m pie_tpu_torch.server``), batching when
+BATCHING=1.
 """
 
 from __future__ import annotations
@@ -499,9 +500,23 @@ def create_app(
     if engine is None:
         if not settings.model_path:
             raise RuntimeError("MODEL_PATH is not set")
-        raise NotImplementedError(
-            "MODEL_PATH: checkpoint loading is not ported yet (ROADMAP queue A9)"
-        )
+        logger.info("loading model from %s", settings.model_path)
+        if settings.batching:
+            engine = BatchedInferenceEngine(
+                model_path=settings.model_path,
+                num_lanes=settings.num_lanes,
+                num_pages=settings.num_pages,
+                kv_quantized=settings.kv_quantized,
+                scheduler_impl="native" if settings.native_scheduler else "python",
+                device=dev,
+            )
+        else:
+            engine = InferenceEngine(
+                model_path=settings.model_path,
+                max_seq_len=settings.max_seq_len,
+                kv_quantized=settings.kv_quantized,
+                device=dev,
+            )
     concurrent = isinstance(engine, BatchedInferenceEngine)
     if settings.batching and not concurrent:
         raise ValueError("BATCHING=1 asks for continuous batching, but the "

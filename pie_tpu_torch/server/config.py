@@ -1,10 +1,10 @@
 """Server settings from environment / .env (reference server/config.py:4-19).
 
-Only the settings the port reads are kept. The reference's MAX_SEQ_LEN,
-KV_QUANTIZED, NUM_LANES, NUM_PAGES and NATIVE_SCHEDULER configure the
-engine that the model loader builds, which is not ported yet (ROADMAP
-queues A9 and A7): ``create_app`` refuses MODEL_PATH, takes the engine from
-its caller, and refuses BATCHING=1 with a single-stream engine."""
+MODEL_PATH names the checkpoint ``create_app`` loads; BATCHING=1 serves it
+through the continuous-batching engine (NUM_LANES lanes over NUM_PAGES KV
+pages), else through the single-stream engine (MAX_SEQ_LEN). KV_QUANTIZED
+keeps the KV cache in INT8. NATIVE_SCHEDULER=1 asks for the C++ scheduler,
+which is not ported yet (ROADMAP A7): the engine refuses it."""
 
 from __future__ import annotations
 
@@ -20,7 +20,12 @@ class Settings:
     host: str = "0.0.0.0"
     port: int = 8000
     log_level: str = "INFO"
+    max_seq_len: int = 4096
+    kv_quantized: bool = False
     batching: bool = False
+    num_lanes: int = 8
+    num_pages: int = 1024
+    native_scheduler: bool = False
 
     @classmethod
     def load(cls) -> "Settings":
@@ -38,7 +43,12 @@ class Settings:
             host=get("HOST", "0.0.0.0"),
             port=int(get("PORT", "8000")),
             log_level=get("LOG_LEVEL", "INFO"),
+            max_seq_len=int(get("MAX_SEQ_LEN", "4096")),
+            kv_quantized=get("KV_QUANTIZED", "0") in ("1", "true", "True"),
             batching=get("BATCHING", "0") in ("1", "true", "True"),
+            num_lanes=int(get("NUM_LANES", "8")),
+            num_pages=int(get("NUM_PAGES", "1024")),
+            native_scheduler=get("NATIVE_SCHEDULER", "0") in ("1", "true", "True"),
         )
 
 

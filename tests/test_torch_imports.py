@@ -47,10 +47,15 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.ops.paged_attention",
     "pie_tpu_torch.engine.scheduler",
     "pie_tpu_torch.engine.async_engine",
+    "pie_tpu_torch.ops.fused_mlp",
+    "pie_tpu_torch.models.loader",
+    "pie_tpu_torch.models.gguf",
+    "pie_tpu_torch.server.app",
 ])
 def test_batching_modules_import_no_jax(module):
-    """Each module of the continuous-batching path, imported alone in a
-    fresh process, brings in neither JAX nor the JAX package."""
+    """Each module of the continuous-batching path, and of the checkpoint
+    and fused-MLP path, imported alone in a fresh process, brings in
+    neither JAX nor the JAX package."""
     code = textwrap.dedent(f"""
         import importlib, sys
         importlib.import_module({module!r})
@@ -85,8 +90,9 @@ def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
 
 
 def test_entry_points_default_to_cuda():
-    """Without a device argument the engine, its core, the app and the
-    random initializers ask for CUDA, and where there is none they raise;
+    """Without a device argument the engine, its core, the app, the
+    checkpoint loaders and the random initializers ask for CUDA, and where
+    there is none they raise;
     the helpers that allocate state take no default device at all."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
@@ -128,3 +134,11 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         create_app(engine=InferenceEngine(model=model, params=params,
                                           device="cpu"))
+    from pie_tpu_torch.models.gguf import load_gguf_model
+    from pie_tpu_torch.models.loader import load_model, load_params
+
+    for load in (load_model, load_params, load_gguf_model):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(ROOT / "no-such-checkpoint")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(model_path=str(ROOT / "no-such-checkpoint"))

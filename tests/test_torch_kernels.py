@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1 (decode GEMV), K2 (prefill GEMM) and K3
-(paged decode attention) against their plain PyTorch versions, on a CUDA
+"""The hand-written CUDA kernels K1 (decode GEMV), K2 (prefill GEMM), K3
+(paged decode attention) and K4 (fused decode MLP block) against their
+plain PyTorch versions, on a CUDA
 card. Imports no JAX, so it runs on the card's machine (the conftest
 imports JAX: skip it there):
 python -m pytest --noconftest tests/test_torch_kernels.py. Elsewhere every
@@ -8,6 +9,7 @@ test skips: the kernels have no CPU mode."""
 import pytest
 import torch
 
+from pie_tpu_torch.ops import fused_mlp as fm
 from pie_tpu_torch.ops import paged_attention as pa
 from pie_tpu_torch.ops import quant as tq
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
@@ -53,6 +55,23 @@ def test_kernel_matches_plain(cuda, m, bits, group_size, dh):
     assert qmc.launch_counts["K1" if m <= 32 else "K2"] == 1
     want = qmc.quant_matmul_ref(x, qt, layer=1, **kw)
     assert _norm_err(got, want) < 0.025
+
+
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_kernel_f32_scales(cuda, m):
+    """A tied head quantized from the f32 transpose of the embedding keeps
+    f32 scales and biases (as in the JAX package): K1 and K2 read them."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn((1024, 640), generator=gen, device=cuda) * 0.05
+    qt = tq.quantize(w, 64, 4)
+    assert qt.scales.dtype == torch.float32
+    x = torch.randn((m, 1024), generator=gen, device=cuda).bfloat16()
+    kw = {}
+    if m <= qmc.DECODE_MAX_M:
+        kw = dict(ln_w=(1 + 0.1 * torch.randn(1024, generator=gen, device=cuda)).bfloat16(),
+                  ln_eps=1e-5)
+    got = tq.quantized_matmul(x, qt, **kw)
+    assert _norm_err(got, qmc.quant_matmul_ref(x, qt, **kw)) < 0.025
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -191,3 +210,67 @@ def test_chunk_dispatch_reads_nothing_back(cuda, monkeypatch):
     assert all(s.status == SeqStatus.COMPLETED and len(s.output_ids) == 12 for s in seqs)
     assert qmc.launch_counts["K3"] == 2 * (engine.device_steps - steps0) > 0
     assert qmc.launch_counts["K2"] > 0  # the mixed steps' M = 4 + 44 projections
+
+
+# -- K4: the fused decode MLP block ----------------------------------------------
+
+
+def mlp_weights(dev, d, di, bits=4, group_size=64, layers=2, seed=0,
+                dtype=torch.bfloat16):
+    """Random stacked wo [L, d, d], wgu [L, d, 2 di], wd [L, di, d], quantized
+    on the card from ``dtype`` weights (so with scales of that dtype), and
+    an ln2 table [L, d]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = lambda k, n: tq.quantize(
+        (torch.randn((layers, k, n), generator=gen, device=dev) * 0.02).to(dtype),
+        group_size, bits)
+    ln2 = (torch.rand((layers, d), generator=gen, device=dev) + 0.5).bfloat16()
+    return q(d, d), q(d, 2 * di), q(di, d), ln2
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fused_mlp_matches_plain(cuda, m, bits):
+    """K4 at the Llama-3.2-1B widths (d 2048, di 8192) against
+    fused_mlp_ref on the same card inputs, layer 1 of 2, with the ln2 row
+    given as the [L, d] table and as the layer's row; one launch per call,
+    and a second call gives the same bits (the barrier words were left
+    ready, the reduction order is fixed)."""
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192, bits=bits)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    attn = torch.randn((m, 2048), generator=gen, device=cuda).bfloat16()
+    h = torch.randn((m, 2048), generator=gen, device=cuda).bfloat16()
+    qmc.reset_counts()
+    got = fm.fused_mlp_stacked(attn, h, ln2, 1, wo, wgu, wd, 1e-5)
+    torch.cuda.synchronize()
+    assert qmc.launch_counts["K4"] == 1
+    want = fm.fused_mlp_ref(attn, h, ln2, 1, wo, wgu, wd, 1e-5)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, 2048)
+    assert _norm_err(got, want) < 0.02
+    again = fm.fused_mlp_stacked(attn, h, ln2[1], 1, wo, wgu, wd, 1e-5)
+    assert torch.equal(again, got)
+
+
+def test_fused_mlp_f32_scales(cuda):
+    """Weights quantized from f32 keep f32 scales; K4 reads them."""
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 2048, dtype=torch.float32)
+    assert wgu.scales.dtype == torch.float32
+    attn, h = (torch.randn((2, 2048), device=cuda).bfloat16() for _ in range(2))
+    got = fm.fused_mlp_stacked(attn, h, ln2, 0, wo, wgu, wd)
+    assert _norm_err(got, fm.fused_mlp_ref(attn, h, ln2, 0, wo, wgu, wd)) < 0.02
+
+
+def test_fused_mlp_rejects_what_it_does_not_take(cuda):
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 2048)
+    x = lambda m: torch.randn((m, 2048), device=cuda).bfloat16()
+    with pytest.raises(ValueError):  # M > 8
+        fm.fused_mlp_cuda(x(9), x(9), ln2, 0, wo, wgu, wd)
+    with pytest.raises(ValueError):  # unstacked weights
+        fm.fused_mlp_cuda(x(1), x(1), ln2[0], 0, wo.layer(0), wgu, wd)
+    _, _, wd32, _ = mlp_weights(cuda, 2048, 2048, group_size=32)
+    with pytest.raises(ValueError):  # mixed group sizes
+        fm.fused_mlp_cuda(x(1), x(1), ln2, 0, wo, wgu, wd32)
+    with pytest.raises(ValueError):  # f32 activations
+        fm.fused_mlp_cuda(x(1).float(), x(1), ln2, 0, wo, wgu, wd)
+    with pytest.raises(IndexError):  # layer out of range
+        fm.fused_mlp_cuda(x(1), x(1), ln2, 2, wo, wgu, wd)

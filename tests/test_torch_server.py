@@ -1,7 +1,7 @@
 """The port's OpenAI-compatible server (pie_tpu_torch.server) on the CPU:
 aiohttp TestClient, tiny model, offline tokenizer. Covers chat (non-stream
 + SSE stream + usage chunk), completions, responses, logprobs, error
-mapping, and the settings that are not ported yet."""
+mapping, and the settings that are refused."""
 
 import asyncio
 import json
@@ -232,15 +232,21 @@ def test_completions_logit_bias_forces_text(engine_fixture):
 
 
 def test_unported_settings_raise(engine_fixture):
-    """Checkpoint loading is not ported, with or without BATCHING=1, and
-    BATCHING=1 refuses the single-stream engine."""
+    """BATCHING=1 refuses the single-stream engine; MODEL_PATH must name a
+    checkpoint, with or without BATCHING=1; NATIVE_SCHEDULER=1 asks for the
+    C++ scheduler, which is not ported (ROADMAP A7)."""
+    from pie_tpu_torch.engine.engine import InferenceError
+
     with pytest.raises(ValueError, match="BATCHING"):
         create_app(engine=engine_fixture, settings=Settings(batching=True),
                    device="cpu")
     for batching in (False, True):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
             create_app(settings=Settings(model_path="/nonexistent",
                                          batching=batching), device="cpu")
+    with pytest.raises(InferenceError, match="A7"):
+        create_app(settings=Settings(model_path="/nonexistent", batching=True,
+                                     native_scheduler=True), device="cpu")
 
 
 def test_constrained_request_is_refused(engine_fixture):
