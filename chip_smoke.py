@@ -8,15 +8,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 0. device: the card's name and power limit (nvidia-smi); no CUDA -> error.
 1. build: nvcc builds every kernel source under pie_tpu_torch/csrc (sm_90a),
    one process per source, all started together.
-2. kernels: K1 (decode GEMV) and K2 (prefill GEMM, also with the rope
-   epilogue at M = 40 and 256) against their plain PyTorch version at the
-   Llama-3-8B INT4 g=64 shapes (normalized max error < 0.025), each timed
-   over 8 rotating weight copies with CUDA events (device time from a
-   captured CUDA graph, and back-to-back calls from the host), beside the
-   plain version, a torch.matmul yardstick on a pre-dequantized bf16
-   weight, and the least time the card could take; K1 and K2 again at the
-   Llama-3.2-1B shapes (wqkv with ln + rope and the tied lm_head at M = 1,
-   wgu at M = 512). Then K4 (the fused decode MLP block) against its plain
+2. kernels: K1 (decode GEMV) and K2 (prefill GEMM) against their plain
+   PyTorch version at the Llama-3-8B INT4 g=64 shapes (normalized max
+   error < 0.025), each timed over 8 rotating weight copies with CUDA
+   events (device time from a captured CUDA graph, and back-to-back calls
+   from the host), beside the plain version, a torch.matmul yardstick on a
+   pre-dequantized bf16 weight, the least time the card could take and the
+   achieved TFLOP/s: K1 for all five projections at M = 1 and M = 8 (the
+   paged decode step), wo at M = 32, INT8 g64 and INT4 g32/g128; K2 for all
+   five at M = 512 (summed per 512-token prefill), wqkv and wo at M = 33,
+   64, 128, 129 and 2048, wo INT8 g64 and INT4 g32/g128 at M = 512, and
+   wqkv with the rope epilogue at M = 40 and 256; the host cost of K2's
+   tensor maps. K1 and K2 again at the Llama-3.2-1B shapes: wqkv with ln +
+   rope and the tied lm_head (f32 scales) at M = 1, every projection and
+   the head at M = 512 (summed per prefill), wqkv with rope (dh 64) at
+   M = 40. Then K4 (the fused decode MLP block) against its plain
    version (normalized max error < 0.02) at the 1B shapes (INT4 g64 at
    M = 1 and 8, INT8 g64 at M = 8) and, recorded only, the 8B shapes,
    timed beside the plain version, the port's unfused block and a
@@ -73,9 +79,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    tok/s best of 2, K4 16 per decode device step and none in mixed steps,
    TTFT under load, idle share over one steady chunk).
 
-Prints one JSON line per phase and one with each phase's seconds, then the
-kernel summary line (K1-K4), the card's name and power limit, and as the
-last line
+Prints one JSON line per phase and one with each phase's seconds, the
+summed rows (K2 per 8B and per 1B prefill, K1 per 8B paged decode step),
+then the kernel summary line (K1-K4), the card's name and power limit, and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -226,8 +233,13 @@ def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0,
         plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(bound_bytes, bound_ops),
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-        bytes=nbytes, flops=flops,
+        bytes=nbytes, flops=flops, tflop_s=flops / ms / 1e9,
     )
+    if m > qmc.DECODE_MAX_M:
+        plan = qmc.gemm_plan(m, n, qt.padded_k, g, kw.get("rope_dim", 0),
+                             sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        row.update(k2_grid=[plan.m_tiles, plan.n_tiles, plan.splits],
+                   k2_steps_per_split=plan.steps_per_split)
     emit(row)
     return row
 
@@ -243,20 +255,40 @@ MAIN_SHAPES = [  # name, K, N, per-token launches, ln, rope
 
 
 def phase_kernels():
-    rows = {"K1": [], "K2": []}
+    """K1 and K2 at the 8B shapes. Rows "K1" (M = 1) and "K2" (M = 512) are
+    the per-token and per-prefill sums; "K1 M=8" is the paged decode step's
+    K1 cost (8 lanes)."""
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    rows = {"K1": [], "K1 M=8": [], "K2": []}
     for name, k, n, per, ln, rope in MAIN_SHAPES:
         rows["K1"].append((per, kernel_case(f"{name} M=1", k, n, 1, ln=ln, rope=rope)))
-    for m in (8, 32):
-        kernel_case(f"wo M={m}", HQ * DH, D, m)
+    for name, k, n, per, ln, rope in MAIN_SHAPES:
+        rows["K1 M=8"].append((per, kernel_case(f"{name} M=8", k, n, 8, ln=ln,
+                                                rope=rope)))
+    kernel_case("wo M=32", HQ * DH, D, 32)
     for bits, g in ((8, 64), (4, 32), (4, 128)):
         kernel_case(f"wo M=1 int{bits} g{g}", HQ * DH, D, 1, bits=bits, g=g)
     for name, k, n, per, _, _ in MAIN_SHAPES:
         rows["K2"].append((per, kernel_case(f"{name} M=512", k, n, 512)))
-    kernel_case("wo M=512 int8 g64", HQ * DH, D, 512, bits=8, g=64)
+    # K2 across M: below one wave of output tiles (split K), at its edges
+    # (M = 128, 129) and above one 512-token chunk
+    for m in (33, 64, 128, 129, 2048):
+        kernel_case(f"wqkv M={m}", D, (HQ + 2 * HKV) * DH, m)
+        kernel_case(f"wo M={m}", HQ * DH, D, m)
+    for bits, g in ((8, 64), (4, 32), (4, 128)):
+        kernel_case(f"wo M=512 int{bits} g{g}", HQ * DH, D, 512, bits=bits, g=g)
     # the mixed step's QKV projection: K2 with the rope epilogue at
     # M = lanes + rider (8 + 248 in the paged engine)
     for m in (40, 256):
         kernel_case(f"wqkv M={m} (rope)", D, (HQ + 2 * HKV) * DH, m, rope=True)
+    # host cost of K2's four TMA tensor maps per call
+    x = torch.randn((512, D), device="cuda").bfloat16()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qt = random_qt(D, (HQ + 2 * HKV) * DH, 4, 64, 1, gen)
+    emit(dict(phase="kernels", case="K2 tensor-map encoding, host ns per call",
+              encode_ns=qmc.gemm_encode_ns(x, qt, layer=0)))
+    del x, qt
     torch.cuda.empty_cache()
     return rows
 
@@ -268,18 +300,31 @@ MAIN_SHAPES_1B = [  # name, K, N, per-token launches, ln, rope, scale dtype
     ("wqkv", D1, (HQ1 + 2 * HKV1) * DH1, LAYERS1, True, True, torch.bfloat16),
     ("lm_head", D1, VOCAB, 1, True, False, torch.float32),
 ]
+# per 512-token prefill at 1B: K2 for every projection of every layer and
+# the tied head over all 512 rows (as the JAX package's __call__ does)
+PREFILL_SHAPES_1B = [  # name, K, N, launches per prefill, scale dtype
+    ("wqkv", D1, (HQ1 + 2 * HKV1) * DH1, LAYERS1, torch.bfloat16),
+    ("wo", HQ1 * DH1, D1, LAYERS1, torch.bfloat16),
+    ("wgu", D1, 2 * DI1, LAYERS1, torch.bfloat16),
+    ("wd", DI1, D1, LAYERS1, torch.bfloat16),
+    ("lm_head", D1, VOCAB, 1, torch.float32),
+]
 
 
 def phase_kernels_1b():
     """K1 and K2 at the Llama-3.2-1B shapes: the per-token K1 launches at
-    M = 1, and wgu and the tied head of a 512-token prefill (K2)."""
+    M = 1 ("K1"), every projection of a 512-token prefill ("K2"), and the
+    mixed step's QKV projection with rope (dh 64) at M = 40."""
     heads = (HQ1, HKV1, DH1)
-    rows = [(per, kernel_case(f"1B {name} M=1", k, n, 1, ln=ln, rope=rope, heads=heads,
-                              scale_dtype=sd))
-            for name, k, n, per, ln, rope, sd in MAIN_SHAPES_1B]
-    kernel_case("1B wgu M=512", D1, 2 * DI1, 512)
-    kernel_case("1B lm_head M=512 (f32 scales)", D1, VOCAB, 512,
-                scale_dtype=torch.float32)
+    rows = {"K1": [(per, kernel_case(f"1B {name} M=1", k, n, 1, ln=ln, rope=rope,
+                                     heads=heads, scale_dtype=sd))
+                   for name, k, n, per, ln, rope, sd in MAIN_SHAPES_1B]}
+    rows["K2"] = [(per, kernel_case(f"1B {name} M=512" + (" (f32 scales)" if sd ==
+                                                          torch.float32 else ""),
+                                    k, n, 512, scale_dtype=sd))
+                  for name, k, n, per, sd in PREFILL_SHAPES_1B]
+    kernel_case("1B wqkv M=40 (rope)", D1, (HQ1 + 2 * HKV1) * DH1, 40, rope=True,
+                heads=heads)
     torch.cuda.empty_cache()
     return rows
 
@@ -438,18 +483,19 @@ def paged_bytes(inputs, window=0):
             + ctx.numel() * 4), pages
 
 
-def paged_timing(quantized):
-    """K3 at 8 lanes x 2,048 tokens, 8B heads: device time over rotating
-    layers, host time, the plain version, SDPA on K/V gathered and
-    dequantized beforehand (yardstick only), and the bound."""
+def paged_timing(quantized, heads=(HQ, HKV, DH)):
+    """K3 at 8 lanes x 2,048 tokens (8B heads, or the 1B's D 64): device time
+    over rotating layers, host time, the plain version, SDPA on K/V gathered
+    and dequantized beforehand (yardstick only), and the bound."""
     import torch.nn.functional as F
 
     from pie_tpu_torch.cache.paged import PagedKVPool, gather_kv
     from pie_tpu_torch.ops import paged_attention as pa
 
-    inputs = paged_inputs((2048,) * 8, HQ, HKV, DH, quantized, seed=1)
+    hq, hkv, dh = heads
+    inputs = paged_inputs((2048,) * 8, hq, hkv, dh, quantized, seed=1)
     q, k, v, ks, vs, tables, ctx = inputs
-    scale = DH ** -0.5
+    scale = dh ** -0.5
     kern = lambda i: pa.paged_attention_decode(q, k, v, ks, vs, i % POOL_LAYERS,
                                                tables, ctx, scale)
     ms = device_ms(kern)
@@ -468,14 +514,15 @@ def paged_timing(quantized):
         qs, *dense[i % POOL_LAYERS], attn_mask=mask, scale=scale, enable_gqa=True)
     library_ms = device_ms(lib)
     nbytes, pages = paged_bytes(inputs)
-    flops = 4 * int(ctx.sum().item()) * HQ * DH  # q.k and p.v per token and head
+    flops = 4 * int(ctx.sum().item()) * hq * dh  # q.k and p.v per token and head
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / BF16_FLOP_PER_S * 1e3
     diff, norm = paged_check(inputs, 3, 0)
     row = dict(
-        phase="kernels", case=f"paged attention 8x2048 {'int8' if quantized else 'bf16'}",
-        kernel="K3", lanes=8, context=2048, hq=HQ, hkv=HKV, head_dim=DH,
-        quantized=quantized, splits=pa.page_splits(8, HKV, tables.shape[1]),
+        phase="kernels", case=f"paged attention 8x2048 {'int8' if quantized else 'bf16'}"
+                              f" D {dh}",
+        kernel="K3", lanes=8, context=2048, hq=hq, hkv=hkv, head_dim=dh,
+        quantized=quantized, splits=pa.page_splits(8, hkv, tables.shape[1]),
         max_abs_err=diff, norm_err=norm, kernel_ms=ms, kernel_host_ms=host_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bound_bytes, bound_ops),
@@ -503,6 +550,7 @@ def phase_paged_kernel():
                           lens=PAGED_LENS, layer=3, max_abs_err=diff, norm_err=norm))
             del inputs
     rows = {q: paged_timing(q) for q in (True, False)}
+    rows["1B"] = paged_timing(True, heads=(HQ1, HKV1, DH1))  # the 1B paged step's K3
     return rows, max([worst] + [r["max_abs_err"] for r in rows.values()])
 
 
@@ -637,7 +685,8 @@ def paged_model_check(model, cpu_params, gpu_params):
     if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
         raise AssertionError(f"paged model check did not run every kernel: {counts}")
     emit(dict(phase="model", path="paged_forward + mixed_forward", layers=2,
-              widths="llama3-8b", kv="int8 paged", norm_err=max(errs), launches=counts))
+              widths="llama3-8b", kv="int8 paged", norm_err=max(errs),
+              norm_err_per_step=errs, launches=counts))
 
 
 def llama1b_config(layers):
@@ -732,7 +781,8 @@ def phase_model_1b():
     if k4 != want:
         raise AssertionError(f"K4 launches per 1B step {k4}, want {want}")
     emit(dict(phase="model", geometry="llama3.2-1b", layers=2, kv="bf16 / int8 paged",
-              norm_err=max(errs), k4_per_step=k4))
+              norm_err=max(errs), norm_err_per_step=dict(zip((w for w, _ in k4), errs)),
+              k4_per_step=k4))
     del cpu_params, gpu_params, params
     torch.cuda.empty_cache()
     return max(errs)
@@ -1533,11 +1583,14 @@ def main() -> int:
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
 
     summary = []
-    for kname, src, what, per_rows in (
+    for kname, src, what, per_rows, launches in (
         ("K1", "pie_tpu_torch/csrc/quant_gemv.cu", "8B int4 g64, per decoded token",
-         rows["K1"]),
+         rows["K1"], eng["launches"]["K1"]),
         ("K2", "pie_tpu_torch/csrc/quant_gemm.cu", "8B int4 g64, per 512-token prefill",
-         rows["K2"]),
+         rows["K2"], eng["launches"]["K2"]),
+        ("K2", "pie_tpu_torch/csrc/quant_gemm.cu",
+         "1B int4 g64 with the f32-scale tied head, per 512-token prefill",
+         rows_1b["K2"], eng1b["launches"]["K2"]),
     ):
         total = lambda key: sum(per * r[key] for per, r in per_rows)
         bb = sum(per * r["bytes"] for per, r in per_rows) / HBM_BYTES_PER_S * 1e3
@@ -1546,12 +1599,24 @@ def main() -> int:
             name=f"{kname} {'quant_gemv' if kname == 'K1' else 'quant_gemm'} ({what})",
             route="cuda", source=src,
             replaces="pie_tpu/ops/quant_matmul_pallas.py:593",
-            launches=eng["launches"][kname],
+            launches=launches,
             max_abs_err=max(r["max_abs_err"] for _, r in per_rows),
             ms=total("kernel_ms"), kernel_ms=total("kernel_ms"), plain_ms=total("plain_ms"),
             bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
             library_ms=total("library_ms"),
+            tflop_s=sum(per * r["flops"] for per, r in per_rows) / total("kernel_ms") / 1e9,
         ))
+    for label, per_rows in (("K2 per 8B 512-token prefill", rows["K2"]),
+                            ("K2 per 1B 512-token prefill", rows_1b["K2"]),
+                            ("K1 per 8B paged decode step (M = 8)", rows["K1 M=8"])):
+        emit(dict(phase="summary", case=label,
+                  launches=sum(per for per, _ in per_rows),
+                  **{key: sum(per * r[key] for per, r in per_rows)
+                     for key in ("kernel_ms", "plain_ms", "library_ms", "flops", "bytes")},
+                  bound_ms=max(sum(per * r["bytes"] for per, r in per_rows)
+                               / HBM_BYTES_PER_S * 1e3,
+                               sum(per * r["flops"] for per, r in per_rows)
+                               / BF16_FLOP_PER_S * 1e3)))
     k3 = k3_rows[True]  # per device step: one launch per layer
     summary.append(dict(
         name="K3 paged_attention (8B heads, 8 lanes x 2,048-token INT8 pages, "
@@ -1576,9 +1641,16 @@ def main() -> int:
         unfused_ms=LAYERS1 * k4["unfused_ms"],
         paged_launches=paged1b["launches"]["K4"],
     ))
-    k1_1b = sum(per * r["kernel_ms"] for per, r in rows_1b)
+    k1_1b = sum(per * r["kernel_ms"] for per, r in rows_1b["K1"])
     emit(dict(phase="summary 1B", k1_ms_per_decoded_token=k1_1b,
+              k1_library_ms_per_decoded_token=sum(per * r["library_ms"]
+                                                  for per, r in rows_1b["K1"]),
+              k1_bound_ms_per_decoded_token=sum(per * r["bound_ms"]
+                                                for per, r in rows_1b["K1"]),
               k4_ms_per_decoded_token=LAYERS1 * k4["kernel_ms"],
+              k3_per_device_step=dict(
+                  (key, LAYERS1 * k3_rows["1B"][key])
+                  for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")),
               decode_tok_s=eng1b["decode_tok_s"], paged_tok_s=paged1b["decode_tok_s"]))
     print(json.dumps({"kernels": summary}))
     print(card)

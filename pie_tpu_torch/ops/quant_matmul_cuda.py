@@ -12,13 +12,18 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
   design splits K across the 8 warps of a block (and across blocks where
   N is narrow), stages x in shared memory, and turns codes into floats
   with one shift and one logic op.
-- **K2** (``csrc/quant_gemm.cu``, M > 32, the prefill branch): a tiled GEMM
-  that dequantizes each 64x128 weight tile to bf16 in shared memory and
-  multiplies on the tensor cores with ``wmma``, with the same rope
+- **K2** (``csrc/quant_gemm.cu``, M > 32, the prefill branch): a Hopper
+  GEMM in the transposed form y^T = W^T x^T. A producer thread keeps a
+  ring of shared-memory stages filled with TMA copies (x tiles, packed
+  words, scale and bias rows) behind ``mbarrier``s; two consumer
+  warpgroups dequantize their 64 features' weights straight into
+  ``wgmma``'s register A operand for the next step while the tensor cores
+  run the current one on 256 tokens of x, then apply the same rope
   epilogue as K1 (the mixed continuous-batching step fuses rope into its
-  QKV projection at M = lanes + rider). Bound by operations: 2*M*K*N over
-  989 TFLOP/s bf16. Its first design double-buffers the tiles through
-  registers; no TMA or ``wgmma`` yet.
+  QKV projection at M = lanes + rider). Where the output tiles fill at
+  most half of the SMs, K is split across blocks and the last block of a
+  tile sums the partials (``gemm_plan``). Bound by operations from M ~ 300
+  up (2*M*K*N over 989 TFLOP/s bf16), by bytes below.
 
 ``build`` compiles every source under ``csrc/`` (K1, K2, the paged
 attention kernel K3 of ``ops/paged_attention.py`` and the fused decode-MLP
@@ -38,6 +43,8 @@ impl="xla"). The CPU path and the kernel checks use it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -70,11 +77,24 @@ launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 #: (4 per SM of an H100)
 GEMV_TARGET_BLOCKS = 4 * 132
 _GEMV_TILE_K = 512
-_GEMM_TILE_N = 128  # K2's output tile width: a rope head must fit inside it
+#: K2's block tile: 256 rows of x (tokens, wgmma's N), 128 output columns
+#: (features: two wgmma warpgroups of 64; a rope head must fit inside
+#: them), 64-row K steps
+GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 256, 128, 64
+#: the most K ranges K2 splits one output tile into
+GEMM_MAX_SPLITS = 16
+#: gemm_plan's cost model, in 64-row K steps of one block: a block's fixed
+#: cost (pipeline fill, epilogue), and writing or reading one 128-row f32
+#: partial (set against K2's times at 1, 2, 4 and 8 splits on the H100,
+#: pie_tpu_torch/tools/k2_breakdown.py --splits)
+_GEMM_BLOCK_OVERHEAD, _GEMM_PARTIAL_COST = 3, 1.2
+#: SMs of an H100 SXM; gemm_plan's default
+H100_SMS = 132
 
 _libs: dict = {}
 _lock = threading.Lock()
-_counters: dict = {}  # per device: K1's zeroed arrival counters
+_counters: dict = {}  # per (device, kernel): zeroed arrival counters
+_sms: dict = {}  # per device: SM count
 
 
 def reset_counts() -> None:
@@ -137,23 +157,25 @@ def build(verbose: bool = False) -> dict[str, Path]:
 
 
 _vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: C entry point and argument types of each library
+#: C entry points (library, symbol, argument types), all returning int
 ENTRY_POINTS = {
-    "quant_gemv": ("pie_quant_gemv", [_vp] * 10 + [_ci] * 9 + [_cf, _vp]),
-    "quant_gemm": ("pie_quant_gemm", [_vp] * 7 + [_ci] * 7 + [_vp]),
-    "paged_attention": ("pie_paged_attention",
+    "quant_gemv": ("quant_gemv", "pie_quant_gemv", [_vp] * 10 + [_ci] * 9 + [_cf, _vp]),
+    "quant_gemm": ("quant_gemm", "pie_quant_gemm", [_vp] * 9 + [_ci] * 9 + [_vp]),
+    "quant_gemm_encode_ns": ("quant_gemm", "pie_quant_gemm_encode_ns",
+                             [_vp] * 4 + [_ci] * 7),
+    "paged_attention": ("paged_attention", "pie_paged_attention",
                         [_vp] * 10 + [_ci] * 9 + [_cf, _ci, _vp]),
-    "fused_mlp": ("pie_fused_mlp", [_vp] * 15 + [_ci] * 7 + [_cf, _cll, _vp]),
+    "fused_mlp": ("fused_mlp", "pie_fused_mlp", [_vp] * 15 + [_ci] * 7 + [_cf, _cll, _vp]),
 }
 
 
 def kernel(name: str):
-    """The C entry point of library ``name``, built at first use; each
-    returns cudaGetLastError() after its launch."""
+    """The C entry point ``name``, its library built at first use; each
+    kernel entry returns cudaGetLastError() after its launch."""
     with _lock:
         if name not in _libs:
-            symbol, argtypes = ENTRY_POINTS[name]
-            fn = getattr(ctypes.CDLL(str(build()[name])), symbol)
+            lib, symbol, argtypes = ENTRY_POINTS[name]
+            fn = getattr(ctypes.CDLL(str(build()[lib])), symbol)
             fn.argtypes = argtypes
             fn.restype = _ci
             _libs[name] = fn
@@ -287,6 +309,96 @@ def gemv_splits(n: int, padded_k: int) -> int:
     return -(-tiles // per)
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """K2's launch for one call: a grid of (m_tiles, n_tiles, splits)
+    blocks, each 256 x 128 outputs over ``steps_per_split`` 64-row K steps;
+    with ``splits > 1`` an f32 workspace of ``workspace_elems`` values
+    ([splits, M, N]) holds the partial sums."""
+
+    m: int
+    n: int
+    m_tiles: int
+    n_tiles: int
+    steps: int
+    splits: int
+    steps_per_split: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def workspace_elems(self) -> int:
+        return self.splits * self.m * self.n if self.splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(m: int, n: int, padded_k: int, group_size: int, rope_dim: int = 0,
+              sms: int = H100_SMS) -> GemmPlan:
+    """K2's tiles and K splits for y[m, n] = x[m, padded_k] @ W.
+
+    Output tiles of 256 x 128 cover the output. Where they fill at most
+    half of the card's SMs, K is split on group boundaries (whole
+    ``max(64, g)``-row units) into ranges that run in one wave (``tiles *
+    splits <= sms``): the split of least estimated time, steps per block
+    plus a block's fixed cost, writing its partial and the last block's
+    sum over the others. A card more than half full is not split: K2 is
+    then bound by what the SMs share (L2 and HBM), so a fuller grid gains
+    little and the partials cost more. Raises ValueError for shapes K2
+    does not take (N not a multiple of 8, a rope head that does not divide
+    the tile)."""
+    if m < 1 or n < 8 or n % 8:
+        raise ValueError(f"K2 needs M >= 1 and N a positive multiple of 8 (TMA's "
+                         f"16-byte rows), got M={m}, N={n}")
+    if group_size not in (32, 64, 128) or padded_k % GEMM_TILE_K or padded_k < GEMM_TILE_K:
+        raise ValueError(f"K2 needs g in (32, 64, 128) and K a multiple of "
+                         f"{GEMM_TILE_K}, got g={group_size}, K={padded_k}")
+    if rope_dim and (rope_dim % 32 or GEMM_TILE_N % rope_dim or n % rope_dim):
+        raise ValueError(f"K2's rope epilogue needs 32 | dh, dh | {GEMM_TILE_N} and "
+                         f"dh | N, got dh={rope_dim}, N={n}")
+    m_tiles, n_tiles = -(-m // GEMM_TILE_M), -(-n // GEMM_TILE_N)
+    steps = padded_k // GEMM_TILE_K
+    unit = max(GEMM_TILE_K, group_size) // GEMM_TILE_K  # steps per split unit
+    units = steps // unit
+    tiles = m_tiles * n_tiles
+    best = (steps, 1)  # (steps per split, splits)
+    if 2 * tiles <= sms:
+        partial = _GEMM_PARTIAL_COST * min(m, GEMM_TILE_M) / GEMM_TILE_M
+        cost = None
+        for want in range(1, min(units, GEMM_MAX_SPLITS, sms // tiles) + 1):
+            per = -(-units // want) * unit
+            splits = -(-steps // per)
+            if splits != want:
+                continue  # the same split as a smaller `want`
+            c = per + _GEMM_BLOCK_OVERHEAD
+            if splits > 1:  # each block writes its partial; the last reads the others
+                c += splits * partial
+            if cost is None or c < cost:
+                cost, best = c, (per, splits)
+    return GemmPlan(m=m, n=n, m_tiles=m_tiles, n_tiles=n_tiles, steps=steps,
+                    splits=best[1], steps_per_split=best[0])
+
+
+def _arrival_counters(device, kernel_name: str) -> torch.Tensor:
+    """A kernel's zeroed arrival counters on ``device`` (each split tile's
+    last block resets its own)."""
+    key = (device, kernel_name)
+    if key not in _counters:
+        _counters[key] = torch.zeros(4096, dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+def _device_sms(device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
+
+
 def _rope_tables(rope_cs, rope_dim: int, m: int, n: int):
     """Checked (cos, sin) [M, N] f32 of the rope epilogue, or (None, None).
     Both kernels pair a head's first-half columns with their partners dh/2
@@ -322,10 +434,7 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
     ws = counters = None
     if splits > 1:
         ws = torch.empty((splits, m, n), dtype=torch.float32, device=xm.device)
-        counters = _counters.get(xm.device)
-        if counters is None:
-            counters = torch.zeros(4096, dtype=torch.int32, device=xm.device)
-            _counters[xm.device] = counters
+        counters = _arrival_counters(xm.device, "K1")
     err = kernel("quant_gemv")(
         xm.data_ptr(), wp, sp, bp, lw, _ptr(cos), _ptr(sin), y.data_ptr(),
         _ptr(ws), _ptr(counters), splits,
@@ -340,17 +449,23 @@ def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
 
 def quant_gemm(x, qt, layer=None, rope_cs=None, rope_dim=0) -> torch.Tensor:
     """K2: ``y = x @ bf16(dequant(W[layer]))`` (+ rope, with K1's head
-    pairing), M > 32. x [M, K] bf16 CUDA; returns [M, N] bf16."""
+    pairing), M > 32. x [M, K] bf16 CUDA; returns [M, N] bf16. N must be a
+    multiple of 8 and a rope head must divide 128 (ValueError otherwise)."""
+    m, n = x.numel() // x.shape[-1], qt.shape[1]
+    sms = _device_sms(x.device) if x.device.type == "cuda" else H100_SMS
+    plan = gemm_plan(m, n, qt.padded_k, qt.group_size, rope_dim, sms=sms)
     xm = _x_padded(x, qt)
-    m, n = xm.shape[0], qt.shape[1]
     _check(xm, "x", torch.bfloat16)
     wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
     cos, sin = _rope_tables(rope_cs, rope_dim, m, n)
-    if rope_dim and _GEMM_TILE_N % rope_dim:
-        raise ValueError(f"K2's rope epilogue needs dh | {_GEMM_TILE_N}, got {rope_dim}")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, n), dtype=torch.float32, device=xm.device)
+        counters = _arrival_counters(xm.device, "K2")
     err = kernel("quant_gemm")(
-        xm.data_ptr(), wp, sp, bp, _ptr(cos), _ptr(sin), y.data_ptr(),
+        xm.data_ptr(), wp, sp, bp, _ptr(cos), _ptr(sin), y.data_ptr(), _ptr(ws),
+        _ptr(counters), plan.splits, plan.steps_per_split,
         m, qt.padded_k, n, qt.bits, qt.group_size, _f32_scales(qt), int(rope_dim),
         torch.cuda.current_stream().cuda_stream,
     )
@@ -358,6 +473,20 @@ def quant_gemm(x, qt, layer=None, rope_cs=None, rope_dim=0) -> torch.Tensor:
         raise RuntimeError(f"K2 (quant_gemm) launch failed: CUDA error {err}")
     launch_counts["K2"] += 1
     return y
+
+
+def gemm_encode_ns(x, qt, layer=None, reps: int = 1000) -> int:
+    """Mean host nanoseconds K2 spends encoding the four TMA tensor maps of
+    a call like ``quant_gemm(x, qt, layer)`` (x [M, K] bf16 CUDA)."""
+    xm = _x_padded(x, qt)
+    _check(xm, "x", torch.bfloat16)
+    wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
+    ns = kernel("quant_gemm_encode_ns")(
+        xm.data_ptr(), wp, sp, bp, xm.shape[0], qt.padded_k, qt.shape[1], qt.bits,
+        qt.group_size, _f32_scales(qt), int(reps))
+    if ns < 0:
+        raise RuntimeError("K2's tensor maps did not encode")
+    return ns
 
 
 def quant_matmul_cuda(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,

@@ -74,6 +74,41 @@ def test_kernel_f32_scales(cuda, m):
     assert _norm_err(got, qmc.quant_matmul_ref(x, qt, **kw)) < 0.025
 
 
+@pytest.mark.parametrize("m", [33, 127, 129, 257, 2048])
+@pytest.mark.parametrize("bits,group_size", [(4, 32), (4, 64), (4, 128), (8, 64)])
+def test_k2_matches_plain_across_rows(cuda, m, bits, group_size):
+    """K2 alone at the edges of its 128-row tiles, over K splits (small M)
+    and none (large M), layers 0 and L - 1 of a stack, and a ragged last
+    column tile (N = 5 x 128 + 8); one launch per call, and a second call
+    gives the same bits (the split partials are summed in a fixed order)."""
+    k, n, layers = 2048, 648, 3
+    gen = torch.Generator(device=cuda).manual_seed(m + bits + group_size)
+    w = (torch.randn((layers, k, n), generator=gen, device=cuda) * 0.05).bfloat16()
+    qt = tq.quantize(w, group_size, bits)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    for layer in (0, layers - 1):
+        qmc.reset_counts()
+        got = qmc.quant_gemm(x, qt, layer=layer)
+        torch.cuda.synchronize()
+        assert qmc.launch_counts["K2"] == 1
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert _norm_err(got, qmc.quant_matmul_ref(x, qt, layer=layer)) < 0.025
+        assert torch.equal(qmc.quant_gemm(x, qt, layer=layer), got)
+
+
+@pytest.mark.parametrize("m", [40, 512])
+def test_k2_tied_head_width(cuda, m):
+    """The 1B tied head: K 2048, N 128,256 (vocab), f32 scales."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn((2048, 128256), generator=gen, device=cuda) * 0.02
+    qt = tq.quantize(w, 64, 4)
+    del w
+    assert qt.scales.dtype == torch.float32
+    x = torch.randn((m, 2048), generator=gen, device=cuda).bfloat16()
+    got = qmc.quant_gemm(x, qt)
+    assert _norm_err(got, qmc.quant_matmul_ref(x, qt)) < 0.025
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     qt = tq.quantize(torch.randn((512, 256), device=cuda).bfloat16(), 64, 4)
     with pytest.raises(ValueError):  # f32 activations
@@ -83,12 +118,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # prologue on the prefill branch
         qmc.quant_matmul_cuda(torch.randn((64, 512), device=cuda).bfloat16(), qt,
                               ln_w=torch.ones(512, device=cuda).bfloat16())
-    wide = tq.quantize(torch.randn((512, 512), device=cuda).bfloat16(), 64, 4)
+    with pytest.raises(ValueError):  # K2 on CPU activations
+        qmc.quant_gemm(torch.randn((64, 512)).bfloat16(), qt)
+    narrow = tq.quantize(torch.randn((512, 100), device=cuda).bfloat16(), 64, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):  # TMA's 16-byte rows
+        qmc.quant_gemm(torch.randn((64, 512), device=cuda).bfloat16(), narrow)
+    wide = tq.quantize(torch.randn((512, 1024), device=cuda).bfloat16(), 64, 4)
+    dh = 2 * qmc.GEMM_TILE_N
     pos = torch.arange(64, device=cuda, dtype=torch.int32)
-    cs = rope_qkv_cs(pos, torch.rand(128, device=cuda), 2, 0, 256)
-    with pytest.raises(ValueError):  # a 256-wide head does not fit K2's tile
+    cs = rope_qkv_cs(pos, torch.rand(dh // 2, device=cuda), 1024 // dh, 0, dh)
+    with pytest.raises(ValueError):  # a head wider than K2's tile
         qmc.quant_gemm(torch.randn((64, 512), device=cuda).bfloat16(), wide,
-                       rope_cs=cs, rope_dim=256)
+                       rope_cs=cs, rope_dim=dh)
 
 
 # -- K3: paged decode attention ------------------------------------------------
