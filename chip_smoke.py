@@ -14,17 +14,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    events (device time from a captured CUDA graph, and back-to-back calls
    from the host), beside the plain version, a torch.matmul yardstick on a
    pre-dequantized bf16 weight, the least time the card could take and the
-   achieved TFLOP/s: K1 for all five projections at M = 1 and M = 8 (the
-   paged decode step), wo at M = 32, INT8 g64 and INT4 g32/g128; K2 for all
-   five at M = 512 (summed per 512-token prefill), wqkv and wo at M = 33,
-   64, 128, 129 and 2048, wo INT8 g64 and INT4 g32/g128 at M = 512, and
-   wqkv with the rope epilogue at M = 40 and 256; the host cost of K2's
-   tensor maps. K1 and K2 again at the Llama-3.2-1B shapes: wqkv with ln +
-   rope and the tied lm_head (f32 scales) at M = 1, every projection and
-   the head at M = 512 (summed per prefill), wqkv with rope (dh 64) at
-   M = 40. Then K4 (the fused decode MLP block) against its plain
-   version (normalized max error < 0.02) at the 1B shapes (INT4 g64 at
-   M = 1 and 8, INT8 g64 at M = 8) and, recorded only, the 8B shapes,
+   achieved TFLOP/s: K1 for all five projections at M = 1, 2, 8 (the paged
+   decode step), 9, 16 and 32, wo INT8 g64 and INT4 g32/g128 at M = 1
+   and 8; K2 for all five at M = 512 (summed per 512-token prefill), wqkv
+   and wo at M = 33, 64, 128, 129 and 2048, wo INT8 g64 and INT4 g32/g128
+   at M = 512, and wqkv with the rope epilogue at M = 40 and 256; the host
+   cost of K2's tensor maps. K1 and K2 again at the Llama-3.2-1B shapes:
+   wqkv with ln + rope and the tied lm_head (f32 scales) at M = 1 and 8,
+   every projection and the head at M = 512 (summed per prefill), wqkv
+   with rope (dh 64) at M = 40. K1's ln pre-pass alone at M = 1, 8, 32
+   (8B width) and 8 (1B) against its plain version (< 0.01). Then K4 (the
+   fused decode MLP block) against its plain version (normalized max error
+   < 0.02) at the 1B shapes (INT4 g64 at M = 1 and 8, INT8 g64 at M = 8)
+   and, recorded only, the 8B shapes,
    timed beside the plain version, the port's unfused block and a
    torch.matmul chain on bf16 weights dequantized beforehand. Then K3 (paged
    decode attention) against its plain version at the 8B heads (D 128) and
@@ -42,7 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    error < 0.03, and K3 ran.
 4. engine: the 32-layer 8B geometry with random INT4 g=64 weights through
    InferenceEngine: one counted request (64-token prompt, 128 decoded
-   tokens: K1 runs 129 times per decoded token, K2 129 times per prefill),
+   tokens: K1 runs 129 times per decoded token, its ln pre-pass 65 times,
+   K2 129 times per prefill),
    TTFT p50 of a 512-token prompt, best-of-3 greedy decode tok/s.
 5. requests: three requests over HTTP on localhost through the port's
    create_app (chat, chat SSE, completions with a logit_bias) on the 8B
@@ -72,7 +75,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8: 4 concurrent chats and one n=2
    chat. Every request returns 200; startup and request times printed.
 10. 1B engines from the snapshot, in process: InferenceEngine(model_path=)
-   (load time, quantized bytes, K4 16 and K1 17 per decoded token, TTFT
+   (load time, quantized bytes, K4 16, K1 17 and its pre-pass 17 per
+   decoded token, TTFT
    p50 at 512 tokens, best-of-3 decode tok/s, idle share) and
    BatchedInferenceEngine(model_path=, kv_quantized=True, num_lanes=8)
    through its scheduler in bench.py's paged configuration (aggregate
@@ -80,8 +84,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    TTFT under load, idle share over one steady chunk).
 
 Prints one JSON line per phase and one with each phase's seconds, the
-summed rows (K2 per 8B and per 1B prefill, K1 per 8B paged decode step),
-then the kernel summary line (K1-K4), the card's name and power limit, and
+summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
+step and per 8B step at the other row counts), then the kernel summary
+line (K1, its ln pre-pass, K2-K4), the card's name and power limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -235,15 +240,66 @@ def kernel_case(name, k, n, m, bits=4, g=64, ln=False, rope=False, seed=0,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         bytes=nbytes, flops=flops, tflop_s=flops / ms / 1e9,
     )
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if m > qmc.DECODE_MAX_M:
-        plan = qmc.gemm_plan(m, n, qt.padded_k, g, kw.get("rope_dim", 0),
-                             sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = qmc.gemm_plan(m, n, qt.padded_k, g, kw.get("rope_dim", 0), sms=sms)
         row.update(k2_grid=[plan.m_tiles, plan.n_tiles, plan.splits],
                    k2_steps_per_split=plan.steps_per_split)
+    else:
+        plan = qmc.gemv_plan(m, n, qt.padded_k, g, kw.get("rope_dim", 0), sms=sms)
+        row.update(k1_grid=[plan.n_tiles, plan.splits],
+                   k1_stages_per_split=plan.stages_per_split)
     emit(row)
     return row
 
 
+def ln_prepass_case(m, k, seed=0):
+    """K1's rms-norm pre-pass alone (gemv_ln_rows) against the plain
+    version's normalized rows (normalized max error < 0.01: one bf16
+    rounding of the same f32 arithmetic), timed beside it,
+    torch.nn.functional.rms_norm on the bf16 rows (yardstick only) and the
+    least time (read x and the ln row, write the normalized rows)."""
+    import torch.nn.functional as F
+
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qt = random_qt(k, 128, 4, 64, 1, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    lnw = (1 + 0.1 * torch.randn((ROTATE, k), generator=gen, device="cuda")).bfloat16()
+
+    def plain(i):
+        xf = x.float()
+        inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + EPS)
+        return (xf * inv * lnw[i % ROTATE].float()).bfloat16()
+
+    got = qmc.gemv_ln_rows(x, qt, ln_w=lnw[0], ln_eps=EPS)
+    want = plain(0)
+    torch.cuda.synchronize()
+    diff = (got[:, :k].float() - want.float()).abs().max().item()
+    norm = diff / want.float().abs().max().item()
+    if not (norm < 0.01 and got.shape == (m, qt.padded_k)):
+        raise AssertionError(f"K1 ln pre-pass vs plain normalized err {norm}")
+    ms = device_ms(lambda i: qmc.gemv_ln_rows(x, qt, ln_w=lnw[i % ROTATE], ln_eps=EPS))
+    plain_ms = cuda_ms(plain, 20)
+    library_ms = device_ms(lambda i: F.rms_norm(x, (k,), lnw[i % ROTATE], EPS))
+    nbytes = 2 * m * k + 2 * k + 2 * m * qt.padded_k
+    row = dict(phase="kernels", case=f"K1 ln pre-pass M={m} K={k}", kernel="K1 ln", m=m,
+               k=k, max_abs_err=diff, norm_err=norm, kernel_ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes", bytes=nbytes)
+    emit(row)
+    return row
+
+
+def phase_ln_prepass():
+    """The pre-pass at the 8B width for 1, 8 and 32 rows, and the 1B width
+    at 8."""
+    return {(m, k): ln_prepass_case(m, k) for m, k in ((1, D), (8, D), (32, D), (8, D1))}
+
+
+# K1's rows: one token, and decode steps of 2-32 lanes
+K1_ROWS = (1, 2, 8, 9, 16, 32)
 # per decoded token: four projections per layer plus lm_head
 MAIN_SHAPES = [  # name, K, N, per-token launches, ln, rope
     ("wqkv", D, (HQ + 2 * HKV) * DH, LAYERS, True, True),
@@ -257,18 +313,18 @@ MAIN_SHAPES = [  # name, K, N, per-token launches, ln, rope
 def phase_kernels():
     """K1 and K2 at the 8B shapes. Rows "K1" (M = 1) and "K2" (M = 512) are
     the per-token and per-prefill sums; "K1 M=8" is the paged decode step's
-    K1 cost (8 lanes)."""
+    K1 cost (8 lanes), "K1 M=m" the same step at other lane counts (M = 2
+    and 9 fill an n8 tile of K1's tensor-core product partly)."""
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
-    rows = {"K1": [], "K1 M=8": [], "K2": []}
-    for name, k, n, per, ln, rope in MAIN_SHAPES:
-        rows["K1"].append((per, kernel_case(f"{name} M=1", k, n, 1, ln=ln, rope=rope)))
-    for name, k, n, per, ln, rope in MAIN_SHAPES:
-        rows["K1 M=8"].append((per, kernel_case(f"{name} M=8", k, n, 8, ln=ln,
-                                                rope=rope)))
-    kernel_case("wo M=32", HQ * DH, D, 32)
+    rows = {"K2": []}
+    for m in K1_ROWS:
+        rows[f"K1 M={m}"] = [(per, kernel_case(f"{name} M={m}", k, n, m, ln=ln, rope=rope))
+                             for name, k, n, per, ln, rope in MAIN_SHAPES]
+    rows["K1"] = rows["K1 M=1"]
     for bits, g in ((8, 64), (4, 32), (4, 128)):
-        kernel_case(f"wo M=1 int{bits} g{g}", HQ * DH, D, 1, bits=bits, g=g)
+        for m in (1, 8):
+            kernel_case(f"wo M={m} int{bits} g{g}", HQ * DH, D, m, bits=bits, g=g)
     for name, k, n, per, _, _ in MAIN_SHAPES:
         rows["K2"].append((per, kernel_case(f"{name} M=512", k, n, 512)))
     # K2 across M: below one wave of output tiles (split K), at its edges
@@ -313,12 +369,15 @@ PREFILL_SHAPES_1B = [  # name, K, N, launches per prefill, scale dtype
 
 def phase_kernels_1b():
     """K1 and K2 at the Llama-3.2-1B shapes: the per-token K1 launches at
-    M = 1 ("K1"), every projection of a 512-token prefill ("K2"), and the
+    M = 1 ("K1") and at M = 8 (the paged decode step, "K1 M=8"), every
+    projection of a 512-token prefill ("K2"), and the
     mixed step's QKV projection with rope (dh 64) at M = 40."""
     heads = (HQ1, HKV1, DH1)
-    rows = {"K1": [(per, kernel_case(f"1B {name} M=1", k, n, 1, ln=ln, rope=rope,
-                                     heads=heads, scale_dtype=sd))
-                   for name, k, n, per, ln, rope, sd in MAIN_SHAPES_1B]}
+    rows = {f"K1 M={m}": [(per, kernel_case(f"1B {name} M={m}", k, n, m, ln=ln, rope=rope,
+                                            heads=heads, scale_dtype=sd))
+                          for name, k, n, per, ln, rope, sd in MAIN_SHAPES_1B]
+            for m in (1, 8)}
+    rows["K1"] = rows["K1 M=1"]
     rows["K2"] = [(per, kernel_case(f"1B {name} M=512" + (" (f32 scales)" if sd ==
                                                           torch.float32 else ""),
                                     k, n, 512, scale_dtype=sd))
@@ -810,7 +869,8 @@ def phase_engine(card):
     torch.cuda.synchronize()
     launches = dict(qmc.launch_counts)
     decoded = res.completion_tokens - 1
-    if decoded != 128 or launches["K1"] != 129 * decoded or launches["K2"] != 129:
+    if (decoded != 128 or launches["K1"] != 129 * decoded or launches["K2"] != 129
+            or launches["K1 ln"] != 65 * decoded):
         raise AssertionError(f"main path launches {launches} for {decoded} tokens")
 
     def fresh_prompt(salt):
@@ -1401,6 +1461,7 @@ def phase_engine_1b(snap, card):
     decoded = res.completion_tokens - 1
     if not (decoded == 128 and launches["K4"] == LAYERS1 * decoded
             and launches["K1"] == (LAYERS1 + 1) * decoded
+            and launches["K1 ln"] == (LAYERS1 + 1) * decoded
             and launches["K2"] == 4 * LAYERS1 + 1):
         raise AssertionError(f"1B main path launches {launches} for {decoded} tokens")
 
@@ -1564,6 +1625,7 @@ def main() -> int:
 
     rows = timed("kernels K1/K2 8B", phase_kernels)
     rows_1b = timed("kernels K1/K2 1B", phase_kernels_1b)
+    ln_rows = timed("kernels K1 ln pre-pass", phase_ln_prepass)
     k4_rows = timed("kernels K4", phase_fused_mlp)
     k3_rows, k3_err = timed("kernels K3", phase_paged_kernel)
     timed("model 8B", phase_model)
@@ -1606,9 +1668,23 @@ def main() -> int:
             library_ms=total("library_ms"),
             tflop_s=sum(per * r["flops"] for per, r in per_rows) / total("kernel_ms") / 1e9,
         ))
+    ln1 = ln_rows[(1, D)]  # per decoded 8B token: wqkv and wgu of every layer, the head
+    summary.append(dict(
+        name="K1 ln pre-pass (8B, M = 1, per decoded token; inside K1's time)",
+        route="cuda", source="pie_tpu_torch/csrc/quant_gemv.cu",
+        replaces="pie_tpu/ops/quant_matmul_pallas.py:294",
+        launches=eng["launches"]["K1 ln"], max_abs_err=max(r["max_abs_err"]
+                                                          for r in ln_rows.values()),
+        **{key: (2 * LAYERS + 1) * ln1[key]
+           for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+        ms=(2 * LAYERS + 1) * ln1["kernel_ms"], bound_by="bytes",
+    ))
     for label, per_rows in (("K2 per 8B 512-token prefill", rows["K2"]),
                             ("K2 per 1B 512-token prefill", rows_1b["K2"]),
-                            ("K1 per 8B paged decode step (M = 8)", rows["K1 M=8"])):
+                            ("K1 per 8B paged decode step (M = 8)", rows["K1 M=8"]),
+                            ("K1 per 1B paged decode step (M = 8)", rows_1b["K1 M=8"]),
+                            *((f"K1 per 8B decode step at M = {m}", rows[f"K1 M={m}"])
+                              for m in K1_ROWS if m not in (1, 8))):
         emit(dict(phase="summary", case=label,
                   launches=sum(per for per, _ in per_rows),
                   **{key: sum(per * r[key] for per, r in per_rows)

@@ -1,10 +1,9 @@
-// Pieces shared by the weight-streaming GEMVs of K1 (quant_gemv.cu) and K4
-// (fused_mlp.cu): the tile geometry, the exact code-to-float conversion, one
-// warp's slice of a 512-row weight tile held in registers, the staging of x
-// with its 32-row sums, and the group-affine accumulation over a tile. K2
-// (quant_gemm.cu) takes the scale and bias loads.
+// The weight-streaming GEMV pieces of K4 (fused_mlp.cu): the tile geometry,
+// the exact code-to-float conversion, one warp's slice of a 512-row weight
+// tile held in registers, the staging of x with its 32-row sums, and the
+// group-affine accumulation over a tile.
 //
-// The math (see quant_gemv.cu): for column n,
+// The math (K1's, see quant_gemv.cu): for column n,
 //   y[m, n] = sum_g ( s[g,n] * sum_{k in g} x[m,k] q[k,n] + b[g,n] * sum_{k in g} x[m,k] )
 // in f32. A code becomes the exact float 1 + q/2^bits with one shift and one
 // logic op, so sum x*(1 + q/2^bits) - sum x = sum x*q / 2^bits and the group

@@ -35,6 +35,8 @@ BK_O = 1024   # wo K tile
 BK_G = 2048   # wgu / wd K tile
 #: rows K4 takes (the decode batch of the reference's gate)
 MAX_M = 8
+#: K rows of one weight tile of K4's GEMV phases (kTileK, csrc/quant_tile.cuh)
+TILE_K = 512
 
 _lock = threading.Lock()
 _workspaces: dict = {}  # per device: K4's scratch (partial sums, h2, act)
@@ -87,7 +89,7 @@ def fused_mlp_ref(attn, h_in, ln2_w, layer, wo: QuantizedTensor,
 def workspace_bytes(m: int, d_attn: int, d: int, di: int) -> int:
     """K4's scratch: f32 partial sums of every K split of the three
     phases, then h2 [M, d] and act [M, di] in bf16 (csrc/fused_mlp.cu)."""
-    t = qmc._GEMV_TILE_K
+    t = TILE_K
     parts = d_attn // t * d + d // t * 2 * di + di // t * d
     return 4 * m * parts + 2 * m * (d + di)
 
@@ -124,9 +126,9 @@ def fused_mlp_cuda(attn, h_in, ln2_w, layer, wo: QuantizedTensor,
     for name, qt in (("wo", wo), ("wgu", wgu), ("wd", wd)):
         if not isinstance(qt, QuantizedTensor) or not qt.stacked:
             raise ValueError(f"K4 needs stacked quantized {name}")
-        if qt.padded_k != qt.shape[0] or qt.shape[0] % qmc._GEMV_TILE_K:
+        if qt.padded_k != qt.shape[0] or qt.shape[0] % TILE_K:
             raise ValueError(f"{name}: K = {qt.shape[0]} must be a multiple of "
-                             f"{qmc._GEMV_TILE_K} with no padding")
+                             f"{TILE_K} with no padding")
     if not (wo.bits == wgu.bits == wd.bits
             and wo.group_size == wgu.group_size == wd.group_size):
         raise ValueError("K4 needs one bit width and one group size for wo, wgu, wd")

@@ -5,13 +5,15 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
 (``quant_matmul_stacked`` and ``quant_matmul_pallas``: ``_kernel`` ->
 ``_accum_block``):
 
-- **K1** (``csrc/quant_gemv.cu``, M <= 32, the decode branch): a GEMV that
-  streams the packed weights once with the exact affine dequantization,
-  an optional rms-norm prologue and an optional rope epilogue. Bound by
-  bytes: packed words plus scales and biases over 3.35 TB/s. Its first
-  design splits K across the 8 warps of a block (and across blocks where
-  N is narrow), stages x in shared memory, and turns codes into floats
-  with one shift and one logic op.
+- **K1** (``csrc/quant_gemv.cu``, M <= 32, the decode branch): a GEMV on
+  the tensor cores in the transposed form y^T = W^T x^T (``mma.sync``
+  m16n8k16, the exact codes as the A operand, each group's f32 partial
+  scaled and offset after the product, as the decode branch does), fed by
+  a TMA ring of packed words, scale and bias rows and x, with an optional
+  rms-norm prologue (a rows-only pre-pass launched by the same call) and
+  an optional rope epilogue. Bound by bytes: packed words plus scales and
+  biases over 3.35 TB/s. Where the 128-feature tiles do not fill the card,
+  K is split across blocks (``gemv_plan``).
 - **K2** (``csrc/quant_gemm.cu``, M > 32, the prefill branch): a Hopper
   GEMM in the transposed form y^T = W^T x^T. A producer thread keeps a
   ring of shared-memory stages filled with TMA copies (x tiles, packed
@@ -70,13 +72,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: kernel launches since the last reset, by kernel name
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+#: kernel launches since the last reset, by kernel name ("K1 ln": K1's
+#: rms-norm pre-pass, one per K1 call with the prologue)
+launch_counts = {"K1": 0, "K1 ln": 0, "K2": 0, "K3": 0, "K4": 0}
 
-#: K1 splits K across blocks until about this many blocks are in flight
-#: (4 per SM of an H100)
-GEMV_TARGET_BLOCKS = 4 * 132
-_GEMV_TILE_K = 512
+#: K1's block tile: 128 output features (8 warps of 16; a rope head must
+#: fit inside it), 128-row K stages in the TMA ring
+GEMV_TILE_N, GEMV_STAGE_K = 128, 128
+#: K1's blocks resident per SM (its shared-memory ring holds two): the
+#: most blocks per SM a K split makes
+GEMV_BLOCKS_PER_SM = 2
 #: K2's block tile: 256 rows of x (tokens, wgmma's N), 128 output columns
 #: (features: two wgmma warpgroups of 64; a rope head must fit inside
 #: them), 64-row K steps
@@ -159,7 +164,8 @@ def build(verbose: bool = False) -> dict[str, Path]:
 _vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C entry points (library, symbol, argument types), all returning int
 ENTRY_POINTS = {
-    "quant_gemv": ("quant_gemv", "pie_quant_gemv", [_vp] * 10 + [_ci] * 9 + [_cf, _vp]),
+    "quant_gemv": ("quant_gemv", "pie_quant_gemv", [_vp] * 11 + [_ci] * 10 + [_cf, _vp]),
+    "gemv_ln_rows": ("quant_gemv", "pie_gemv_ln_rows", [_vp] * 3 + [_ci] * 3 + [_cf, _vp]),
     "quant_gemm": ("quant_gemm", "pie_quant_gemm", [_vp] * 9 + [_ci] * 9 + [_vp]),
     "quant_gemm_encode_ns": ("quant_gemm", "pie_quant_gemm_encode_ns",
                              [_vp] * 4 + [_ci] * 7),
@@ -300,13 +306,61 @@ def _x_padded(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return xm.contiguous()
 
 
-def gemv_splits(n: int, padded_k: int) -> int:
-    """Blocks per 32-column range of K1: split K until the grid has about
-    GEMV_TARGET_BLOCKS blocks, each keeping whole 512-row tiles."""
-    tiles = padded_k // _GEMV_TILE_K
-    want = min(tiles, max(1, -(-GEMV_TARGET_BLOCKS // -(-n // 32))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """K1's launch for one call: a grid of (n_tiles, splits) blocks, each
+    128 output features over ``stages_per_split`` 128-row K stages; with
+    ``splits > 1`` an f32 workspace of ``workspace_elems`` values
+    ([splits, M, N]) holds the partial sums."""
+
+    m: int
+    n: int
+    n_tiles: int
+    stages: int
+    splits: int
+    stages_per_split: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.splits
+
+    @property
+    def workspace_elems(self) -> int:
+        return self.splits * self.m * self.n if self.splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_plan(m: int, n: int, padded_k: int, group_size: int, rope_dim: int = 0,
+              sms: int = H100_SMS) -> GemvPlan:
+    """K1's tiles and K splits for y[m, n] = x[m, padded_k] @ W, m <= 32.
+
+    128-feature tiles cover the output. Where they do not fill the SMs, K
+    is split into ranges of whole 128-row stages (each a whole number of
+    groups), as many as keep the grid to one wave of GEMV_BLOCKS_PER_SM
+    blocks per SM (a second, partial wave costs more than the split gains,
+    and so does splitting a grid that already covers every SM: both
+    measured on the H100, pie_tpu_torch/tools/k1_breakdown.py --splits).
+    Raises ValueError for shapes K1 does not take (M outside 1..32, N not a
+    multiple of 8, g not in 32/64/128, a rope head that does not divide
+    the tile or N)."""
+    if not 1 <= m <= DECODE_MAX_M:
+        raise ValueError(f"K1 takes 1..{DECODE_MAX_M} rows, got {m}")
+    if n < 8 or n % 8:
+        raise ValueError(f"K1 needs N a positive multiple of 8 (TMA's 16-byte rows), "
+                         f"got N={n}")
+    if (group_size not in (32, 64, 128) or padded_k % GEMV_STAGE_K
+            or padded_k < GEMV_STAGE_K):
+        raise ValueError(f"K1 needs g in (32, 64, 128) and K a multiple of "
+                         f"{GEMV_STAGE_K}, got g={group_size}, K={padded_k}")
+    if rope_dim and (rope_dim % 32 or GEMV_TILE_N % rope_dim or n % rope_dim):
+        raise ValueError(f"K1's rope epilogue needs 32 | dh, dh | {GEMV_TILE_N} and "
+                         f"dh | N, got dh={rope_dim}, N={n}")
+    n_tiles = -(-n // GEMV_TILE_N)
+    stages = padded_k // GEMV_STAGE_K
+    want = 1 if n_tiles >= sms else max(1, min(stages, GEMV_BLOCKS_PER_SM * sms // n_tiles))
+    per = -(-stages // want)
+    return GemvPlan(m=m, n=n, n_tiles=n_tiles, stages=stages, splits=-(-stages // per),
+                    stages_per_split=per)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -420,31 +474,53 @@ def _ptr(t) -> Optional[int]:
 def quant_gemv(x, qt, layer=None, rope_cs=None, rope_dim=0, ln_w=None,
                ln_eps=0.0) -> torch.Tensor:
     """K1: ``y = [rms_norm(x)*ln_w] @ dequant(W[layer])`` (+ rope), M <= 32.
-    x [M, K] bf16 CUDA; returns [M, N] bf16."""
+    x [M, K] bf16 CUDA; returns [M, N] bf16. N must be a multiple of 8 and
+    a rope head must divide 128 (ValueError otherwise)."""
     xm = _x_padded(x, qt)
     m, n = xm.shape[0], qt.shape[1]
-    if not 1 <= m <= DECODE_MAX_M:
-        raise ValueError(f"K1 takes 1..{DECODE_MAX_M} rows, got {m}")
+    sms = _device_sms(xm.device) if xm.device.type == "cuda" else H100_SMS
+    plan = gemv_plan(m, n, qt.padded_k, qt.group_size, rope_dim, sms=sms)
     _check(xm, "x", torch.bfloat16)
     wp, sp, bp = _weight_ptrs(qt, layer, xm.device)
     lw = _ln_ptr(ln_w, layer, qt)
     cos, sin = _rope_tables(rope_cs, rope_dim, m, n)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
-    splits = gemv_splits(n, qt.padded_k)
+    xn = torch.empty_like(xm) if lw is not None else None
     ws = counters = None
-    if splits > 1:
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=xm.device)
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, n), dtype=torch.float32, device=xm.device)
         counters = _arrival_counters(xm.device, "K1")
     err = kernel("quant_gemv")(
-        xm.data_ptr(), wp, sp, bp, lw, _ptr(cos), _ptr(sin), y.data_ptr(),
-        _ptr(ws), _ptr(counters), splits,
+        xm.data_ptr(), _ptr(xn), wp, sp, bp, lw, _ptr(cos), _ptr(sin), y.data_ptr(),
+        _ptr(ws), _ptr(counters), plan.splits, plan.stages_per_split,
         m, qt.shape[0], qt.padded_k, n, qt.bits, qt.group_size, _f32_scales(qt),
         int(rope_dim), float(ln_eps), torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError(f"K1 (quant_gemv) launch failed: CUDA error {err}")
     launch_counts["K1"] += 1
+    if lw is not None:
+        launch_counts["K1 ln"] += 1
     return y
+
+
+def gemv_ln_rows(x, qt, layer=None, ln_w=None, ln_eps=0.0) -> torch.Tensor:
+    """K1's prologue alone, as ``quant_gemv`` launches it before the GEMV:
+    ``bf16(rms_norm(x) * ln_w)`` over the logical K, zero-padded to
+    ``qt.padded_k``. x [M, K] bf16 CUDA; returns [M, Kp] bf16."""
+    xm = _x_padded(x, qt)
+    _check(xm, "x", torch.bfloat16)
+    lw = _ln_ptr(ln_w, layer, qt)
+    if lw is None:
+        raise ValueError("gemv_ln_rows needs ln_w")
+    xn = torch.empty_like(xm)
+    err = kernel("gemv_ln_rows")(
+        xm.data_ptr(), lw, xn.data_ptr(), xm.shape[0], qt.shape[0], qt.padded_k,
+        float(ln_eps), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K1's ln pre-pass launch failed: CUDA error {err}")
+    launch_counts["K1 ln"] += 1
+    return xn
 
 
 def quant_gemm(x, qt, layer=None, rope_cs=None, rope_dim=0) -> torch.Tensor:

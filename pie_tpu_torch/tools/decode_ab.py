@@ -1,0 +1,180 @@
+"""A/B of K1 (the decode dequant-GEMV) and decode speed between checkouts of
+this repository, on one CUDA card.
+
+    python3 pie_tpu_torch/tools/decode_ab.py --root A --root B --root B --root A
+
+Each ``--root`` is a checkout whose ``pie_tpu_torch`` is imported, in a
+fresh process per root and in the order given (parent, change, change,
+parent takes the card's drift out of the comparison). For each root:
+
+- K1's device time (a captured CUDA graph over 8 rotating weight copies)
+  at the five Llama-3-8B projections (ln and rope where the model fuses
+  them) at M = 1, 8, 16 and 32, summed per decoded token (M = 1: 129
+  launches) and per decode step of M lanes, and the Llama-3.2-1B wqkv
+  (ln, rope dh 64) and f32-scale head at M = 1 and 8, summed per step;
+- K4 (the fused 1B decode MLP block) at M = 1, which shares K1's tile
+  header;
+- 8B single-stream decode tok/s (``InferenceEngine``, best of 3 x 128
+  greedy tokens) and 8B paged tok/s (``PagedEngine`` + ``Scheduler``, 8
+  lanes of 64-token prompts x 128 new tokens, INT8 KV, best of 2), with
+  random INT4 g64 weights from a seed.
+
+Prints one JSON line per root with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+if __package__:
+    from .prefill_ab import ROTATE, device_ms, random_weights
+else:  # run as a script, from any checkout
+    from prefill_ab import ROTATE, device_ms, random_weights
+
+# name, K, N, launches per decoded token, ln, rope heads (Hq, Hkv, dh) or None
+DECODE_8B = [("wqkv", 4096, 6144, 32, True, (32, 8, 128)),
+             ("wo", 4096, 4096, 32, False, None),
+             ("wgu", 4096, 28672, 32, True, None),
+             ("wd", 14336, 4096, 32, False, None),
+             ("lm_head", 4096, 128256, 1, True, None)]
+# 1B decode: K1 runs wqkv and the tied head (f32 scales); K4 the rest
+DECODE_1B = [("wqkv", 2048, 3072, 16, True, (32, 8, 64), False),
+             ("lm_head", 2048, 128256, 1, True, None, True)]
+
+
+def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
+    """K1's device ms at one shape."""
+    import torch
+
+    from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
+
+    qt = random_weights(k, n, gen, f32)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    kw = {}
+    if ln:
+        kw.update(ln_w=(1 + 0.1 * torch.randn((ROTATE, k), generator=gen,
+                                              device="cuda")).bfloat16(), ln_eps=1e-5)
+    if heads:
+        hq, hkv, dh = heads
+        inv = torch.from_numpy(make_inv_freq(dh, 500000.0)).cuda()
+        pos = torch.arange(m, dtype=torch.int32, device="cuda") + 100
+        kw.update(rope_cs=rope_qkv_cs(pos, inv, hq, hkv, dh), rope_dim=dh)
+    return device_ms(lambda i: qmc.quant_matmul_cuda(x, qt, layer=i % ROTATE, **kw))
+
+
+def measure(root: str) -> dict:
+    """Everything for one checkout, in this process."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from pie_tpu_torch.ops import fused_mlp as fm
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    if not qmc.__file__.startswith(root):
+        raise RuntimeError(f"imported {qmc.__file__}, not the checkout at {root}")
+    qmc.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": root}
+    for m in (1, 8, 16, 32):
+        total = 0.0
+        for name, k, n, per, ln, heads in DECODE_8B:
+            ms = k1_case(qmc, gen, k, n, m, ln, heads)
+            out[f"k1 8B {name} M={m} us"] = ms * 1e3
+            total += per * ms
+            torch.cuda.empty_cache()
+        out[f"k1 per 8B step M={m} ms"] = total
+    for m in (1, 8):
+        total = 0.0
+        for name, k, n, per, ln, heads, f32 in DECODE_1B:
+            ms = k1_case(qmc, gen, k, n, m, ln, heads, f32)
+            out[f"k1 1B {name} M={m} us"] = ms * 1e3
+            total += per * ms
+            torch.cuda.empty_cache()
+        out[f"k1 per 1B step M={m} ms"] = total
+
+    wo, wgu, wd = (random_weights(k, n, gen) for k, n in ((2048, 2048), (2048, 16384),
+                                                          (8192, 2048)))
+    ln2 = (1 + 0.1 * torch.randn((ROTATE, 2048), generator=gen, device="cuda")).bfloat16()
+    attn, h = (torch.randn((1, 2048), generator=gen, device="cuda").bfloat16()
+               for _ in range(2))
+    out["k4 1B M=1 us"] = 1e3 * device_ms(
+        lambda i: fm.fused_mlp_stacked(attn, h, ln2, i % ROTATE, wo, wgu, wd, 1e-5))
+    del wo, wgu, wd
+    torch.cuda.empty_cache()
+
+    model = LlamaModel(LlamaConfig(
+        model_type="llama", hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+        vocab_size=128256, rope_theta=500000.0, tie_word_embeddings=False))
+    params = model.init_quantized_params(seed=0, group_size=64, bits=4)
+    prompt = list(range(1, 65))
+    engine = InferenceEngine(model=model, params=params, max_seq_len=1024, decode_chunk=128)
+    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)
+    best = 0.0
+    for _ in range(3):
+        stream = engine.generate_stream(prompt, max_completion_tokens=129, temperature=0.0)
+        next(stream)
+        n, t0 = 0, time.perf_counter()
+        for _ in stream:
+            n += 1
+        best = max(best, n / (time.perf_counter() - t0))
+    out["8B decode tok/s"] = best
+    del engine
+    torch.cuda.empty_cache()
+
+    paged = PagedEngine(model, params, num_lanes=8, num_pages=112, max_pages_per_seq=12,
+                        kv_quantized=True)
+    sched = Scheduler(paged, decode_steps=8)
+    sched.add_request(prompt, max_new_tokens=17, temperature=0.0)
+    sched.run_to_completion()
+    best = 0.0
+    for _ in range(2):
+        seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
+                for _ in range(8)]
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        best = max(best, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
+    out["8B paged tok/s"] = best
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", required=True)
+    ap.add_argument("--one", action="store_true", help="measure the one --root here")
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(measure(args.root[0])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("decode_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    for root in args.root:
+        res = subprocess.run([sys.executable, __file__, "--one", "--root", root],
+                             capture_output=True, text=True)
+        if res.returncode:
+            print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+            return res.returncode
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["card"] = card
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

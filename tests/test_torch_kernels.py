@@ -1,7 +1,6 @@
-"""The hand-written CUDA kernels K1 (decode GEMV), K2 (prefill GEMM), K3
-(paged decode attention) and K4 (fused decode MLP block) against their
-plain PyTorch versions, on a CUDA
-card. Imports no JAX, so it runs on the card's machine (the conftest
+"""The hand-written CUDA kernels K1 (decode GEMV, and its ln pre-pass), K2
+(prefill GEMM), K3 (paged decode attention) and K4 (fused decode MLP block)
+against their plain PyTorch versions, on a CUDA card. Imports no JAX, so it runs on the card's machine (the conftest
 imports JAX: skip it there):
 python -m pytest --noconftest tests/test_torch_kernels.py. Elsewhere every
 test skips: the kernels have no CPU mode."""
@@ -57,7 +56,7 @@ def test_kernel_matches_plain(cuda, m, bits, group_size, dh):
     assert _norm_err(got, want) < 0.025
 
 
-@pytest.mark.parametrize("m", [1, 8, 40])
+@pytest.mark.parametrize("m", [1, 8, 32, 40])
 def test_kernel_f32_scales(cuda, m):
     """A tied head quantized from the f32 transpose of the embedding keeps
     f32 scales and biases (as in the JAX package): K1 and K2 read them."""
@@ -72,6 +71,110 @@ def test_kernel_f32_scales(cuda, m):
                   ln_eps=1e-5)
     got = tq.quantized_matmul(x, qt, **kw)
     assert _norm_err(got, qmc.quant_matmul_ref(x, qt, **kw)) < 0.025
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 31, 32])
+@pytest.mark.parametrize("bits,group_size", [(4, 32), (4, 64), (4, 128), (8, 32), (8, 64),
+                                             (8, 128)])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("ln", [False, True])
+def test_k1_matches_plain_across_rows(cuda, m, bits, group_size, dh, ln):
+    """K1 alone at every n8 tile edge of its tensor-core product (M = 1-32),
+    every format, the rope epilogue on both head widths, with and without
+    the ln prologue over a logical K that is not a multiple of the stage
+    (K = 1000, padded to 1024), layer 1 of 2; one K1 launch per call, one
+    pre-pass launch with the prologue, and a second call gives the same
+    bits (the split partials are summed in a fixed order)."""
+    hq, hkv, k = 8, 2, 1000
+    n = (hq + 2 * hkv) * dh
+    gen = torch.Generator(device=cuda).manual_seed(m * 131 + bits * 7 + group_size + dh)
+    w = (torch.randn((2, k, n), generator=gen, device=cuda) * 0.05).bfloat16()
+    qt = tq.quantize(w, group_size, bits)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    pos = torch.arange(m, device=cuda, dtype=torch.int32) * 3 + 7
+    inv = torch.rand(dh // 2, generator=gen, device=cuda)
+    kw = dict(rope_dim=dh, rope_cs=rope_qkv_cs(pos, inv, hq, hkv, dh))
+    if ln:
+        kw.update(ln_w=(1 + 0.1 * torch.randn((2, k), generator=gen, device=cuda)).bfloat16(),
+                  ln_eps=1e-5)
+    qmc.reset_counts()
+    got = qmc.quant_gemv(x, qt, layer=1, **kw)
+    torch.cuda.synchronize()
+    assert qmc.launch_counts["K1"] == 1 and qmc.launch_counts["K1 ln"] == int(ln)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert _norm_err(got, qmc.quant_matmul_ref(x, qt, layer=1, **kw)) < 0.025
+    assert torch.equal(qmc.quant_gemv(x, qt, layer=1, **kw), got)
+
+
+def test_k1_split_counters_reset(cuda, monkeypatch):
+    """Back-to-back K1 calls with different K splits (the narrow wo-like
+    tile count split many ways, then a plan forced to fewer splits) each
+    leave the arrival counters at zero, and agree with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = (torch.randn((4096, 1024), generator=gen, device=cuda) * 0.05).bfloat16()
+    qt = tq.quantize(w, 64, 4)
+    x = torch.randn((8, 4096), generator=gen, device=cuda).bfloat16()
+    want = qmc.quant_matmul_ref(x, qt)
+    counters = qmc._arrival_counters(cuda, "K1")
+    seen = set()
+    for blocks_per_sm in (2, 0.05, 0.1, 1):
+        monkeypatch.setattr(qmc, "GEMV_BLOCKS_PER_SM", blocks_per_sm)
+        qmc.gemv_plan.cache_clear()
+        seen.add(qmc.gemv_plan(8, 1024, 4096, 64, sms=qmc._device_sms(cuda)).splits)
+        got = qmc.quant_gemv(x, qt)
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        assert _norm_err(got, want) < 0.025
+    qmc.gemv_plan.cache_clear()
+    assert len(seen) >= 3 and 1 in seen
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_k1_in_a_cuda_graph(cuda, m):
+    """K1 with the prologue, the rope epilogue and a K split, captured in a
+    CUDA graph and replayed over new inputs, matches the eager call; the
+    arrival counters are back at zero after each replay."""
+    hq, hkv, dh, k = 16, 4, 128, 4096
+    n = (hq + 2 * hkv) * dh
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    qt = tq.quantize((torch.randn((2, k, n), generator=gen, device=cuda) * 0.05).bfloat16(),
+                     64, 4)
+    assert qmc.gemv_plan(m, n, k, 64, dh, sms=qmc._device_sms(cuda)).splits > 1
+    lnw = (1 + 0.1 * torch.randn((2, k), generator=gen, device=cuda)).bfloat16()
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    pos = torch.arange(m, device=cuda, dtype=torch.int32) + 11
+    cs = rope_qkv_cs(pos, torch.rand(dh // 2, generator=gen, device=cuda), hq, hkv, dh)
+    kw = dict(ln_w=lnw, ln_eps=1e-5, rope_cs=cs, rope_dim=dh)
+    qmc.quant_gemv(x, qt, layer=1, **kw)  # warm-up: build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmc.quant_gemv(x, qt, layer=1, **kw)
+    for seed in range(3):
+        x.copy_(torch.randn((m, k), generator=gen, device=cuda).bfloat16())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qmc.quant_gemv(x, qt, layer=1, **kw))
+        assert int(qmc._arrival_counters(cuda, "K1").abs().sum()) == 0
+
+
+def test_k1_ln_pre_pass(cuda):
+    """The prologue alone equals the plain version's normalized rows (the
+    same f32 arithmetic, one bf16 rounding), zero past the logical K."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k = 1000
+    qt = tq.quantize((torch.randn((k, 256), generator=gen, device=cuda) * 0.05).bfloat16(),
+                     64, 4)
+    x = torch.randn((9, k), generator=gen, device=cuda).bfloat16()
+    lnw = (1 + 0.1 * torch.randn(k, generator=gen, device=cuda)).bfloat16()
+    qmc.reset_counts()
+    xn = qmc.gemv_ln_rows(x, qt, ln_w=lnw, ln_eps=1e-5)
+    torch.cuda.synchronize()
+    assert qmc.launch_counts["K1 ln"] == 1 and xn.shape == (9, qt.padded_k)
+    xf = x.float()
+    want = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5) * lnw.float()).bfloat16()
+    assert _norm_err(xn[:, :k], want) < 1e-2
+    assert int((xn[:, k:] != 0).sum()) == 0
 
 
 @pytest.mark.parametrize("m", [33, 127, 129, 257, 2048])

@@ -155,12 +155,15 @@ def test_ref_matches_jax_xla(variant):
     assert _norm_err(got.numpy(), want) < 1e-4
 
 
-def test_ref_matches_pallas_decode_branch():
-    """Decode branch of the TPU kernel (M = 8, ln prologue + rope epilogue,
-    stacked, interpret mode) against the port's plain version: normalized
-    max error < 0.025, the JAX package's own kernel tolerance."""
-    hq, hkv, dh, k, m = 4, 2, 64, 512, 8
-    qj, qt, lnw, n = _stacked_case(4, 64, hq, hkv, dh, k, seed=6)
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("group_size", [64, 128])
+def test_ref_matches_pallas_decode_branch(m, group_size):
+    """Decode branch of the TPU kernel (M = 1-32, the rows K1 serves; ln
+    prologue + rope epilogue, stacked, interpret mode) against the port's
+    plain version: normalized max error < 0.025, the JAX package's own
+    kernel tolerance."""
+    hq, hkv, dh, k = 4, 2, 64, 512
+    qj, qt, lnw, n = _stacked_case(4, group_size, hq, hkv, dh, k, seed=6)
     x = np.random.default_rng(7).standard_normal((m, k)).astype(np.float32)
     pos = np.arange(m, dtype=np.int32) * 7 + 3
     inv = j_inv_freq(dh, 500000.0)
@@ -196,7 +199,7 @@ def test_cpu_tensors_never_launch_kernels():
     qt = tq.quantize(torch.randn(512, 128), 64, 4)
     tq.quantized_matmul(torch.randn(1, 512), qt)
     tq.quantized_matmul(torch.randn(40, 512), qt)
-    assert qmc.launch_counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert qmc.launch_counts == {"K1": 0, "K1 ln": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 def test_stacked_needs_layer():
