@@ -581,7 +581,8 @@ def paged_timing(quantized, heads=(HQ, HKV, DH)):
         phase="kernels", case=f"paged attention 8x2048 {'int8' if quantized else 'bf16'}"
                               f" D {dh}",
         kernel="K3", lanes=8, context=2048, hq=hq, hkv=hkv, head_dim=dh,
-        quantized=quantized, splits=pa.page_splits(8, hkv, tables.shape[1]),
+        quantized=quantized,
+        **pa.launch_plan(q.device, 8, hq, hkv, dh, tables.shape[1], quantized),
         max_abs_err=diff, norm_err=norm, kernel_ms=ms, kernel_host_ms=host_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bound_bytes, bound_ops),

@@ -1,6 +1,8 @@
-// Hopper building blocks shared by K1 (quant_gemv.cu) and K2 (quant_gemm.cu):
-// mbarriers, TMA tensor copies and the host encoding of their tensor maps,
-// and the bf16x2 bit operations both use on packed codes.
+// Hopper building blocks shared by K1 (quant_gemv.cu), K2 (quant_gemm.cu)
+// and K3 (paged_attention.cu): mbarriers, TMA tensor copies and the host
+// encoding of their tensor maps, the bf16x2 bit operations that turn packed
+// codes into exact bf16 operands, and the mma.sync / ldmatrix fragments of
+// K1 and K3.
 
 #pragma once
 
@@ -65,6 +67,52 @@ __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t 
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16x2 (byte i of w0, byte i of w1) of unsigned 8-bit codes (0-255), exact:
+// the f32 2^23 + q trick, then one cvt
+__device__ __forceinline__ uint32_t int8_pair_w(uint32_t w0, uint32_t w1, int i) {
+  const float lo = __uint_as_float(prmt(w0, 0x4B000000u, 0x7440u | i)) - 8388608.f;
+  const float hi = __uint_as_float(prmt(w1, 0x4B000000u, 0x7440u | i)) - 8388608.f;
+  return bf16_pair(lo, hi);
+}
+
+// bf16x2 (byte 0, byte 2) of w as signed int8 values, exact, with no
+// integer-to-float conversion: b = (b & 0x7F) - (b & 0x80), so the bf16
+// (128 + (b & 0x7F)) minus the bf16 (128 or 256), both built with one lop3
+__device__ __forceinline__ uint32_t s8_pair_02(uint32_t w) {
+  uint32_t x, y, d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(x) : "r"(w), "r"(0x007F007Fu), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(y) : "r"(w), "r"(0x00800080u), "r"(0x43004300u));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(x), "r"(y));
+  return d;
+}
+
+// bf16x2 (byte 1, byte 3) of w as signed int8 values, exact
+__device__ __forceinline__ uint32_t s8_pair_13(uint32_t w) { return s8_pair_02(w >> 8); }
+
+// four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and lane l receives element (l / 4, 2 (l % 4) + {0, 1})
+// of each (with .trans: elements (2 (l % 4) + {0, 1}, l / 4))
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // -- host side ----------------------------------------------------------------

@@ -8,7 +8,7 @@
 //
 // Computes, for lane b and query head hq (kv head h = hq / rep), one query
 // against the 64-token pages its block table names (-1 pads read page 0):
-//   qs = q * scale (f32); s_t = qs . k_t (f32), times k_scale[t] for INT8;
+//   s_t = (q . k_t) * scale (f32), times k_scale[t] for INT8;
 //   s_t = NEG_INF (-0.7 * f32 max) unless lo <= t < ctx, lo = max(ctx - window, 0)
 //   when window > 0, else 0; only pages [lo / 64, ceil(ctx / 64)) are walked;
 //   online softmax in f32, l sums the unscaled probabilities, the INT8 V scale
@@ -23,49 +23,68 @@
 //
 // Design against that bound:
 // - One block serves the rep query heads that share a kv head, so every K/V
-//   page tile is read from device memory exactly once per call.
-// - A lane's page walk is split across blocks (gridDim.x) until the grid has
-//   about 4 blocks per SM: 8 lanes x 8 kv heads alone would be 64 blocks for
-//   132 SMs. Each block writes its (acc, m, l) to an f32 workspace and the
-//   last block of a (lane, head) to arrive (an atomic counter, reset by that
-//   block, as K1 does) merges the partial softmaxes.
-// - Each page's K and V tiles (64 x D) and their scales go to shared memory
-//   with 16-byte cp.async copies, double-buffered: page p + 1 is in flight
-//   while page p is multiplied. Rows are padded by 16 bytes so the 16-byte
-//   row reads of the score loop hit distinct banks.
-// - Scores: one thread per (head, token), q broadcast from shared memory.
-//   Softmax: one warp per head. PV: D is split across threads, each thread
-//   keeping the accumulators of its column for its heads in registers.
-// Not yet done: TMA, a persistent walk, and tensor-core dots.
+//   page tile is read from device memory exactly once per call. A lane's
+//   page walk is split across blocks (gridDim.x, page_splits in
+//   ops/paged_attention.py) until the grid is one wave of resident blocks.
+//   Each block writes its (acc, m, l) to an f32 workspace and the last block
+//   of a (lane, head) to arrive (an atomic counter, reset by that block, as
+//   K1 does) merges the partial softmaxes in split order.
+// - Inside a block the pages are dealt to the warps in turn (warp w takes
+//   pb + w, pb + w + W, ...). Each warp walks its pages alone: its own
+//   double buffer of K tile, V tile and 2 x 64 scales in shared memory,
+//   filled with 16-byte cp.async copies (page i + 1 in flight while page i
+//   is multiplied; cp.async.wait_group + __syncwarp, no block barrier in
+//   the loop), and its own online-softmax state in registers. Rows are
+//   padded by 16 bytes so the ldmatrix reads below hit distinct banks.
+//   After the walk the warps merge their (acc, m, l) through shared memory
+//   (one __syncthreads), with the formula of the split merge.
+// - QK on the tensor cores: mma.sync m16n8k16, bf16 in, f32 out. The rep
+//   query heads are the rows of A (padded to 16; two m16 tiles when
+//   rep > 16, at D 64 only), loaded once into registers, unscaled and exact;
+//   the page's 64 tokens are N (eight n8 tiles), B is K[token][d] read with
+//   ldmatrix. scale * k_scale[token] multiplies the f32 C fragment.
+// - PV on the tensor cores: the C fragments of score tiles 2s and 2s + 1
+//   are the A fragment of PV step s (tokens 16s..16s + 15), so the
+//   probabilities never leave registers. They are multiplied by
+//   v_scale[token] in f32 and rounded for the bf16 mma as two terms,
+//   hi = bf16(p) and lo = bf16(p - hi), two mma per step, which keeps P to
+//   f32 rounding (tests/test_torch_k3_numerics.py). B is V[token][d] read
+//   with ldmatrix.trans.
+// - INT8 codes become bf16 operands with no integer-to-float conversion:
+//   two lop3 and one bf16x2 subtraction per pair (pie::s8_pair_02/_13),
+//   exact, since every int8 is a bf16. ldmatrix hands a lane four bytes of
+//   a row; the pairs (byte 0, byte 2) and (byte 1, byte 3) are the
+//   operands, so QK's d order within each 16-byte chunk is permuted (q's
+//   registers are loaded in the same order), and PV takes the even and odd
+//   d columns of a chunk as two n8 tiles. bf16 pages feed the mma directly.
+// Not done: a TMA page ring, a persistent grid, a cluster (DSMEM) merge of
+// the split partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
+using pie::bf16_pair;
+using pie::ldmatrix_x4;
+using pie::ldmatrix_x4_trans;
+using pie::mma_16816;
+using pie::prmt;
+using pie::s8_pair_02;
+using pie::s8_pair_13;
+using pie::smem_u32;
+
 constexpr int kPage = 64;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;  // cp.async stages per warp
 constexpr float kNegInf = -0.7f * 3.40282346638528859812e+38f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -74,28 +93,28 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ float ex2(float x) { return exp2f(x * kLog2e); }
+
+// Geometry of a block for pages of T at head dim D.
 template <typename T, int D>
-struct Tile {
-  static constexpr int kElem = sizeof(T);
-  static constexpr int kChunks = D * kElem / 16;  // 16-byte chunks per row
-  static constexpr int kRow = D * kElem + 16;     // padded shared-memory row
-  static constexpr int kBytes = kPage * kRow;
+struct Geo {
+  static constexpr bool kQ8 = sizeof(T) == 1;
+  static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  static constexpr int kRow = D * (int)sizeof(T) + 16;     // padded shared-memory row
+  static constexpr int kTile = kPage * kRow;
+  static constexpr int kStage = 2 * kTile + 2 * kPage * 4;  // K, V, K and V scales
+  // bf16 pages at D 128 have twice the bytes per stage: two warps
+  static constexpr int kWarps = (!kQ8 && D == 128) ? 2 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSmem = kWarps * kStages * kStage;
 };
 
-// Shared memory of one block: two stages of K and V tiles, two stages of K
-// and V scales, then q, the page's scores and the softmax state.
-template <typename T, int D>
-size_t smem_bytes(int rep) {
-  return 4 * (size_t)Tile<T, D>::kBytes + 4 * kPage * sizeof(float) +
-         ((size_t)rep * D + (size_t)rep * kPage + 3 * (size_t)rep) * sizeof(float);
-}
-
-// HPT: heads whose accumulators one thread keeps (rep <= HPT * kThreads / D).
-template <typename T, int D, int HPT>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+// MT: m16 tiles of query heads (rep <= 16 * MT).
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     const T* __restrict__ pool_k,         // [L, Ptot, Hkv, 64, D]
     const T* __restrict__ pool_v,
@@ -107,24 +126,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     float* __restrict__ ws,            // [B, Hkv, splits, rep, D + 2] when split
     int* __restrict__ counters,        // [B * Hkv], zero between calls
     int hq, int hkv, int ptot, int maxp, int layer, int window, float scale) {
-  using TL = Tile<T, D>;
-  constexpr bool kQ8 = std::is_same<T, int8_t>::value;
-  constexpr int kStep = kThreads / D;  // heads between a thread's accumulators
-  extern __shared__ __align__(16) unsigned char smem[];
+  using G = Geo<T, D>;
+  constexpr bool kQ8 = G::kQ8;
+  constexpr int kW = G::kWarps;
+  constexpr int KS = D / 16;  // k16 steps of QK
+  constexpr int NO = D / 8;   // n8 tiles of the output
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
 
   const int split = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
   const int splits = gridDim.x;
   const int rep = hq / hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  unsigned char* tiles = smem;                                        // [2][K, V]
-  float* sc = reinterpret_cast<float*>(smem + 4 * TL::kBytes);         // [2][K, V][64]
-  float* qs = sc + 4 * kPage;                                          // [rep][D]
-  float* ps = qs + rep * D;                                            // [rep][64]
-  float* alpha = ps + rep * kPage;                                     // [rep]
-  float* mrun = alpha + rep;                                           // [rep]
-  float* lrun = mrun + rep;                                            // [rep]
+  const int g = lane >> 2, t = lane & 3;
 
   const int ctx = ctx_lens[bi];
   const int lo = window > 0 ? max(ctx - window, 0) : 0;
@@ -134,149 +148,277 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int pb = p_lo + split * per;
   const int pe = min(p_hi, pb + per);
 
+  unsigned char* wbuf = smem + warp * kStages * G::kStage;  // this warp's stages
+
+  // q as A fragments: a[0] row g, a[1] row g + 8 (first k pair), a[2], a[3]
+  // the second pair. bf16 pages: the k16 step's natural d order. INT8 pages:
+  // d 16c + 4t + {0, 2} then {1, 3}, the order the code pairs come in.
   const __nv_bfloat16* qb = q + ((size_t)bi * hq + (size_t)h * rep) * D;
-  for (int i = tid; i < rep * D; i += kThreads) qs[i] = __bfloat162float(qb[i]) * scale;
-  for (int r = tid; r < rep; r += kThreads) {
-    mrun[r] = kNegInf;
-    lrun[r] = 0.f;
+  uint32_t qa[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * mt + g + 8 * half;
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        uint32_t x = 0, y = 0;
+        if (r < rep) {
+          if constexpr (kQ8) {
+            const uint2 v = *reinterpret_cast<const uint2*>(qb + r * D + 16 * c + 4 * t);
+            x = prmt(v.x, v.y, 0x5410u);
+            y = prmt(v.x, v.y, 0x7632u);
+          } else {
+            x = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 2 * t);
+            y = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 8 + 2 * t);
+          }
+        }
+        qa[mt][c][half] = x;
+        qa[mt][c][2 + half] = y;
+      }
+    }
+
+  float m[MT][2], l[MT][2], o[MT][NO][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
   }
 
   auto issue = [&](int p, int stage) {
-    const int t = tables[(size_t)bi * maxp + p];
-    const size_t tile = ((size_t)layer * ptot + (t < 0 ? 0 : t)) * hkv + h;
+    const int tb = tables[(size_t)bi * maxp + p];
+    const size_t tile = ((size_t)layer * ptot + (tb < 0 ? 0 : tb)) * hkv + h;
     const unsigned char* gk =
-        reinterpret_cast<const unsigned char*>(pool_k) + tile * kPage * D * TL::kElem;
+        reinterpret_cast<const unsigned char*>(pool_k) + tile * kPage * D * sizeof(T);
     const unsigned char* gv =
-        reinterpret_cast<const unsigned char*>(pool_v) + tile * kPage * D * TL::kElem;
-    unsigned char* sk = tiles + 2 * stage * TL::kBytes;
-    unsigned char* sv = sk + TL::kBytes;
-    for (int c = tid; c < kPage * TL::kChunks; c += kThreads) {
-      const int off = (c / TL::kChunks) * TL::kRow + (c % TL::kChunks) * 16;
+        reinterpret_cast<const unsigned char*>(pool_v) + tile * kPage * D * sizeof(T);
+    unsigned char* sk = wbuf + stage * G::kStage;
+    unsigned char* sv = sk + G::kTile;
+#pragma unroll 4
+    for (int c = lane; c < kPage * G::kChunks; c += 32) {
+      const int off = (c / G::kChunks) * G::kRow + (c % G::kChunks) * 16;
       cp_async16(sk + off, gk + (size_t)c * 16);
       cp_async16(sv + off, gv + (size_t)c * 16);
     }
-    if (kQ8 && tid < 32) {  // 64 K scales, 64 V scales: 16 chunks each
-      const float* gs = (tid < 16 ? k_scale : v_scale) + tile * kPage;
-      cp_async16(sc + (2 * stage + (tid >> 4)) * kPage + (tid & 15) * 4, gs + (tid & 15) * 4);
+    if constexpr (kQ8) {  // 64 K scales, 64 V scales: 16 chunks each
+      const float* gs = (lane < 16 ? k_scale : v_scale) + tile * kPage;
+      cp_async16(sv + G::kTile + (lane >> 4) * kPage * 4 + (lane & 15) * 16,
+                 gs + (lane & 15) * 4);
     }
     cp_async_commit();
   };
 
-  float acc[HPT];
-#pragma unroll
-  for (int k = 0; k < HPT; ++k) acc[k] = 0.f;
-  const int dcol = tid % D, r0 = tid / D;
-
-  if (pb < pe) issue(pb, 0);
-  __syncthreads();  // qs and the softmax state are ready
-  for (int p = pb; p < pe; ++p) {
-    const int stage = (p - pb) & 1;
-    if (p + 1 < pe) {
-      issue(p + 1, stage ^ 1);  // the other stage was released by the last barrier
+  const int first = pb + warp;
+  const int mine = first < pe ? (pe - first + kW - 1) / kW : 0;
+  if (mine > 0) issue(first, 0);
+  for (int i = 0; i < mine; ++i) {
+    const int p = first + i * kW;
+    if (i + 1 < mine) {
+      issue(p + kW, (i + 1) & 1);  // the stage of page i - 1, released below
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
-    const unsigned char* sk = tiles + 2 * stage * TL::kBytes;
-    const unsigned char* sv = sk + TL::kBytes;
-    const float* sks = sc + 2 * stage * kPage;
+    __syncwarp();
+    const unsigned char* sk = wbuf + (i & 1) * G::kStage;
+    const uint32_t ka = smem_u32(sk), va = ka + G::kTile;
+    const float* sks = reinterpret_cast<const float*>(sk + 2 * G::kTile);
     const float* svs = sks + kPage;
-    const int base = p * kPage;
 
-    // scores: one (head, token) per thread; a warp shares its head, so q is
-    // read by broadcast
-    for (int idx = tid; idx < rep * kPage; idx += kThreads) {
-      const int r = idx / kPage, j = idx % kPage;
-      const float* qr = qs + r * D;
-      const unsigned char* kr = sk + j * TL::kRow;
-      float s = 0.f;
+    // scores: tile j holds tokens 8j..8j+7; this lane's are 8j + 2t, +1
+    float s[MT][8][4];
 #pragma unroll
-      for (int c = 0; c < TL::kChunks; ++c) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kr + c * 16);
-        if constexpr (kQ8) {
-          const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-          for (int i = 0; i < 16; ++i) s = fmaf(qr[c * 16 + i], (float)e[i], s);
-        } else {
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      for (int mt = 0; mt < MT; ++mt) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) s = fmaf(qr[c * 8 + i], __bfloat162float(e[i]), s);
+      for (int cq = 0; cq < G::kChunks / 4; ++cq) {
+        uint32_t b[4];  // chunks 4cq..4cq+3 of tokens 8j..8j+7
+        ldmatrix_x4(b, ka + (8 * j + (lane & 7)) * G::kRow + (4 * cq + (lane >> 3)) * 16);
+        if constexpr (kQ8) {  // a 16-byte chunk is one k16 step
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t b0 = s8_pair_02(b[e]), b1 = s8_pair_13(b[e]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_16816(s[mt][j], qa[mt][4 * cq + e], b0, b1);
+          }
+        } else {  // two chunks per k16 step
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_16816(s[mt][j], qa[mt][2 * cq + e], b[2 * e], b[2 * e + 1]);
         }
       }
-      if (kQ8) s *= sks[j];
-      const int pos = base + j;
-      ps[idx] = (pos < ctx && pos >= lo) ? s : kNegInf;
     }
-    __syncthreads();
 
-    // online softmax: one warp per head
-    for (int r = warp; r < rep; r += kWarps) {
-      const float a = ps[r * kPage + lane], b = ps[r * kPage + lane + 32];
-      const float m_old = mrun[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(a, b)));
-      float ea = expf(a - m_new), eb = expf(b - m_new);
-      const float sum = warp_sum(ea + eb);
-      if (kQ8) {
-        ea *= svs[lane];
-        eb *= svs[lane + 32];
+    // scale, mask, online softmax per row (the quad of a row shares m)
+    const int base = p * kPage;
+    const bool full = base >= lo && base + kPage <= ctx;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int tok = 8 * j + 2 * t;
+      float f0 = scale, f1 = scale;
+      if constexpr (kQ8) {
+        const float2 ks = *reinterpret_cast<const float2*>(sks + tok);
+        f0 *= ks.x;
+        f1 *= ks.y;
       }
-      ps[r * kPage + lane] = ea;
-      ps[r * kPage + lane + 32] = eb;
-      if (lane == 0) {
-        const float al = expf(m_old - m_new);
-        alpha[r] = al;
-        lrun[r] = lrun[r] * al + sum;
-        mrun[r] = m_new;
+      const bool ok0 = full || (base + tok >= lo && base + tok < ctx);
+      const bool ok1 = full || (base + tok + 1 >= lo && base + tok + 1 < ctx);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        s[mt][j][0] = ok0 ? s[mt][j][0] * f0 : kNegInf;
+        s[mt][j][1] = ok1 ? s[mt][j][1] * f1 : kNegInf;
+        s[mt][j][2] = ok0 ? s[mt][j][2] * f0 : kNegInf;
+        s[mt][j][3] = ok1 ? s[mt][j][3] * f1 : kNegInf;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = m[mt][half];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * half], s[mt][j][2 * half + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = ex2(m[mt][half] - mx);
+        m[mt][half] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float e0 = ex2(s[mt][j][2 * half] - mx), e1 = ex2(s[mt][j][2 * half + 1] - mx);
+          s[mt][j][2 * half] = e0;
+          s[mt][j][2 * half + 1] = e1;
+          sum += e0 + e1;
+        }
+        l[mt][half] = l[mt][half] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[mt][n][2 * half] *= alpha;
+          o[mt][n][2 * half + 1] *= alpha;
+        }
+      }
 
-    // PV: column dcol of heads r0, r0 + kStep, ...
+    // PV: step ks takes tokens 16ks..16ks+15, A from score tiles 2ks, 2ks+1
 #pragma unroll
-    for (int k = 0; k < HPT; ++k) {
-      const int r = r0 + k * kStep;
-      if (r < rep) acc[k] *= alpha[r];
-    }
-#pragma unroll 8
-    for (int j = 0; j < kPage; ++j) {
-      float v;
-      if constexpr (kQ8)
-        v = (float)reinterpret_cast<const int8_t*>(sv + j * TL::kRow)[dcol];
-      else
-        v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(sv + j * TL::kRow)[dcol]);
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
-      for (int k = 0; k < HPT; ++k) {
-        const int r = r0 + k * kStep;
-        if (r < rep) acc[k] = fmaf(ps[r * kPage + j], v, acc[k]);
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * ks + u;
+        float v0 = 1.f, v1 = 1.f;
+        if constexpr (kQ8) {
+          const float2 vs = *reinterpret_cast<const float2*>(svs + 8 * j + 2 * t);
+          v0 = vs.x;
+          v1 = vs.y;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float x0 = s[mt][j][2 * half], x1 = s[mt][j][2 * half + 1];
+            if constexpr (kQ8) {
+              x0 *= v0;
+              x1 *= v1;
+            }
+            const uint32_t hi = bf16_pair(x0, x1);
+            ahi[mt][2 * u + half] = hi;
+            alo[mt][2 * u + half] =
+                bf16_pair(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xFFFF0000u));
+          }
+      }
+#pragma unroll
+      for (int cq = 0; cq < G::kChunks / 2; ++cq) {
+        uint32_t r[4];  // (tokens 0-7, 8-15) x chunks 2cq, 2cq + 1 of the step
+        ldmatrix_x4_trans(r, va + (16 * ks + (lane & 15)) * G::kRow + (2 * cq + (lane >> 4)) * 16);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * cq + e;
+          if constexpr (kQ8) {  // even and odd d of chunk c: tiles 2c and 2c + 1
+            const uint32_t b0e = s8_pair_02(r[2 * e]), b1e = s8_pair_02(r[2 * e + 1]);
+            const uint32_t b0o = s8_pair_13(r[2 * e]), b1o = s8_pair_13(r[2 * e + 1]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_16816(o[mt][2 * c], ahi[mt], b0e, b1e);
+              mma_16816(o[mt][2 * c], alo[mt], b0e, b1e);
+              mma_16816(o[mt][2 * c + 1], ahi[mt], b0o, b1o);
+              mma_16816(o[mt][2 * c + 1], alo[mt], b0o, b1o);
+            }
+          } else {  // chunk c is tile c
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_16816(o[mt][c], ahi[mt], r[2 * e], r[2 * e + 1]);
+              mma_16816(o[mt][c], alo[mt], r[2 * e], r[2 * e + 1]);
+            }
+          }
+        }
       }
     }
-    __syncthreads();  // this stage's tiles and ps are free again
+    __syncwarp();  // this stage is free for page i + 2
   }
 
+  // this warp's partial -> its own stage memory: [rep][D + 2] (acc, m, l)
+  float* part = reinterpret_cast<float*>(wbuf);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float lq = l[mt][half];
+      lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+      const int r = 16 * mt + g + 8 * half;
+      if (r >= rep) continue;
+      float* row = part + r * (D + 2);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = kQ8 ? 16 * (n >> 1) + 4 * t + (n & 1) + 2 * e : 8 * n + 2 * t + e;
+          row[d] = o[mt][n][2 * half + e];
+        }
+      if (t == 0) {
+        row[D] = m[mt][half];
+        row[D + 1] = lq;
+      }
+    }
+  __syncthreads();
+
+  // merge the warps in order; one block of the (lane, head): the output,
+  // else this block's partial to the workspace
   __nv_bfloat16* ob = out + ((size_t)bi * hq + (size_t)h * rep) * D;
-  if (splits == 1) {
-#pragma unroll
-    for (int k = 0; k < HPT; ++k) {
-      const int r = r0 + k * kStep;
-      if (r < rep) ob[r * D + dcol] = __float2bfloat16_rn(acc[k] / fmaxf(lrun[r], 1e-30f));
-    }
-    return;
-  }
-
-  // partial softmax of this block's pages -> workspace; the last block of
-  // the (lane, head) to arrive merges them
   const size_t unit = (size_t)rep * (D + 2);
   float* wsb = ws + ((size_t)(bi * hkv + h) * splits + split) * unit;
+  for (int idx = tid; idx < rep * D; idx += G::kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mm = kNegInf;
 #pragma unroll
-  for (int k = 0; k < HPT; ++k) {
-    const int r = r0 + k * kStep;
-    if (r < rep) wsb[r * (D + 2) + dcol] = acc[k];
+    for (int w = 0; w < kW; ++w)
+      mm = fmaxf(mm, reinterpret_cast<const float*>(smem + w * kStages * G::kStage)[r * (D + 2) + D]);
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const float* e = reinterpret_cast<const float*>(smem + w * kStages * G::kStage) + r * (D + 2);
+      const float wt = expf(e[D] - mm);
+      ll = fmaf(e[D + 1], wt, ll);
+      a = fmaf(e[d], wt, a);
+    }
+    if (splits == 1) {
+      ob[r * D + d] = __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
+    } else {
+      wsb[r * (D + 2) + d] = a;
+      if (d == 0) {
+        wsb[r * (D + 2) + D] = mm;
+        wsb[r * (D + 2) + D + 1] = ll;
+      }
+    }
   }
-  for (int r = tid; r < rep; r += kThreads) {
-    wsb[r * (D + 2) + D] = mrun[r];
-    wsb[r * (D + 2) + D + 1] = lrun[r];
-  }
+  if (splits == 1) return;
+
+  // the last block of the (lane, head) to arrive merges the splits in order
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -288,40 +430,46 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   if (!last) return;
   __threadfence();
   const float* wl = ws + (size_t)(bi * hkv + h) * splits * unit;
-#pragma unroll
-  for (int k = 0; k < HPT; ++k) {
-    const int r = r0 + k * kStep;
-    if (r >= rep) continue;
-    float m = kNegInf;
-    for (int s = 0; s < splits; ++s) m = fmaxf(m, __ldcg(wl + s * unit + r * (D + 2) + D));
-    float l = 0.f, a = 0.f;
+  for (int idx = tid; idx < rep * D; idx += G::kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mm = kNegInf;
+    for (int s = 0; s < splits; ++s) mm = fmaxf(mm, __ldcg(wl + s * unit + r * (D + 2) + D));
+    float ll = 0.f, a = 0.f;
     for (int s = 0; s < splits; ++s) {
       const float* e = wl + s * unit + r * (D + 2);
-      const float w = expf(__ldcg(e + D) - m);
-      l = fmaf(__ldcg(e + D + 1), w, l);
-      a = fmaf(__ldcg(e + dcol), w, a);
+      const float w = expf(__ldcg(e + D) - mm);
+      ll = fmaf(__ldcg(e + D + 1), w, ll);
+      a = fmaf(__ldcg(e + d), w, a);
     }
-    ob[r * D + dcol] = __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
+    ob[r * D + d] = __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
   }
 }
 
-template <typename T, int D, int HPT>
+// Allows the kernel its dynamic shared memory (once per instantiation).
+template <typename T, int D, int MT>
+cudaError_t prepare() {
+  static bool done = false;
+  if (!done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(paged_attention_kernel<T, D, MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<T, D>::kSmem);
+    if (e != cudaSuccess) return e;
+    done = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int D, int MT>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    const void* k_scale, const void* v_scale, const void* tables,
                    const void* ctx_lens, void* out, void* ws, void* counters, int B,
                    int hq, int hkv, int ptot, int maxp, int layer, int window,
                    float scale, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, D>(hq / hkv);
-  static size_t attr = 0;  // dynamic shared memory the kernel is allowed
-  if (smem > attr) {
-    cudaError_t e = cudaFuncSetAttribute(paged_attention_kernel<T, D, HPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    attr = smem;
-  }
+  using G = Geo<T, D>;
+  const cudaError_t e = prepare<T, D, MT>();
+  if (e != cudaSuccess) return e;
   const dim3 grid(splits, hkv, B);
-  paged_attention_kernel<T, D, HPT><<<grid, kThreads, smem, stream>>>(
+  paged_attention_kernel<T, D, MT><<<grid, G::kThreads, G::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
@@ -331,25 +479,47 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
   return cudaGetLastError();
 }
 
+// geo = {warps per block, cp.async stages per warp, resident blocks per SM}
+template <typename T, int D, int MT>
+cudaError_t geometry(int* geo) {
+  using G = Geo<T, D>;
+  cudaError_t e = prepare<T, D, MT>();
+  if (e != cudaSuccess) return e;
+  geo[0] = G::kWarps;
+  geo[1] = kStages;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &geo[2], paged_attention_kernel<T, D, MT>, G::kThreads, G::kSmem);
+}
+
+// MT for rep query heads per kv head: one m16 tile up to 16, two up to 32
+// at D 64; 0 for what K3 does not take
+template <int D>
+constexpr int tiles_for(int rep) {
+  return rep <= 16 ? 1 : (D == 64 && rep <= 32 ? 2 : 0);
+}
+
 template <typename T, int D>
-cudaError_t dispatch_heads(const void* q, const void* pool_k, const void* pool_v,
-                           const void* k_scale, const void* v_scale,
-                           const void* tables, const void* ctx_lens, void* out,
-                           void* ws, void* counters, int B, int hq, int hkv,
-                           int ptot, int maxp, int layer, int window, float scale,
-                           int splits, cudaStream_t st) {
-  const int per_thread = (hq / hkv + kThreads / D - 1) / (kThreads / D);
-#define PIE_K3_HEADS(HPT)                                                        \
-  if (per_thread <= HPT)                                                         \
-    return launch<T, D, HPT>(q, pool_k, pool_v, k_scale, v_scale, tables,        \
-                             ctx_lens, out, ws, counters, B, hq, hkv, ptot, maxp, \
-                             layer, window, scale, splits, st);
-  PIE_K3_HEADS(1)
-  PIE_K3_HEADS(2)
-  PIE_K3_HEADS(4)
-  PIE_K3_HEADS(8)
-  PIE_K3_HEADS(16)
-#undef PIE_K3_HEADS
+cudaError_t dispatch(int rep, const void* q, const void* pool_k, const void* pool_v,
+                     const void* k_scale, const void* v_scale, const void* tables,
+                     const void* ctx_lens, void* out, void* ws, void* counters, int B,
+                     int hq, int hkv, int ptot, int maxp, int layer, int window,
+                     float scale, int splits, cudaStream_t st) {
+  if (tiles_for<D>(rep) == 1)
+    return launch<T, D, 1>(q, pool_k, pool_v, k_scale, v_scale, tables, ctx_lens, out, ws,
+                           counters, B, hq, hkv, ptot, maxp, layer, window, scale, splits, st);
+  if constexpr (D == 64)
+    if (tiles_for<D>(rep) == 2)
+      return launch<T, D, 2>(q, pool_k, pool_v, k_scale, v_scale, tables, ctx_lens, out, ws,
+                             counters, B, hq, hkv, ptot, maxp, layer, window, scale, splits,
+                             st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t dispatch_geometry(int rep, int* geo) {
+  if (tiles_for<D>(rep) == 1) return geometry<T, D, 1>(geo);
+  if constexpr (D == 64)
+    if (tiles_for<D>(rep) == 2) return geometry<T, D, 2>(geo);
   return cudaErrorInvalidValue;
 }
 
@@ -375,15 +545,28 @@ extern "C" int pie_paged_attention(const void* q, const void* pool_k,
       (quantized && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rep = hq / hkv;
 #define PIE_K3_ARGS                                                              \
-  q, pool_k, pool_v, k_scale, v_scale, tables, ctx_lens, out, ws, counters, B,   \
-      hq, hkv, ptot, maxp, layer, window, scale, splits, st
+  rep, q, pool_k, pool_v, k_scale, v_scale, tables, ctx_lens, out, ws, counters, \
+      B, hq, hkv, ptot, maxp, layer, window, scale, splits, st
   if (d == 128)
-    return quantized ? (int)dispatch_heads<int8_t, 128>(PIE_K3_ARGS)
-                     : (int)dispatch_heads<__nv_bfloat16, 128>(PIE_K3_ARGS);
+    return quantized ? (int)dispatch<int8_t, 128>(PIE_K3_ARGS)
+                     : (int)dispatch<__nv_bfloat16, 128>(PIE_K3_ARGS);
   if (d == 64)
-    return quantized ? (int)dispatch_heads<int8_t, 64>(PIE_K3_ARGS)
-                     : (int)dispatch_heads<__nv_bfloat16, 64>(PIE_K3_ARGS);
+    return quantized ? (int)dispatch<int8_t, 64>(PIE_K3_ARGS)
+                     : (int)dispatch<__nv_bfloat16, 64>(PIE_K3_ARGS);
 #undef PIE_K3_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// geo[3] = {warps per block, cp.async stages per warp, blocks resident per
+// SM} of the kernel pie_paged_attention launches for these arguments.
+extern "C" int pie_paged_attention_geometry(int d, int quantized, int rep, int* geo) {
+  if (d == 128)
+    return quantized ? (int)dispatch_geometry<int8_t, 128>(rep, geo)
+                     : (int)dispatch_geometry<__nv_bfloat16, 128>(rep, geo);
+  if (d == 64)
+    return quantized ? (int)dispatch_geometry<int8_t, 64>(rep, geo)
+                     : (int)dispatch_geometry<__nv_bfloat16, 64>(rep, geo);
   return (int)cudaErrorInvalidValue;
 }

@@ -72,7 +72,9 @@ using pie::encode_2d;
 using pie::mbar_arrive;
 using pie::mbar_expect_tx;
 using pie::mbar_init;
+using pie::int8_pair_w;
 using pie::mbar_wait;
+using pie::mma_16816;
 using pie::prmt;
 using pie::smem_u32;
 using pie::tma_load_2d;
@@ -117,15 +119,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // bf16x2 (q_i, q_{i+4}), exact, of the INT4 codes in nibbles i and i + 4
 // of w, sh = 4i: one shift and one lop3 give 128 + q, one fma q
 __device__ __forceinline__ uint32_t int4_pair_w(uint32_t w, int sh) {
@@ -133,13 +126,6 @@ __device__ __forceinline__ uint32_t int4_pair_w(uint32_t w, int sh) {
   asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(v) : "r"(w >> sh), "r"(0x000F000Fu),
       "r"(0x43004300u));
   return bf16x2_fma(v, 0x3F803F80u, 0xC300C300u);
-}
-
-// bf16x2 (byte i of w0, byte i of w1) of INT8 codes, exact
-__device__ __forceinline__ uint32_t int8_pair_w(uint32_t w0, uint32_t w1, int i) {
-  const float lo = __uint_as_float(prmt(w0, 0x4B000000u, 0x7440u | i)) - 8388608.f;
-  const float hi = __uint_as_float(prmt(w1, 0x4B000000u, 0x7440u | i)) - 8388608.f;
-  return bf16_pair(lo, hi);
 }
 
 // sum of the 8 bf16 values of v, in f32

@@ -26,10 +26,16 @@ names (-1 pads read page 0), with an online softmax in f32:
 ``paged_attention_ref`` is the plain version of exactly that (the CPU path
 and the kernel checks use it); ``paged_attention_decode`` routes a CPU
 tensor to it and a CUDA tensor to K3 (or raises).
+
+K3 runs QK and PV on the tensor cores (``mma.sync``, the probabilities
+rounded for PV as two bf16 terms), each warp of a block walking its own
+pages over a ``cp.async`` double buffer; ``csrc/paged_attention.cu`` says
+how. ``launch_plan`` gives its geometry for a call.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,15 +44,16 @@ from pie_tpu_torch.cache.paged import PAGE_SIZE
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 from pie_tpu_torch.ops.attention import NEG_INF
 
-#: K3 splits each lane's page walk until about this many blocks are in
-#: flight (4 per SM of an H100)
-TARGET_BLOCKS = 4 * 132
+#: K3 splits each lane's page walk until the grid is one wave of this many
+#: SMs times K3's resident blocks per SM (132: the SMs of an H100 SXM)
+TARGET_BLOCKS = 132
 HEAD_DIMS = (64, 128)
-#: query heads per kv head whose accumulators one K3 thread keeps (the
-#: block's 128 threads cover 128 / D heads at a time)
+#: query heads per kv head that one m16 tile of K3's mma holds (two tiles,
+#: 32 heads, at D = 64)
 MAX_GROUP = 16
 
 _counters: dict = {}  # per device: K3's zeroed arrival counters
+_geometry: dict = {}  # per (device, D, quantized, rep): K3's block geometry
 
 
 def paged_attention_ref(
@@ -91,11 +98,35 @@ def paged_attention_ref(
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def page_splits(batch: int, hkv: int, max_pages: int) -> int:
+def page_splits(batch: int, hkv: int, max_pages: int, blocks_per_sm: int = 1) -> int:
     """Blocks per (lane, kv head) of K3: split the page walk until the grid
-    has about TARGET_BLOCKS blocks. Chosen from shapes only (the context
-    lengths stay on the card)."""
-    return max(1, min(max_pages, -(-TARGET_BLOCKS // (batch * hkv))))
+    fills one wave of TARGET_BLOCKS x ``blocks_per_sm`` resident blocks, and
+    no further (a second, partial wave would wait for the first). Chosen
+    from shapes only (the context lengths stay on the card)."""
+    return max(1, min(max_pages, TARGET_BLOCKS * blocks_per_sm // (batch * hkv)))
+
+
+def k3_geometry(device, d: int, quantized: bool, rep: int) -> dict:
+    """Warps per block, cp.async stages per warp and resident blocks per SM
+    of the K3 kernel that serves these heads, from the kernel itself."""
+    key = (device, d, quantized, rep)
+    if key not in _geometry:
+        geo = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = qmc.kernel("paged_attention_geometry")(d, int(quantized), rep, geo)
+        if err:
+            raise RuntimeError(f"K3 geometry query failed: CUDA error {err}")
+        _geometry[key] = dict(warps=geo[0], stages=geo[1], blocks_per_sm=geo[2])
+    return _geometry[key]
+
+
+def launch_plan(device, batch: int, hq: int, hkv: int, d: int, max_pages: int,
+                quantized: bool) -> dict:
+    """K3's launch for a call: its geometry, the page splits, the blocks of
+    the grid and how the probabilities are rounded for PV."""
+    geo = k3_geometry(device, d, quantized, hq // hkv)
+    splits = page_splits(batch, hkv, max_pages, geo["blocks_per_sm"])
+    return dict(geo, splits=splits, blocks=batch * hkv * splits, p_round="bf16 hi + lo")
 
 
 def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
@@ -107,7 +138,7 @@ def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
             or hq // hkv > MAX_GROUP * 128 // d):
         raise ValueError(
             f"K3 takes head_dim {HEAD_DIMS}, {PAGE_SIZE}-token pages, Hkv | Hq "
-            f"and Hq / Hkv <= {MAX_GROUP} * 128 / D; got D={d}, page={page}, "
+            f"and Hq / Hkv <= {MAX_GROUP} (32 at D = 64); got D={d}, page={page}, "
             f"Hq={hq}, Hkv={hkv}")
     check = qmc._check
     check(q, "q", torch.bfloat16, (b, hq, d))
@@ -126,8 +157,8 @@ def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
     layer = int(layer)
     if not 0 <= layer < nl:
         raise IndexError(f"layer {layer} of {nl}")
-    splits = page_splits(b, hkv, maxp)
     rep = hq // hkv
+    splits = launch_plan(q.device, b, hq, hkv, d, maxp, quantized)["splits"]
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=q.device)
     ws = counters = None
     if splits > 1:

@@ -171,6 +171,8 @@ ENTRY_POINTS = {
                              [_vp] * 4 + [_ci] * 7),
     "paged_attention": ("paged_attention", "pie_paged_attention",
                         [_vp] * 10 + [_ci] * 9 + [_cf, _ci, _vp]),
+    "paged_attention_geometry": ("paged_attention", "pie_paged_attention_geometry",
+                                 [_ci] * 3 + [_vp]),
     "fused_mlp": ("fused_mlp", "pie_fused_mlp", [_vp] * 15 + [_ci] * 7 + [_cf, _cll, _vp]),
 }
 

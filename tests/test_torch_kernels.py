@@ -263,22 +263,26 @@ def paged_inputs(dev, lens, hq, hkv, d, quantized, layers=2, maxp=4, seed=0):
     return tuple(to(t) for t in (q, k, v, ks, vs, tables, ctx))
 
 
-LENS = (1, 63, 64, 65, 130, 200, 7)
+LENS = (1, 63, 64, 65, 130, 200, 7, 1000)  # 1,000: 16 pages, several per warp and split
+K3_HEADS = [(d, hq, hkv) for d in (64, 128)
+            for hq, hkv in ((8, 2), (4, 4), (16, 2), (32, 8), (32, 1))
+            if hq // hkv <= (32 if d == 64 else 16)]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d,hq,hkv", K3_HEADS)
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("window", [0, 1, 64, 100])
 @pytest.mark.parametrize("split", [True, False])
-@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4), (16, 2)])
 def test_paged_attention_matches_plain(cuda, monkeypatch, d, quantized, window,
                                        split, hq, hkv):
     """K3 against paged_attention_ref: ragged lengths, shuffled tables with
     -1 pads, sliding windows, layer 1 of 2, the page walk split across
-    blocks or not; bf16 output within 2e-2 of the f32 plain version."""
+    blocks or not, head groups of 1 to 32 (the Llama-3 heads 32 / 8);
+    bf16 output within 2e-2 of the f32 plain version."""
     if not split:
         monkeypatch.setattr(pa, "TARGET_BLOCKS", 1)
-    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, LENS, hq, hkv, d, quantized)
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, LENS, hq, hkv, d, quantized,
+                                                maxp=16)
     scale = d ** -0.5
     qmc.reset_counts()
     got = pa.paged_attention_decode(q, k, v, ks, vs, 1, tables, ctx, scale, window)
@@ -291,6 +295,31 @@ def test_paged_attention_matches_plain(cuda, monkeypatch, d, quantized, window,
     # a second call finds the arrival counters reset
     again = pa.paged_attention_decode(q, k, v, ks, vs, 1, tables, ctx, scale, window)
     assert torch.equal(again, got)
+
+
+def test_k3_in_a_cuda_graph(cuda):
+    """K3 with its page walk split across blocks, captured in a CUDA graph
+    and replayed over new queries and lengths, equals the eager call each
+    time; the arrival counters are back at zero after each replay."""
+    lens = (2048, 1500, 700, 65, 2048, 5, 1000, 130)
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, lens, 32, 8, 128, True, maxp=32)
+    plan = pa.launch_plan(cuda, len(lens), 32, 8, 128, tables.shape[1], True)
+    assert plan["splits"] > 1
+    scale = 128 ** -0.5
+    args = (k, v, ks, vs, 1, tables, ctx, scale)
+    pa.paged_attention_decode(q, *args)  # warm-up: build, attributes, counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention_decode(q, *args)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=cuda).bfloat16())
+        ctx.sub_(step)  # shorter contexts: the walk ends on other tokens
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pa.paged_attention_decode(q, *args))
+        assert int(pa._counters[q.device][:len(lens) * 8].abs().sum()) == 0
 
 
 def test_paged_attention_rejects_what_it_does_not_take(cuda):
