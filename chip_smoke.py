@@ -34,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    windows 0 and 256, layer 3 of a 4-layer pool (normalized max error
    < 2e-2), and timed at 8 lanes x 2,048 tokens (INT8 and bf16) over
    rotating layers beside the plain version and
-   scaled_dot_product_attention on K/V gathered and dequantized beforehand.
+   scaled_dot_product_attention on K/V gathered and dequantized beforehand;
+   each timed row carries K3's launch (warps per block, cp.async stages
+   per warp, resident blocks per SM, page splits, grid blocks, and the
+   bf16 hi + lo rounding of the probabilities for PV).
 3. model: a 2-layer model at the full 8B widths, same weights on the card
    (kernels) and on the CPU (plain versions): prefill 16 tokens, 4
    teacher-forced decode steps, then a 40-token chunk (so K2 runs too);

@@ -207,22 +207,25 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
       cp_async16(sv + G::kTile + (lane >> 4) * kPage * 4 + (lane & 15) * 16,
                  gs + (lane & 15) * 4);
     }
-    cp_async_commit();
   };
 
+  // one commit group per page slot (empty past the last page), so page i
+  // has landed once all but the newest kStages - 1 groups have
   const int first = pb + warp;
   const int mine = first < pe ? (pe - first + kW - 1) / kW : 0;
-  if (mine > 0) issue(first, 0);
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < mine) issue(first + k * kW, k);
+    cp_async_commit();
+  }
   for (int i = 0; i < mine; ++i) {
     const int p = first + i * kW;
-    if (i + 1 < mine) {
-      issue(p + kW, (i + 1) & 1);  // the stage of page i - 1, released below
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (i + kStages - 1 < mine)  // into the stage of page i - 1, released below
+      issue(p + (kStages - 1) * kW, (i + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
     __syncwarp();
-    const unsigned char* sk = wbuf + (i & 1) * G::kStage;
+    const unsigned char* sk = wbuf + (i % kStages) * G::kStage;
     const uint32_t ka = smem_u32(sk), va = ka + G::kTile;
     const float* sks = reinterpret_cast<const float*>(sk + 2 * G::kTile);
     const float* svs = sks + kPage;
@@ -358,8 +361,9 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
         }
       }
     }
-    __syncwarp();  // this stage is free for page i + 2
+    __syncwarp();  // this stage is free for page i + kStages
   }
+  cp_async_wait<0>();  // the empty groups: nothing is in flight below
 
   // this warp's partial -> its own stage memory: [rep][D + 2] (acc, m, l)
   float* part = reinterpret_cast<float*>(wbuf);

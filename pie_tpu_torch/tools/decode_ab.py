@@ -1,5 +1,5 @@
-"""A/B of K1 (the decode dequant-GEMV) and decode speed between checkouts of
-this repository, on one CUDA card.
+"""A/B of K1 (the decode dequant-GEMV), K3 (the paged decode attention) and
+decode speed between checkouts of this repository, on one CUDA card.
 
     python3 pie_tpu_torch/tools/decode_ab.py --root A --root B --root B --root A
 
@@ -14,10 +14,16 @@ parent takes the card's drift out of the comparison). For each root:
   (ln, rope dh 64) and f32-scale head at M = 1 and 8, summed per step;
 - K4 (the fused 1B decode MLP block) at M = 1, which shares K1's tile
   header;
+- K3's device time (a captured CUDA graph over the 4 layers of a pool)
+  at 8 lanes x 2,048 INT8 tokens, summed per device step at the
+  Llama-3-8B heads (32 launches; also on bf16 pages) and the Llama-3.2-1B
+  heads (16 launches);
 - 8B single-stream decode tok/s (``InferenceEngine``, best of 3 x 128
-  greedy tokens) and 8B paged tok/s (``PagedEngine`` + ``Scheduler``, 8
-  lanes of 64-token prompts x 128 new tokens, INT8 KV, best of 2), with
-  random INT4 g64 weights from a seed.
+  greedy tokens), 8B paged tok/s (``PagedEngine`` + ``Scheduler``, 8
+  lanes of 64-token prompts x 128 new tokens, INT8 KV, best of 2) and 8B
+  paged tok/s at 2,048-token contexts (8 lanes of 1,920-token prompts,
+  the 128-token drain after every lane's first token, as ``chip_smoke.py``
+  times it), with random INT4 g64 weights from a seed.
 
 Prints one JSON line per root with the card's name and power limit.
 """
@@ -45,6 +51,42 @@ DECODE_8B = [("wqkv", 4096, 6144, 32, True, (32, 8, 128)),
 # 1B decode: K1 runs wqkv and the tied head (f32 scales); K4 the rest
 DECODE_1B = [("wqkv", 2048, 3072, 16, True, (32, 8, 64), False),
              ("lm_head", 2048, 128256, 1, True, None, True)]
+
+
+def k3_inputs(hq, hkv, d, quantized, layers=4, lanes=8, context=2048, seed=1):
+    """A random paged pool [layers, P + 1, Hkv, 64, D] on the card (bf16, or
+    int8 with f32 scales), every lane at ``context`` tokens over shuffled
+    pages, bf16 queries; and the bytes K3 must move per call."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    maxp = -(-context // 64)
+    p = lanes * maxp
+    shape = (layers, p + 1, hkv, 64, d)
+    if quantized:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:4], generator=gen, device="cuda") * 0.02 + 0.005
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        ks = vs = None
+    tables = torch.randperm(p, generator=gen, device="cuda").to(torch.int32)
+    tables = tables.reshape(lanes, maxp)
+    q = torch.randn((lanes, hq, d), generator=gen, device="cuda").bfloat16()
+    ctx = torch.full((lanes,), context, dtype=torch.int32, device="cuda")
+    per_page_head = 2 * 64 * d * k.element_size() + (2 * 64 * 4 if quantized else 0)
+    nbytes = p * hkv * per_page_head + 2 * q.numel() * 2 + tables.numel() * 4 + lanes * 4
+    return q, k, v, ks, vs, tables, ctx, nbytes
+
+
+def k3_ms(pa, hq, hkv, d, quantized, layers=4) -> float:
+    """K3's device ms per call at 8 lanes x 2,048 tokens, over rotating layers."""
+    q, k, v, ks, vs, tables, ctx, _ = k3_inputs(hq, hkv, d, quantized, layers)
+    scale = d ** -0.5
+    return device_ms(lambda i: pa.paged_attention_decode(q, k, v, ks, vs, i % layers,
+                                                         tables, ctx, scale))
 
 
 def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
@@ -77,6 +119,7 @@ def measure(root: str) -> dict:
     from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
     from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from pie_tpu_torch.ops import fused_mlp as fm
+    from pie_tpu_torch.ops import paged_attention as pa
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
     if not qmc.__file__.startswith(root):
@@ -110,6 +153,13 @@ def measure(root: str) -> dict:
         lambda i: fm.fused_mlp_stacked(attn, h, ln2, i % ROTATE, wo, wgu, wd, 1e-5))
     del wo, wgu, wd
     torch.cuda.empty_cache()
+    for label, heads, quantized, per in (("8B int8", (32, 8, 128), True, 32),
+                                         ("8B bf16", (32, 8, 128), False, 32),
+                                         ("1B int8", (32, 8, 64), True, 16)):
+        ms = k3_ms(pa, *heads, quantized)
+        out[f"k3 {label} 8x2048 us"] = ms * 1e3
+        out[f"k3 per {label[:2]} step {label[3:]} ms"] = per * ms
+        torch.cuda.empty_cache()
 
     model = LlamaModel(LlamaConfig(
         model_type="llama", hidden_size=4096, intermediate_size=14336,
@@ -145,6 +195,27 @@ def measure(root: str) -> dict:
         torch.cuda.synchronize()
         best = max(best, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
     out["8B paged tok/s"] = best
+    del sched, paged
+    torch.cuda.empty_cache()
+
+    ctx, new, lanes = 2048, 128, 8
+    pages = ctx // 64 + 2
+    paged = PagedEngine(model, params, num_lanes=lanes, num_pages=lanes * pages + 8,
+                        max_pages_per_seq=pages, kv_quantized=True)
+    sched = Scheduler(paged, decode_steps=8, prefix_cache=False)
+    long_prompt = lambda salt: [1 + (i * 37 + salt * 101) % 100000 for i in range(ctx - new)]
+    sched.add_request(long_prompt(0), max_new_tokens=9, temperature=0.0)
+    sched.run_to_completion()
+    seqs = [sched.add_request(long_prompt(i + 1), max_new_tokens=new, temperature=0.0)
+            for i in range(lanes)]
+    while any(not s.output_ids for s in seqs):
+        sched.step()
+    done0 = sum(len(s.output_ids) for s in seqs)
+    t0 = time.perf_counter()
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    out["8B paged tok/s at 2048"] = ((sum(len(s.output_ids) for s in seqs) - done0)
+                                     / (time.perf_counter() - t0))
     return out
 
 

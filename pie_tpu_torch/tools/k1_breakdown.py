@@ -73,8 +73,8 @@ def variant_sources(src: str) -> dict[str, str]:
 
 
 def build_all(sources: dict[str, str], out: Path) -> dict[str, Path]:
-    """One nvcc per source, all started together (K1's flags; the csrc
-    headers on the include path)."""
+    """One nvcc per source, all started together (the kernels' flags; the
+    csrc headers on the include path)."""
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
         cu = out / f"k1_{i}.cu"
