@@ -28,7 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    < 0.02) at the 1B shapes (INT4 g64 at M = 1 and 8, INT8 g64 at M = 8)
    and, recorded only, the 8B shapes,
    timed beside the plain version, the port's unfused block and a
-   torch.matmul chain on bf16 weights dequantized beforehand. Then K3 (paged
+   torch.matmul chain on bf16 weights dequantized beforehand; each row
+   carries K4's plan (resident blocks, ring stages, grid barriers, and
+   tiles x K splits x stages per split of wo, wgu and wd). Then K3 (paged
    decode attention) against its plain version at the 8B heads (D 128) and
    the 1B heads (D 64), bf16 and INT8 pools, 8 lanes of contexts 1..2048,
    windows 0 and 256, layer 3 of a 4-layer pool (normalized max error
@@ -88,7 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
-step and per 8B step at the other row counts), then the kernel summary
+step and per 8B step at the other row counts, K4 per 1B paged decode
+step), then the kernel summary
 line (K1, its ln pre-pass, K2-K4), the card's name and power limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -404,6 +407,7 @@ def fused_case(name, d, di, m, bits=4, g=64, seed=0):
 
     from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, rms_norm
     from pie_tpu_torch.ops import fused_mlp as fm
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
     from pie_tpu_torch.ops.quant import dequantize
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -450,9 +454,11 @@ def fused_case(name, d, di, m, bits=4, g=64, seed=0):
     nbytes = wbytes + 3 * m * d * 2 + d * 2  # attn, h in, out; the ln2 row
     flops = 2 * m * (d * d + d * 2 * di + di * d)
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    plan = fm.mlp_plan(m, d, d, di, bits, g, sms=qmc._device_sms(attn.device),
+                       blocks_per_sm=fm._blocks_per_sm(attn.device, bits, g, 0, d))
     row = dict(
         phase="kernels", case=name, kernel="K4", m=m, d=d, di=di, bits=bits,
-        group_size=g, max_abs_err=diff, norm_err=norm, kernel_ms=ms,
+        group_size=g, plan=plan.summary(), max_abs_err=diff, norm_err=norm, kernel_ms=ms,
         kernel_host_ms=host_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
         library_ms=library_ms, bound_ms=max(bound_bytes, bound_ops),
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -1721,6 +1727,11 @@ def main() -> int:
         unfused_ms=LAYERS1 * k4["unfused_ms"],
         paged_launches=paged1b["launches"]["K4"],
     ))
+    k4_8 = k4_rows[(4, 8)]  # per 1B paged decode step: one launch per layer at M = 8
+    emit(dict(phase="summary", case="K4 per 1B paged decode step (M = 8)",
+              launches=LAYERS1, plan=k4_8["plan"],
+              **{key: LAYERS1 * k4_8[key]
+                 for key in ("kernel_ms", "plain_ms", "unfused_ms", "library_ms", "bound_ms")}))
     k1_1b = sum(per * r["kernel_ms"] for per, r in rows_1b["K1"])
     emit(dict(phase="summary 1B", k1_ms_per_decoded_token=k1_1b,
               k1_library_ms_per_decoded_token=sum(per * r["library_ms"]

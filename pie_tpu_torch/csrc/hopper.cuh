@@ -1,8 +1,9 @@
-// Hopper building blocks shared by K1 (quant_gemv.cu), K2 (quant_gemm.cu)
-// and K3 (paged_attention.cu): mbarriers, TMA tensor copies and the host
-// encoding of their tensor maps, the bf16x2 bit operations that turn packed
-// codes into exact bf16 operands, and the mma.sync / ldmatrix fragments of
-// K1 and K3.
+// Hopper building blocks shared by K1 (quant_gemv.cu), K2 (quant_gemm.cu),
+// K3 (paged_attention.cu) and K4 (fused_mlp.cu): mbarriers, cp.async, TMA
+// tensor copies and the host encoding of their tensor maps (2-D, and 3-D
+// with the layer as a coordinate), the bf16x2 bit operations that turn
+// packed codes into exact bf16 operands, and the mma.sync / ldmatrix
+// fragments of K1, K3 and K4.
 
 #pragma once
 
@@ -43,12 +44,37 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
 }
 
+// 16 bytes global -> shared through L2 (cp.async.cg: not the L1 or the
+// read-only path, so data other blocks wrote during the launch is seen)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -152,6 +178,22 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* pt
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t step[2] = {1, 1};
   return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A stack of `layers` row-major [outer, inner] arrays, layer_bytes apart,
+// read in boxes of [1, box_outer, box_inner] (the layer is a coordinate).
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner,
+                      uint64_t outer, uint64_t layers, uint64_t row_bytes, uint64_t layer_bytes,
+                      uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, outer, layers};
+  const cuuint64_t strides[2] = {row_bytes, layer_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

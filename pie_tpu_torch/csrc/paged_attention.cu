@@ -69,6 +69,9 @@
 namespace {
 
 using pie::bf16_pair;
+using pie::cp_async16;
+using pie::cp_async_commit;
+using pie::cp_async_wait;
 using pie::ldmatrix_x4;
 using pie::ldmatrix_x4_trans;
 using pie::mma_16816;
@@ -81,20 +84,6 @@ constexpr int kPage = 64;
 constexpr int kStages = 2;  // cp.async stages per warp
 constexpr float kNegInf = -0.7f * 3.40282346638528859812e+38f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ float ex2(float x) { return exp2f(x * kLog2e); }
 

@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemv_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -78,65 +79,24 @@ using pie::mma_16816;
 using pie::prmt;
 using pie::smem_u32;
 using pie::tma_load_2d;
+using pie::gemv::BF;
+using pie::gemv::consumer_sync;
+using pie::gemv::CP;
+using pie::gemv::int4_pair_w;
+using pie::gemv::KS;
+using pie::gemv::kBarBytes;
+using pie::gemv::kConsumers;
+using pie::gemv::kMaxStages;
+using pie::gemv::kRingBudget;
+using pie::gemv::kThreads;
+using pie::gemv::ring_stages;
+using pie::gemv::stage_bytes;
+using pie::gemv::sum8;
+using pie::gemv::tx_bytes;
+using pie::gemv::warp_sum;
 
-constexpr int BF = 128;                   // output features per block
-constexpr int KS = 128;                   // K rows per ring stage
-constexpr int kConsumers = 256;           // 8 warps of 16 features
-constexpr int kThreads = kConsumers + 64; // + the TMA warp and the x-sum warp
-constexpr int CP = BF + 4;                // f32 epilogue row length (per token)
-constexpr int kMaxStages = 8;
-constexpr int kRingBudget = 100 * 1024;   // two blocks per SM
-constexpr int kBarBytes = 3 * 8 * kMaxStages + 16;
 constexpr int kSmem = 1024 + kRingBudget + kBarBytes;
-
-// A stage: x boxes [mp][64] bf16 x 2 | words 4 x [KS/ep][32] | scale rows
-// [KS/g][BF] | bias rows | 32-row x sums [4][mp] f32; the copies fill all
-// but the sums.
-__host__ __device__ constexpr int words_bytes(int bits) { return KS * bits / 32 * BF * 4; }
-__host__ __device__ constexpr int sb_bytes(int g, bool f32s) { return KS / g * BF * (f32s ? 4 : 2); }
-__host__ __device__ constexpr int tx_bytes(int bits, bool f32s, int g, int mp) {
-  return 2 * mp * 128 + words_bytes(bits) + 2 * sb_bytes(g, f32s);
-}
-__host__ __device__ constexpr int stage_bytes(int bits, bool f32s, int g, int mp) {
-  return (tx_bytes(bits, f32s, g, mp) + 4 * mp * 4 + 1023) / 1024 * 1024;
-}
-__host__ __device__ constexpr int ring_stages(int bits, bool f32s, int g, int mp) {
-  return kRingBudget / stage_bytes(bits, f32s, g, mp) < kMaxStages
-             ? kRingBudget / stage_bytes(bits, f32s, g, mp)
-             : kMaxStages;
-}
-static_assert(ring_stages(8, true, 32, 32) >= 2, "ring too small");
 static_assert(32 * CP * 4 <= 2 * stage_bytes(4, false, 128, 32), "epilogue tile must fit");
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// the 8 consumer warps only (barrier 0 is __syncthreads)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// bf16x2 (q_i, q_{i+4}), exact, of the INT4 codes in nibbles i and i + 4
-// of w, sh = 4i: one shift and one lop3 give 128 + q, one fma q
-__device__ __forceinline__ uint32_t int4_pair_w(uint32_t w, int sh) {
-  uint32_t v;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(v) : "r"(w >> sh), "r"(0x000F000Fu),
-      "r"(0x43004300u));
-  return bf16x2_fma(v, 0x3F803F80u, 0xC300C300u);
-}
-
-// sum of the 8 bf16 values of v, in f32
-__device__ __forceinline__ float sum8(uint4 v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    s += __uint_as_float(w[i] << 16) + __uint_as_float(w[i] & 0xFFFF0000u);
-  return s;
-}
 
 // Prologue: xn[m] = bf16(x[m] * rsqrt(mean(x[m, :K]^2) + eps) * lnw), zero
 // past K. One block per row.
@@ -198,13 +158,13 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(
     __nv_bfloat16* __restrict__ y, float* __restrict__ ws, int* __restrict__ counters,
     int M, int N, int nstages, int per_split, int rope_dim) {
   constexpr int MP = NT * 8, EP = 32 / BITS, g = G;
-  constexpr int offW = 2 * MP * 128, offS = offW + words_bytes(BITS);
+  using L = pie::gemv::Stage<BITS, F32S, G, MP>;
+  constexpr int offW = L::offW, offS = L::offS, offB = L::offB, offSum = L::offSum;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw0 = smem_u32(smem_raw);
   const uint32_t base = (raw0 + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw0);
-  constexpr int offB = offS + sb_bytes(g, F32S), offSum = offB + sb_bytes(g, F32S);
-  constexpr int sbytes = stage_bytes(BITS, F32S, g, MP), stages = ring_stages(BITS, F32S, g, MP);
+  constexpr int sbytes = L::bytes, stages = L::stages;
   const uint32_t full0 = base + stages * sbytes, ready0 = full0 + 8 * kMaxStages,
                  empty0 = ready0 + 8 * kMaxStages;
   int* flag = reinterpret_cast<int*>(smem + stages * sbytes + 24 * kMaxStages);

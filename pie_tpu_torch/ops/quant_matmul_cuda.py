@@ -173,7 +173,10 @@ ENTRY_POINTS = {
                         [_vp] * 10 + [_ci] * 9 + [_cf, _ci, _vp]),
     "paged_attention_geometry": ("paged_attention", "pie_paged_attention_geometry",
                                  [_ci] * 3 + [_vp]),
-    "fused_mlp": ("fused_mlp", "pie_fused_mlp", [_vp] * 15 + [_ci] * 7 + [_cf, _cll, _vp]),
+    "fused_mlp": ("fused_mlp", "pie_fused_mlp", [_vp] * 9 + [_ci] * 16 + [_cf, _cll, _vp]),
+    "fused_mlp_encode": ("fused_mlp", "pie_fused_mlp_encode",
+                         [_vp] * 3 + [_ci, _cll, _cll] + [_ci] * 5 + [_vp]),
+    "fused_mlp_blocks_per_sm": ("fused_mlp", "pie_fused_mlp_blocks_per_sm", [_ci] * 4),
 }
 
 

@@ -1,7 +1,9 @@
-"""A/B of K1 (the decode dequant-GEMV), K3 (the paged decode attention) and
-decode speed between checkouts of this repository, on one CUDA card.
+"""A/B of K1 (the decode dequant-GEMV), K3 (the paged decode attention),
+K4 (the fused decode MLP block) and decode speed between checkouts of this
+repository, on one CUDA card.
 
-    python3 pie_tpu_torch/tools/decode_ab.py --root A --root B --root B --root A
+    python3 pie_tpu_torch/tools/decode_ab.py --root A --root B --root B --root A \
+        [--parts k1 k4 k3 8b 1b]
 
 Each ``--root`` is a checkout whose ``pie_tpu_torch`` is imported, in a
 fresh process per root and in the order given (parent, change, change,
@@ -12,8 +14,10 @@ parent takes the card's drift out of the comparison). For each root:
   them) at M = 1, 8, 16 and 32, summed per decoded token (M = 1: 129
   launches) and per decode step of M lanes, and the Llama-3.2-1B wqkv
   (ln, rope dh 64) and f32-scale head at M = 1 and 8, summed per step;
-- K4 (the fused 1B decode MLP block) at M = 1, which shares K1's tile
-  header;
+- K4 (the fused decode MLP block; ``k4``) at the Llama-3.2-1B widths,
+  INT4 g64 at M = 1 and 8 and INT8 g64 at M = 8, and at the Llama-3-8B
+  widths at M = 1 and 8 (recorded only: the model keeps K4 off there),
+  and per 1B decoded token and paged step (16 launches);
 - K3's device time (a captured CUDA graph over the 4 layers of a pool)
   at 8 lanes x 2,048 INT8 tokens, summed per device step at the
   Llama-3-8B heads (32 launches; also on bf16 pages) and the Llama-3.2-1B
@@ -23,7 +27,11 @@ parent takes the card's drift out of the comparison). For each root:
   lanes of 64-token prompts x 128 new tokens, INT8 KV, best of 2) and 8B
   paged tok/s at 2,048-token contexts (8 lanes of 1,920-token prompts,
   the 128-token drain after every lane's first token, as ``chip_smoke.py``
-  times it), with random INT4 g64 weights from a seed.
+  times it), with random INT4 g64 weights from a seed (``8b``);
+- the same single-stream and 8-lane paged tok/s on the 16-layer
+  Llama-3.2-1B geometry, where K4 runs every layer's MLP block (``1b``).
+
+``--parts`` picks sections (K1 is ``k1``, K3 ``k3``; all by default).
 
 Prints one JSON line per root with the card's name and power limit.
 """
@@ -109,13 +117,57 @@ def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
     return device_ms(lambda i: qmc.quant_matmul_cuda(x, qt, layer=i % ROTATE, **kw))
 
 
-def measure(root: str) -> dict:
-    """Everything for one checkout, in this process."""
+PARTS = ("k1", "k4", "k3", "8b", "1b")
+# K4 cases: name, d, di, M, bits
+K4_CASES = [("1B M=1", 2048, 8192, 1, 4), ("1B M=8", 2048, 8192, 8, 4),
+            ("1B M=8 int8", 2048, 8192, 8, 8), ("8B M=1", 4096, 14336, 1, 4),
+            ("8B M=8", 4096, 14336, 8, 4)]
+
+
+def engine_tok_s(model, params, prompt) -> tuple[float, float]:
+    """Single-stream decode tok/s (best of 3 x 128 greedy tokens) and
+    8-lane paged tok/s (8 x 128 new tokens, INT8 KV, best of 2)."""
+    import torch
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+
+    engine = InferenceEngine(model=model, params=params, max_seq_len=1024, decode_chunk=128)
+    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)
+    single = 0.0
+    for _ in range(3):
+        stream = engine.generate_stream(prompt, max_completion_tokens=129, temperature=0.0)
+        next(stream)
+        n, t0 = 0, time.perf_counter()
+        for _ in stream:
+            n += 1
+        single = max(single, n / (time.perf_counter() - t0))
+    del engine
+    torch.cuda.empty_cache()
+    paged = PagedEngine(model, params, num_lanes=8, num_pages=112, max_pages_per_seq=12,
+                        kv_quantized=True)
+    sched = Scheduler(paged, decode_steps=8)
+    sched.add_request(prompt, max_new_tokens=17, temperature=0.0)
+    sched.run_to_completion()
+    lanes = 0.0
+    for _ in range(2):
+        seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
+                for _ in range(8)]
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        lanes = max(lanes, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
+    del sched, paged
+    torch.cuda.empty_cache()
+    return single, lanes
+
+
+def measure(root: str, parts=PARTS) -> dict:
+    """The chosen parts for one checkout, in this process."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
-    from pie_tpu_torch.engine import InferenceEngine
     from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
     from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from pie_tpu_torch.ops import fused_mlp as fm
@@ -127,7 +179,7 @@ def measure(root: str) -> dict:
     qmc.build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": root}
-    for m in (1, 8, 16, 32):
+    for m in (1, 8, 16, 32) if "k1" in parts else ():
         total = 0.0
         for name, k, n, per, ln, heads in DECODE_8B:
             ms = k1_case(qmc, gen, k, n, m, ln, heads)
@@ -135,7 +187,7 @@ def measure(root: str) -> dict:
             total += per * ms
             torch.cuda.empty_cache()
         out[f"k1 per 8B step M={m} ms"] = total
-    for m in (1, 8):
+    for m in (1, 8) if "k1" in parts else ():
         total = 0.0
         for name, k, n, per, ln, heads, f32 in DECODE_1B:
             ms = k1_case(qmc, gen, k, n, m, ln, heads, f32)
@@ -144,59 +196,47 @@ def measure(root: str) -> dict:
             torch.cuda.empty_cache()
         out[f"k1 per 1B step M={m} ms"] = total
 
-    wo, wgu, wd = (random_weights(k, n, gen) for k, n in ((2048, 2048), (2048, 16384),
-                                                          (8192, 2048)))
-    ln2 = (1 + 0.1 * torch.randn((ROTATE, 2048), generator=gen, device="cuda")).bfloat16()
-    attn, h = (torch.randn((1, 2048), generator=gen, device="cuda").bfloat16()
-               for _ in range(2))
-    out["k4 1B M=1 us"] = 1e3 * device_ms(
-        lambda i: fm.fused_mlp_stacked(attn, h, ln2, i % ROTATE, wo, wgu, wd, 1e-5))
-    del wo, wgu, wd
-    torch.cuda.empty_cache()
+    for name, d, di, m, bits in K4_CASES if "k4" in parts else ():
+        wo, wgu, wd = (random_weights(k, n, gen, bits=bits)
+                       for k, n in ((d, d), (d, 2 * di), (di, d)))
+        ln2 = (1 + 0.1 * torch.randn((ROTATE, d), generator=gen, device="cuda")).bfloat16()
+        attn, h = (torch.randn((m, d), generator=gen, device="cuda").bfloat16()
+                   for _ in range(2))
+        out[f"k4 {name} us"] = 1e3 * device_ms(
+            lambda i: fm.fused_mlp_stacked(attn, h, ln2, i % ROTATE, wo, wgu, wd, 1e-5))
+        del wo, wgu, wd
+        torch.cuda.empty_cache()
+    if "k4" in parts:
+        out["k4 per 1B token ms"] = 16 * out["k4 1B M=1 us"] / 1e3
+        out["k4 per 1B paged step ms"] = 16 * out["k4 1B M=8 us"] / 1e3
     for label, heads, quantized, per in (("8B int8", (32, 8, 128), True, 32),
                                          ("8B bf16", (32, 8, 128), False, 32),
-                                         ("1B int8", (32, 8, 64), True, 16)):
+                                         ("1B int8", (32, 8, 64), True, 16)) \
+            if "k3" in parts else ():
         ms = k3_ms(pa, *heads, quantized)
         out[f"k3 {label} 8x2048 us"] = ms * 1e3
         out[f"k3 per {label[:2]} step {label[3:]} ms"] = per * ms
         torch.cuda.empty_cache()
 
+    prompt = list(range(1, 65))
+    if "1b" in parts:
+        model = LlamaModel(LlamaConfig(
+            model_type="llama", hidden_size=2048, intermediate_size=8192,
+            num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+            head_dim=64, vocab_size=128256, rope_theta=500000.0,
+            tie_word_embeddings=True))
+        params = model.init_quantized_params(seed=0, group_size=64, bits=4)
+        out["1B decode tok/s"], out["1B paged tok/s"] = engine_tok_s(model, params, prompt)
+        del model, params
+        torch.cuda.empty_cache()
+    if "8b" not in parts:
+        return out
     model = LlamaModel(LlamaConfig(
         model_type="llama", hidden_size=4096, intermediate_size=14336,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
         vocab_size=128256, rope_theta=500000.0, tie_word_embeddings=False))
     params = model.init_quantized_params(seed=0, group_size=64, bits=4)
-    prompt = list(range(1, 65))
-    engine = InferenceEngine(model=model, params=params, max_seq_len=1024, decode_chunk=128)
-    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)
-    best = 0.0
-    for _ in range(3):
-        stream = engine.generate_stream(prompt, max_completion_tokens=129, temperature=0.0)
-        next(stream)
-        n, t0 = 0, time.perf_counter()
-        for _ in stream:
-            n += 1
-        best = max(best, n / (time.perf_counter() - t0))
-    out["8B decode tok/s"] = best
-    del engine
-    torch.cuda.empty_cache()
-
-    paged = PagedEngine(model, params, num_lanes=8, num_pages=112, max_pages_per_seq=12,
-                        kv_quantized=True)
-    sched = Scheduler(paged, decode_steps=8)
-    sched.add_request(prompt, max_new_tokens=17, temperature=0.0)
-    sched.run_to_completion()
-    best = 0.0
-    for _ in range(2):
-        seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
-                for _ in range(8)]
-        t0 = time.perf_counter()
-        sched.run_to_completion()
-        torch.cuda.synchronize()
-        best = max(best, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
-    out["8B paged tok/s"] = best
-    del sched, paged
-    torch.cuda.empty_cache()
+    out["8B decode tok/s"], out["8B paged tok/s"] = engine_tok_s(model, params, prompt)
 
     ctx, new, lanes = 2048, 128, 8
     pages = ctx // 64 + 2
@@ -223,9 +263,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", action="append", required=True)
     ap.add_argument("--one", action="store_true", help="measure the one --root here")
+    ap.add_argument("--parts", nargs="*", default=list(PARTS), choices=PARTS)
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(measure(args.root[0])), flush=True)
+        print(json.dumps(measure(args.root[0], args.parts)), flush=True)
         return 0
     import torch
 
@@ -236,8 +277,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     for root in args.root:
-        res = subprocess.run([sys.executable, __file__, "--one", "--root", root],
-                             capture_output=True, text=True)
+        res = subprocess.run([sys.executable, __file__, "--one", "--root", root,
+                              "--parts", *args.parts], capture_output=True, text=True)
         if res.returncode:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
             return res.returncode

@@ -92,8 +92,8 @@ def build_all(sources: dict[str, str], out: Path) -> dict[str, Path]:
     return libs
 
 
-def bind(lib: Path):
-    _, symbol, argtypes = qmc.ENTRY_POINTS["quant_gemv"]
+def bind(lib: Path, entry: str = "quant_gemv"):
+    _, symbol, argtypes = qmc.ENTRY_POINTS[entry]
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn

@@ -401,15 +401,16 @@ def mlp_weights(dev, d, di, bits=4, group_size=64, layers=2, seed=0,
     return q(d, d), q(d, 2 * di), q(di, d), ln2
 
 
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
 @pytest.mark.parametrize("bits", [4, 8])
-def test_fused_mlp_matches_plain(cuda, m, bits):
+@pytest.mark.parametrize("group_size", [32, 64, 128])
+def test_fused_mlp_matches_plain(cuda, m, bits, group_size):
     """K4 at the Llama-3.2-1B widths (d 2048, di 8192) against
     fused_mlp_ref on the same card inputs, layer 1 of 2, with the ln2 row
     given as the [L, d] table and as the layer's row; one launch per call,
     and a second call gives the same bits (the barrier words were left
     ready, the reduction order is fixed)."""
-    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192, bits=bits)
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192, bits=bits, group_size=group_size)
     gen = torch.Generator(device=cuda).manual_seed(m)
     attn = torch.randn((m, 2048), generator=gen, device=cuda).bfloat16()
     h = torch.randn((m, 2048), generator=gen, device=cuda).bfloat16()
@@ -424,17 +425,93 @@ def test_fused_mlp_matches_plain(cuda, m, bits):
     assert torch.equal(again, got)
 
 
-def test_fused_mlp_f32_scales(cuda):
+@pytest.mark.parametrize("m", [2, 8])
+def test_fused_mlp_f32_scales(cuda, m):
     """Weights quantized from f32 keep f32 scales; K4 reads them."""
     wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 2048, dtype=torch.float32)
     assert wgu.scales.dtype == torch.float32
-    attn, h = (torch.randn((2, 2048), device=cuda).bfloat16() for _ in range(2))
+    attn, h = (torch.randn((m, 2048), device=cuda).bfloat16() for _ in range(2))
     got = fm.fused_mlp_stacked(attn, h, ln2, 0, wo, wgu, wd)
     assert _norm_err(got, fm.fused_mlp_ref(attn, h, ln2, 0, wo, wgu, wd)) < 0.02
 
 
+def _k4_counters_zero(dev) -> bool:
+    """K4's barrier arrivals and split counters are back at zero (the two
+    barrier generations, words 1 and 3, only grow)."""
+    c = qmc._arrival_counters(dev, "K4")[:1024].clone()
+    c[1] = c[3] = 0
+    return int(c.abs().sum()) == 0
+
+
+def test_k4_in_a_cuda_graph(cuda):
+    """K4 captured in a CUDA graph (layers 0 and 1 of the 1B widths at
+    M = 8) and replayed three times over new activations matches the eager
+    calls bit for bit; the barrier and split counters are back at zero
+    after each replay."""
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    attn = torch.randn((8, 2048), generator=gen, device=cuda).bfloat16()
+    h = torch.randn((8, 2048), generator=gen, device=cuda).bfloat16()
+    for layer in (0, 1):  # warm-up: build, attributes, tensor maps
+        fm.fused_mlp_stacked(attn, h, ln2, layer, wo, wgu, wd, 1e-5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fm.fused_mlp_stacked(attn, h, ln2, layer, wo, wgu, wd, 1e-5)
+                for layer in (0, 1)]
+    for _ in range(3):
+        attn.copy_(torch.randn((8, 2048), generator=gen, device=cuda).bfloat16())
+        h.copy_(torch.randn((8, 2048), generator=gen, device=cuda).bfloat16())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _k4_counters_zero(cuda)
+        for layer, out in zip((0, 1), outs):
+            assert torch.equal(out, fm.fused_mlp_stacked(attn, h, ln2, layer, wo, wgu, wd,
+                                                         1e-5))
+        assert not torch.equal(outs[0], outs[1])
+
+
+def test_k4_reruns_after_another_plan(cuda, monkeypatch):
+    """A call at M = 3 with another K-split plan right after a call at
+    M = 8, then both again: each rerun gives the same bits and agrees with
+    the plain version; the counters are back at zero after each call."""
+    import dataclasses
+
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x8 = [torch.randn((8, 2048), generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    x3 = [t[:3].clone() for t in x8]
+    real = fm.mlp_plan
+
+    def fewer_splits(*args, **kw):  # wo and wd in 4 K ranges, wgu unsplit
+        plan = real(*args, **kw)
+        phases = []
+        for p, want in zip(plan.phases, (4, 1, 4)):
+            per = -(-p.stages // want)
+            phases.append(dataclasses.replace(p, splits=-(-p.stages // per),
+                                              stages_per_split=per))
+        return dataclasses.replace(plan, phases=tuple(phases))
+
+    def call(x, other_plan):
+        if other_plan:
+            monkeypatch.setattr(fm, "mlp_plan", fewer_splits)
+        try:
+            out = fm.fused_mlp_stacked(*x, ln2, 1, wo, wgu, wd, 1e-5)
+            torch.cuda.synchronize()
+        finally:
+            monkeypatch.setattr(fm, "mlp_plan", real)
+        assert _k4_counters_zero(cuda)
+        return out
+
+    first8, first3 = call(x8, False), call(x3, True)
+    assert torch.equal(call(x3, True), first3) and torch.equal(call(x8, False), first8)
+    for x, got in ((x8, first8), (x3, first3)):
+        assert _norm_err(got, fm.fused_mlp_ref(*x, ln2, 1, wo, wgu, wd, 1e-5)) < 0.02
+
+
 def test_fused_mlp_rejects_what_it_does_not_take(cuda):
     wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 2048)
+    qmc.reset_counts()
     x = lambda m: torch.randn((m, 2048), device=cuda).bfloat16()
     with pytest.raises(ValueError):  # M > 8
         fm.fused_mlp_cuda(x(9), x(9), ln2, 0, wo, wgu, wd)
@@ -447,3 +524,20 @@ def test_fused_mlp_rejects_what_it_does_not_take(cuda):
         fm.fused_mlp_cuda(x(1).float(), x(1), ln2, 0, wo, wgu, wd)
     with pytest.raises(IndexError):  # layer out of range
         fm.fused_mlp_cuda(x(1), x(1), ln2, 2, wo, wgu, wd)
+    with pytest.raises(ValueError):  # an ln2 row of another width
+        fm.fused_mlp_cuda(x(1), x(1), ln2[:, :1024].contiguous(), 0, wo, wgu, wd)
+    bo, bgu, bd, bln = mlp_weights(cuda, 4608, 512, layers=1)
+    with pytest.raises(ValueError, match="d <= 4096"):  # an ln2 row wider than K4 keeps
+        fm.fused_mlp_cuda(*(torch.zeros((1, 4608), device=cuda).bfloat16(),) * 2, bln, 0,
+                          bo, bgu, bd)
+    import dataclasses
+
+    real = fm.mlp_plan
+    try:  # a split phase with more tasks than resident blocks: the kernel refuses it
+        fm.mlp_plan = lambda *a, **kw: dataclasses.replace(
+            real(*a, **kw), blocks=8)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fm.fused_mlp_cuda(x(1), x(1), ln2, 0, wo, wgu, wd)
+    finally:
+        fm.mlp_plan = real
+    assert qmc.launch_counts["K4"] == 0  # a refused call counts no launch

@@ -3,8 +3,9 @@ on the CPU: batched greedy streams equal to the port's single-stream engine
 and to the JAX package's Scheduler on the same weights, page exhaustion
 queues then completes, cancellation, a stop token mid-chunk, lane reuse,
 direct prefill while other lanes decode, a prefix-cache hit that prefills
-only the suffix, the INT8 pool, and steady decode on chained device
-state at pipeline depths 1 and 2."""
+only the suffix, the INT8 pool, steady decode on chained device state at
+pipeline depths 1 and 2, the XTC and DRY values admission writes into the
+lane arrays, and greedy streams with DRY on against the JAX Scheduler."""
 
 import jax
 import jax.numpy as jnp
@@ -252,3 +253,72 @@ def test_steady_decode_chains_device_state(models, single, depth):
     assert max(depths) == depth - 1 and any(chained)
     for k, s in zip(("a", "b"), seqs):
         assert s.output_ids == single(PROMPTS[k], 20)
+
+
+# request: (xtc_probability, xtc_threshold, dry_multiplier, dry_base,
+# dry_allowed_length); distinct per lane, none of them the defaults
+XTC_DRY = [(0.25, 0.05, 0.8, 1.5, 3), (0.0, 0.3, 0.0, 2.25, 1),
+           (1.0, 0.125, 1.2, 1.75, 4), (0.5, 0.2, 0.3, 3.0, 2)]
+
+
+def test_admission_writes_xtc_and_dry_into_the_lane_arrays(models):
+    """Scheduler._admit copies each request's XTC and DRY values into the
+    lane arrays that the sampler and the penalties read: exactly the
+    request's values (as float32 / int32), in the request's lane."""
+    sched = _sched(models)
+    seqs = [sched.add_request([3 + i, 5, 7], max_new_tokens=4, temperature=0.0,
+                              xtc_probability=p, xtc_threshold=t, dry_multiplier=dm,
+                              dry_base=db, dry_allowed_length=da)
+            for i, (p, t, dm, db, da) in enumerate(XTC_DRY)]
+    sched._admit()
+    lanes = [s.lane for s in seqs]
+    assert sorted(lanes) == list(range(4))
+    for s, (p, t, dm, db, da) in zip(seqs, XTC_DRY):
+        assert sched.samp["xtc_probability"][s.lane] == np.float32(p)
+        assert sched.samp["xtc_threshold"][s.lane] == np.float32(t)
+        assert sched.pen["dry_multiplier"][s.lane] == np.float32(dm)
+        assert sched.pen["dry_base"][s.lane] == np.float32(db)
+        assert sched.pen["dry_allowed"][s.lane] == da
+    assert sched.samp["xtc_probability"].dtype == np.float32
+    assert sched.pen["dry_allowed"].dtype == np.int32
+    sched.run_to_completion(max_steps=200)
+    assert all(s.status == SeqStatus.COMPLETED for s in seqs)
+
+
+def test_batched_greedy_with_dry_matches_jax(models):
+    """Greedy streams with DRY on, through the port's Scheduler and the JAX
+    package's on the same weights: equal token for token, and different
+    from the port's streams with DRY off (so the penalty took effect).
+
+    Each prompt is a base prompt, the first k + 1 tokens of its greedy
+    continuation, the base again and the first k tokens: the next token
+    would extend a repeat of length len(base) + k, which DRY penalises by
+    2 * 1.75 ** (len(base) + k - 2). The (base, k) pairs are ones whose
+    greedy choices stay clear of ties: the two packages' logits differ by
+    2-5e-3 of their size (tests/test_torch_llama.py), and some other pairs
+    of this tiny model meet top-2 gaps of 0.01-0.1 on logits of ~45, where
+    either package's pick is as right as the other's."""
+    jm, jp, _, _ = models
+    dry = dict(dry_multiplier=2.0, dry_base=1.75, dry_allowed_length=2)
+
+    def port(prompts, **kw):
+        sched = _sched(models)
+        seqs = [sched.add_request(p, max_new_tokens=10, temperature=0.0, **kw)
+                for p in prompts]
+        sched.run_to_completion(max_steps=300)
+        return [s.output_ids for s in seqs]
+
+    cases = [(PROMPTS["a"], 4), (PROMPTS["b"], 3), (PROMPTS["mid"], 3), ([7, 1], 2)]
+    bases = [b for b, _ in cases]
+    prompts = [b + o[:k + 1] + b + o[:k]
+               for (b, k), o in zip(cases, port(bases))]
+    jsched = JScheduler(JPagedEngine(jm, jp, num_lanes=4, num_pages=32,
+                                     max_pages_per_seq=8, prefill_chunk=16,
+                                     kv_dtype=jnp.float32))
+    jseqs = [jsched.add_request(p, max_new_tokens=10, temperature=0.0, **dry)
+             for p in prompts]
+    jsched.run_to_completion(max_steps=300)
+    got = port(prompts, **dry)
+    assert got == [s.output_ids for s in jseqs]
+    off = port(prompts)
+    assert all(g != o for g, o in zip(got, off)), (got, off)
