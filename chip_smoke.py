@@ -48,10 +48,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    rope; an empty rider; frozen lanes); logits agree to a normalized max
    error < 0.03, and K3 ran.
 4. engine: the 32-layer 8B geometry with random INT4 g=64 weights through
-   InferenceEngine: one counted request (64-token prompt, 128 decoded
-   tokens: K1 runs 129 times per decoded token, its ln pre-pass 65 times,
-   K2 129 times per prefill),
-   TTFT p50 of a 512-token prompt, best-of-3 greedy decode tok/s.
+   InferenceEngine, whose decode steps replay CUDA graphs
+   (pie_tpu_torch/engine/graphs.py): one counted request (64-token
+   prompt, 128 decoded tokens: K1 runs 129 times per decoded token, its ln
+   pre-pass 65 times, K2 129 times per prefill), TTFT p50 of a 512-token
+   prompt, best-of-3 greedy decode tok/s; steady 16-step chunks: un-
+   profiled wall ms per step, ms per step from CUDA events, aten calls per
+   step and the idle share over a profiled chunk, one chunk queued under
+   sync debug mode "error"; the graphs captured, their capture seconds
+   and their pool's bytes.
 5. requests: three requests over HTTP on localhost through the port's
    create_app (chat, chat SSE, completions with a logit_bias) on the 8B
    engine with an offline word-level tokenizer.
@@ -63,7 +68,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    device idle share over one steady chunk, TTFT p50 of 3 distinct
    512-token prompts admitted under 7 busy lanes, TTFT of a prefix-cache
    hit, and 8 lanes at 2,048-token contexts (34 pages per sequence, no
-   prefix cache) as tok/s.
+   prefix cache) as tok/s; steady 8-step chunks measured as in phase 4
+   (one dispatched under sync debug mode "error") and the graphs' counts.
+6b. graphs vs eager 8B (and 10b, 1B): each captured step (single-stream
+   decode, paged rider-free and mixed) against the same step run eagerly
+   on the card by a twin engine: equal greedy tokens, every step's logits
+   within 1e-3 normalized.
 7. batched requests: create_app over a BatchedInferenceEngine on the 8B
    weights answers 4 concurrent chats and one n=2 chat over HTTP.
 3b. (run after 3) model 1B: a 2-layer model at the full Llama-3.2-1B widths
@@ -78,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. serve: `MODEL_PATH=<snapshot> python -m pie_tpu_torch.server` as a
    subprocess: a chat, a streamed chat and a completion; then again with
    BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8: 4 concurrent chats and one n=2
-   chat. Every request returns 200; startup and request times printed.
+   chat. Every request returns 200; startup and request times printed,
+   the first request (which captures the step graphs) beside a second.
 10. 1B engines from the snapshot, in process: InferenceEngine(model_path=)
    (load time, quantized bytes, K4 16, K1 17 and its pre-pass 17 per
    decoded token, TTFT
@@ -86,7 +97,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    BatchedInferenceEngine(model_path=, kv_quantized=True, num_lanes=8)
    through its scheduler in bench.py's paged configuration (aggregate
    tok/s best of 2, K4 16 per decode device step and none in mixed steps,
-   TTFT under load, idle share over one steady chunk).
+   TTFT under load); both with the steady-chunk measurements and graph
+   counts of phases 4 and 6.
 
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
@@ -175,6 +187,188 @@ def device_ms(fn, iters: int = 40) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * iters)
+
+
+# -- compiled steps: graph stats, steady-step measurements, the eager twin -------
+
+
+def eager_steps(graphs):
+    """A step runner that calls every step eagerly on the card: the same
+    engine's steps without capture, the reference the graphs are held
+    against (defined here, not in the package: the engines always capture
+    on the card)."""
+    from pie_tpu_torch.engine.graphs import StepGraphs
+
+    class Eager(StepGraphs):
+        def __call__(self, key, fn, samples=False):
+            self.keys.add(key)
+            return fn()
+
+    return Eager(graphs.device, graphs.generator)
+
+
+class Tap:
+    """A step runner that keeps a copy of every step's logits."""
+
+    def __init__(self, inner):
+        self.inner, self.logits = inner, []
+
+    def __call__(self, key, fn, samples=False):
+        out = self.inner(key, fn, samples)
+        self.logits.append(out[1].float().clone())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def sync_free(fn):
+    """fn() with CUDA's sync debug mode set to raise: it must read nothing
+    back from the card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def event_ms(fn) -> float:
+    """ms between CUDA events recorded around fn() on an idle card: the
+    device's time for the work fn queues, plus any wait on the host."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def steady_single(engine, steps=16, chunks=4):
+    """Steady decode of the single-stream engine, chunk by chunk through
+    ``EngineCore._decode`` on the engine's own state: un-profiled wall ms
+    per step (dispatch and drain), device ms per step from CUDA events
+    around one queued chunk, a profiled chunk (aten calls per step, idle
+    share), and one chunk queued under sync debug mode "error"."""
+    from pie_tpu_torch.engine.core import PenaltyParams
+    from pie_tpu_torch.ops.sampling import SamplingParams
+
+    core, dev = engine.core, engine.device
+    engine.generate(list(range(1, 65)), max_completion_tokens=2, temperature=0.0)
+    args = (SamplingParams.make(1, temperature=0.0, device=dev),
+            PenaltyParams.make(1, device=dev), *engine._empty_bias,
+            torch.full((8,), -1, dtype=torch.int32, device=dev))
+
+    def chunk():
+        return core._decode(engine.params, engine.state, *args, num_steps=steps,
+                            sampler_kind="greedy", kv_bucket=core.max_seq_len,
+                            use_penalties=False, use_bias=False)[1][0]
+
+    chunk().cpu()  # the key's capture
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        chunk().cpu()
+    wall = (time.perf_counter() - t0) / (chunks * steps) * 1e3
+    ev = event_ms(chunk) / steps
+    trace = profiled(lambda: chunk().cpu())
+    trace["aten_calls_per_step"] = trace["aten_calls"] / steps
+    sync_free(chunk).cpu()
+    return dict(wall_ms_per_step=wall, event_ms_per_step=ev, sync_debug="no sync",
+                profiled_chunk=trace)
+
+
+def steady_paged(sched, prompt, lanes, chunks=4):
+    """Steady decode of the scheduler (every lane decoding): un-profiled
+    wall ms per device step over ``chunks`` chunks (dispatch and drain),
+    device ms per step from CUDA events around one queued chunk, one chunk
+    dispatched under sync debug mode "error", and a profiled chunk (aten
+    calls per step, idle share)."""
+    from pie_tpu_torch.engine.scheduler import SeqStatus
+
+    engine = sched.engine
+    seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
+            for _ in range(lanes)]
+    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
+        sched.step()
+    sched.step()
+    torch.cuda.synchronize()
+    steps0, t0 = engine.device_steps, time.perf_counter()
+    for _ in range(chunks):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (engine.device_steps - steps0) * 1e3
+    ev = event_ms(sched._fill_pipeline) / sched.decode_steps
+    sched.step()  # drains it
+    sync_free(sched._fill_pipeline)
+    sched.step()
+    steps0 = engine.device_steps
+    trace = profiled(sched.step)
+    trace["device_steps"] = engine.device_steps - steps0
+    trace["aten_calls_per_step"] = trace["aten_calls"] / trace["device_steps"]
+    sched.run_to_completion()
+    return dict(wall_ms_per_step=wall, event_ms_per_step=ev, sync_debug="no sync",
+                profiled_chunk=trace)
+
+
+def phase_graphs(model, params, label):
+    """Each captured step held against the same step run eagerly on the
+    card, on one model: two single-stream engines (one whose steps replay
+    graphs, one whose steps run eagerly) decode the same greedy request,
+    and two schedulers (8 lanes, INT8 pages) the same mix of a direct
+    prefill, rider prompts, a wake-only prompt and steady decode. Tokens
+    must be equal and every step's logits within 1e-3 normalized; the
+    graphs must have replayed the single-stream step and both paged steps."""
+    import gc
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+
+    def norm_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    row = dict(phase="graphs vs eager", geometry=label)
+    engines = [InferenceEngine(model=model, params=params, max_seq_len=512,
+                               decode_chunk=16, prompt_cache=False) for _ in range(2)]
+    engines[1].core.graphs = eager_steps(engines[1].core.graphs)
+    for e in engines:
+        e.core.graphs = Tap(e.core.graphs)
+    outs = [e.generate(list(range(1, 65)), max_completion_tokens=40, temperature=0.0)
+            for e in engines]
+    taps = [e.core.graphs for e in engines]
+    errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
+    row["single"] = dict(tokens_equal=outs[0].token_ids == outs[1].token_ids,
+                         steps=len(errs), max_norm_err=max(errs),
+                         graphs=taps[0].inner.stats())
+    if not (row["single"]["tokens_equal"] and max(errs) < 1e-3
+            and taps[0].inner.replays > 0):
+        raise AssertionError(f"single-stream graphs against eager steps: {row}")
+    del engines, taps
+    scheds = [Scheduler(PagedEngine(model, params, num_lanes=8, num_pages=112,
+                                    max_pages_per_seq=12, kv_quantized=True),
+                        decode_steps=8) for _ in range(2)]
+    scheds[1].engine.graphs = eager_steps(scheds[1].engine.graphs)
+    prompts = [list(range(1, 101)), [5, 6, 7], list(range(40, 60)), [9],
+               list(range(200, 264)), [11, 12]]
+    streams = []
+    for sc in scheds:
+        sc.engine.graphs = Tap(sc.engine.graphs)
+        seqs = [sc.add_request(p, max_new_tokens=24, temperature=0.0) for p in prompts]
+        sc.run_to_completion()
+        streams.append([q.output_ids for q in seqs])
+    taps = [sc.engine.graphs for sc in scheds]
+    errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
+    kinds = sorted({k[0] for k in taps[0].inner.keys})
+    row["paged"] = dict(tokens_equal=streams[0] == streams[1], steps=len(errs),
+                        max_norm_err=max(errs), steps_run=kinds,
+                        graphs=taps[0].inner.stats())
+    if not (row["paged"]["tokens_equal"] and max(errs) < 1e-3
+            and kinds == ["decode", "mixed"] and taps[0].inner.replays > 0):
+        raise AssertionError(f"paged graphs against eager steps: {row}")
+    emit(row)
+    del scheds, taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -748,7 +942,7 @@ def paged_model_check(model, cpu_params, gpu_params):
     for i, (dt, dp, dc, pi, pp, lane, pctx) in enumerate(steps):
         errs.append(compare(f"mixed {i}", lambda d: model.mixed_forward(
             params[d], pools[d], t(dt, d), t(dp, d), t(dc, d), t(tables, d), t(pi, d),
-            t(pp, d), lane, pctx, pf_any=bool((pi >= 0).any()))[0],
+            t(pp, d), t([lane], d), t([pctx], d), pf_any=bool((pi >= 0).any()))[0],
             torch.from_numpy(np.asarray(dp) >= 0)))
     counts = dict(qmc.launch_counts)
     if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
@@ -844,7 +1038,7 @@ def phase_model_1b():
     rpos = ctx[0] + np.arange(cs)
     compare("mixed", lambda d: model.mixed_forward(
         params[d], pools[d], t(tok, d), t(dpos, d), t(dctx, d), t(tables, d),
-        t(rider, d), t(rpos, d), 0, int(ctx[0]) + cs)[0],
+        t(rider, d), t(rpos, d), t([0], d), t([ctx[0] + cs], d))[0],
         torch.from_numpy(dpos >= 0))
     want = [(w, 2 if ("decode" in w or w.endswith("+1")) else 0) for w, _ in k4]
     if k4 != want:
@@ -926,11 +1120,13 @@ def phase_engine(card):
                  device_idle_share=(1 - dev_s / wall) if dev_s else None,
                  top_kernels=[(e.key[:60], e.self_device_time_total / 1e3) for e in top])
 
+    steady = steady_single(engine)
     row = dict(phase="engine", geometry="llama3-8b int4 g64", layers=LAYERS,
                ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
-               decode_tok_s=best, k1_per_decoded_token=launches["K1"] / decoded,
+               decode_tok_s=best, wall_ms_per_token=1e3 / best,
+               k1_per_decoded_token=launches["K1"] / decoded,
                k2_per_prefill=launches["K2"], launches=launches, trace=trace,
-               card=card)
+               steady=steady, graphs=engine.core.graphs.stats(), card=card)
     emit(row)
     return engine, row
 
@@ -1068,7 +1264,7 @@ def phase_paged_engine(model, params, card):
     configurations), with the launch counts of one counted run."""
     import gc
 
-    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, SeqStatus
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
     lanes = 8
@@ -1099,16 +1295,8 @@ def phase_paged_engine(model, params, card):
     if not (steps > 0 and launches["K3"] == LAYERS * steps):
         raise AssertionError(f"paged path: {launches} launches over {steps} steps")
 
-    # one steady chunk under the profiler
-    seqs = [sched.add_request(prompt, max_new_tokens=64, temperature=0.0)
-            for _ in range(lanes)]
-    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
-        sched.step()
-    sched.step()
-    steps0 = engine.device_steps
-    trace = profiled(sched.step)
-    trace["device_steps"] = engine.device_steps - steps0
-    sched.run_to_completion()
+    # steady chunks: un-profiled, CUDA events, sync debug, profiled
+    steady = steady_paged(sched, prompt, lanes)
 
     # TTFT of 512-token prompts admitted while 7 lanes decode: distinct
     # prompts (no prefix-cache hit), then one prompt again (a hit)
@@ -1148,6 +1336,7 @@ def phase_paged_engine(model, params, card):
     for s in busy:
         s.cancelled = True
     sched.run_to_completion()
+    graph_stats = engine.graphs.stats()
     del sched, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1184,8 +1373,8 @@ def phase_paged_engine(model, params, card):
                ttft_under_load_ms=[t * 1e3 for t in ttfts],
                ttft_prefix_hit_ms=ttft_cached * 1e3, ctx2048_tok_s=long_tok_s,
                device_steps=steps, k3_per_step=launches["K3"] / steps,
-               launches=launches, steady_chunk=trace, ttft_trial=ttft_trace,
-               card=card)
+               launches=launches, steady=steady, ttft_trial=ttft_trace,
+               graphs=graph_stats, card=card)
     emit(row)
     return row
 
@@ -1405,8 +1594,11 @@ def phase_serve(snap):
         return secs * 1e3, text
 
     def single(url):
+        # the first request captures the decode-step graphs; the second
+        # replays them
         ms_chat, text = ok(*http("POST", f"{url}/v1/chat/completions", chat), "chat")
         content = json.loads(text)["choices"][0]["message"]["content"]
+        ms_again, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "chat again")
         ms_sse, text = ok(*http("POST", f"{url}/v1/chat/completions",
                                 dict(chat, stream=True)), "chat stream")
         if not (text.rstrip().endswith("data: [DONE]") and "hello" in text):
@@ -1416,11 +1608,11 @@ def phase_serve(snap):
             logit_bias={str(hello): 100.0})), "completion")
         if "hello" not in content or "hello" not in json.loads(text)["choices"][0]["text"]:
             raise AssertionError(f"replies without the forced word: {content!r}, {text}")
-        return dict(chat_ms=ms_chat, chat_sse_ms=ms_sse, completion_ms=ms_cmp,
-                    content=content)
+        return dict(chat_ms=ms_chat, chat_again_ms=ms_again, chat_sse_ms=ms_sse,
+                    completion_ms=ms_cmp, content=content)
 
     def batched(url):
-        ok(*http("POST", f"{url}/v1/chat/completions", chat), "warm-up chat")
+        ms_first, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "first chat")
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             many = list(pool.map(lambda _: ok(*http(
@@ -1432,8 +1624,8 @@ def phase_serve(snap):
         two = [c["message"]["content"] for c in json.loads(text)["choices"]]
         if len(set(texts)) != 1 or "hello" not in texts[0] or two != texts[:1] * 2:
             raise AssertionError(f"batched replies differ: {texts}, n=2 {two}")
-        return dict(concurrent_ms=[ms for ms, _ in many], concurrent_wall_ms=wall,
-                    n2_ms=ms_n2, content=texts[0])
+        return dict(first_chat_ms=ms_first, concurrent_ms=[ms for ms, _ in many],
+                    concurrent_wall_ms=wall, n2_ms=ms_n2, content=texts[0])
 
     rows = []
     for env, ask in (({}, single),
@@ -1499,16 +1691,20 @@ def phase_engine_1b(snap, card):
         best = max(best, n / (time.perf_counter() - t1))
     trace = profiled(lambda: engine.generate([p + 3 for p in prompt],
                                              max_completion_tokens=33, temperature=0.0))
+    steady = steady_single(engine)
     row = dict(phase="engine", geometry="llama3.2-1b int4 g64 (snapshot)",
                layers=LAYERS1, load_s=load_s, quantized_weight_bytes=wbytes,
                ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
-               decode_tok_s=best, k4_per_decoded_token=launches["K4"] / decoded,
+               decode_tok_s=best, wall_ms_per_token=1e3 / best,
+               k4_per_decoded_token=launches["K4"] / decoded,
                k1_per_decoded_token=launches["K1"] / decoded,
-               k2_per_prefill=launches["K2"], launches=launches, trace=trace, card=card)
+               k2_per_prefill=launches["K2"], launches=launches, trace=trace,
+               steady=steady, graphs=engine.core.graphs.stats(), card=card)
     emit(row)
+    model, params = engine.model, engine.params
     del engine
     torch.cuda.empty_cache()
-    return row
+    return row, (model, params)
 
 
 def phase_paged_engine_1b(snap, card):
@@ -1521,7 +1717,6 @@ def phase_paged_engine_1b(snap, card):
     import gc
 
     from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
-    from pie_tpu_torch.engine.scheduler import SeqStatus
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
     lanes = 8
@@ -1559,15 +1754,7 @@ def phase_paged_engine_1b(snap, card):
             and launches["K3"] == LAYERS1 * steps):
         raise AssertionError(f"1B paged path: {launches} over {steps} steps "
                              f"({mixed_steps} mixed)")
-    seqs = [sched.add_request(prompt, max_new_tokens=64, temperature=0.0)
-            for _ in range(lanes)]
-    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
-        sched.step()
-    sched.step()
-    steps0 = engine.device_steps
-    trace = profiled(sched.step)
-    trace["device_steps"] = engine.device_steps - steps0
-    sched.run_to_completion()
+    steady = steady_paged(sched, prompt, lanes)
     busy = [sched.add_request(prompt, max_new_tokens=400, temperature=0.0)
             for _ in range(lanes - 1)]
     while any(not s.output_ids for s in busy):
@@ -1589,6 +1776,7 @@ def phase_paged_engine_1b(snap, card):
     for s in busy:
         s.cancelled = True
     sched.run_to_completion()
+    graph_stats = engine.graphs.stats()
     del engine.model.mixed_forward
     service.shutdown()
     del sched, engine, service
@@ -1599,7 +1787,7 @@ def phase_paged_engine_1b(snap, card):
                ttft_under_load_p50_ms=ttfts[1] * 1e3,
                ttft_under_load_ms=[t * 1e3 for t in ttfts], device_steps=steps,
                mixed_steps=mixed_steps, k4_per_decode_step=launches["K4"] / decode_steps,
-               launches=launches, steady_chunk=trace, card=card)
+               launches=launches, steady=steady, graphs=graph_stats, card=card)
     emit(row)
     return row
 
@@ -1643,6 +1831,8 @@ def main() -> int:
     engine, eng = timed("engine 8B", phase_engine, card)
     timed("requests 8B", phase_requests, engine)
     paged = timed("paged engine 8B", phase_paged_engine, engine.model, engine.params, card)
+    timed("graphs vs eager 8B", phase_graphs, engine.model, engine.params,
+          "llama3-8b int4 g64")
     timed("batched requests 8B", phase_batched_requests, engine.model, engine.params)
     del engine
     torch.cuda.empty_cache()
@@ -1651,7 +1841,11 @@ def main() -> int:
         snap = Path(tmp)
         timed("snapshot 1B", write_snapshot_1b, snap)
         timed("serve 1B", phase_serve, snap)
-        eng1b = timed("engine 1B", phase_engine_1b, snap, card)
+        eng1b, model1b = timed("engine 1B", phase_engine_1b, snap, card)
+        timed("graphs vs eager 1B", phase_graphs, *model1b,
+              "llama3.2-1b int4 g64 (snapshot)")
+        del model1b
+        torch.cuda.empty_cache()
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
 
     summary = []

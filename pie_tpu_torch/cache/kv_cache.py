@@ -7,9 +7,10 @@ and ``length [B]``; a window makes the slots rotate (``slot = pos % S``).
 Unlike the JAX containers the k/v buffers are updated IN PLACE by the model
 forward (no buffer donation exists here). The small metadata tensors stay
 functional: ``advance``/``trim_to`` return a new container that shares the
-k/v buffers. ``trim_capacity`` returns views into the same buffers, so the
-model's in-place writes through a trimmed view land in the full cache, and
-``merge_trimmed`` only has to carry the metadata back.
+k/v buffers, and the decode step of ``engine/core.py`` copies the new
+metadata back into the static buffers it was captured over.
+``trim_capacity`` returns views into the same buffers, so the model's
+in-place writes through a trimmed view land in the full cache.
 """
 
 from __future__ import annotations
@@ -24,10 +25,18 @@ def scatter_drop(target: torch.Tensor, slots: torch.Tensor,
                  values: torch.Tensor) -> None:
     """``target[b, slots[b, t]] = values[b, t]`` in place along dim 1,
     dropping out-of-range slots (JAX ``.at[...].set(mode="drop")``).
-    The boolean mask makes indexing read a count back to the host: used by
-    the rotating and INT8 caches, not by the contiguous bf16 cache."""
+    Used by the rotating and INT8 caches, not by the contiguous bf16 cache.
+    With one write per row (a decode step) no two writes meet, so a dropped
+    one writes back the value already there and nothing is read back to
+    the host; with more, the boolean mask makes indexing read a count back
+    (the eager prefill)."""
     ok = (slots >= 0) & (slots < target.shape[1])
     rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    if slots.shape[1] == 1:
+        at = torch.clamp(slots, 0, target.shape[1] - 1).long()
+        keep = ok.reshape(ok.shape + (1,) * (values.dim() - 2))
+        target[rows, at] = torch.where(keep, values.to(target.dtype), target[rows, at])
+        return
     target[rows.expand_as(slots)[ok], slots[ok]] = values[ok]
 
 
@@ -69,12 +78,6 @@ class KVCache:
             self, k=self.k[:, :, :bucket], v=self.v[:, :, :bucket],
             slot_positions=self.slot_positions[:, :bucket],
         )
-
-    def merge_trimmed(self, t: "KVCache") -> "KVCache":
-        """k/v were written in place through the view; carry the metadata."""
-        sp = self.slot_positions.clone()
-        sp[:, : t.capacity] = t.slot_positions
-        return dataclasses.replace(self, slot_positions=sp, length=t.length)
 
     def write_slot(self, positions: torch.Tensor) -> torch.Tensor:
         if self.window is None:
@@ -174,7 +177,6 @@ class QuantizedKVCache:
             slot_positions=self.slot_positions[:, :bucket],
         )
 
-    merge_trimmed = KVCache.merge_trimmed
     write_slot = KVCache.write_slot
     advance = KVCache.advance
     trim_to = KVCache.trim_to
@@ -208,7 +210,9 @@ def make_kv_cache(
 
 def maybe_quantize(cache, threshold_tokens: int = 4096):
     """Convert a bf16 cache to INT8 storage once any sequence crosses the
-    token threshold."""
+    token threshold. Reads the cache's length back to the host: the engine
+    calls it between requests, never inside a decode step (a captured
+    graph); the INT8 cache it returns replaces the engine's static one."""
     if isinstance(cache, QuantizedKVCache):
         return cache
     if int(cache.length.max()) < threshold_tokens:

@@ -5,7 +5,10 @@ server can serve many concurrent requests with continuous batching.
 Port of the JAX package's ``pie_tpu/engine/async_engine.py`` with its
 Python scheduler. Requests from any thread go through a thread-safe queue
 into the shared ``Scheduler``; tokens stream back per request; a checkpoint
-(``model_path``) loads through ``models/loader.py``. Not ported yet, and
+(``model_path``) loads through ``models/loader.py``. Only the scheduler
+thread touches CUDA: it runs every device program, so the step graphs are
+captured there (a request thread only queues and reads host objects, and
+``capture_error_mode="thread_local"`` would let it touch CUDA anyway). Not ported yet, and
 refused with ``InferenceError``: the native scheduler
 (``scheduler_impl="native"``, ROADMAP A7), image inputs (A9) and
 constrained decoding (A8).
@@ -125,7 +128,7 @@ class BatchedInferenceEngine:
                 # fail every sequence, freeing its lane and pages, so its
                 # caller unblocks and the engine goes on serving
                 sched._inflight.clear()
-                sched._dev_state = None
+                sched._chained = False
                 for seq in list(sched.running.values()) + list(sched.waiting):
                     sched._finish(seq, "error: scheduler failure")
                 sched.waiting.clear()

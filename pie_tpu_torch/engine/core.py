@@ -1,22 +1,38 @@
 """EngineCore: prefill and chunked decode for one model + batch geometry.
 
 Port of the JAX package's ``pie_tpu/engine/core.py``. The compiled
-``lax.scan`` over decode steps becomes a Python loop of ``num_steps`` model
-calls: PyTorch queues the device work of a whole chunk without waiting for
-it, and the host reads the chunk's tokens once, when it drains it. Per-
-sequence sampling parameters, penalties and stop tokens are tensors, as in
-the JAX package.
+``lax.scan`` over decode steps becomes ``num_steps`` runs of one decode
+step through ``StepGraphs`` (``engine/graphs.py``): on the card a CUDA
+graph per static key (KV bucket, sampler kind, logprobs, penalties on,
+bias on), captured at the key's first use and replayed after; on the CPU
+the same step function, called directly. The step reads and writes the
+core's one ``DecodeState``, whose tensors are static buffers
+(``new_state`` resets them in place); a chunk's sampling, penalty, bias
+and stop inputs are copied into static buffers before its first step.
+PyTorch queues a chunk's device work without waiting for it, and the host
+reads the chunk's tokens once, when it drains it. Per-sequence sampling
+parameters, penalties and stop tokens are tensors, as in the JAX package.
+
+The step covers the contiguous KV cache in bf16 (the single-stream
+default) and in INT8, whose one-token writes take ``scatter_drop``'s path
+without a host read. ``maybe_quantize`` reads the cache's length on the
+host: it runs between requests, never inside a step, and the INT8 cache it
+makes replaces the static one through ``set_cache`` (the graphs over the
+old one go). The prefill stays eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
-from pie_tpu_torch.cache.kv_cache import make_kv_cache
+from pie_tpu_torch.cache.kv_cache import KVCache, QuantizedKVCache, make_kv_cache
+from pie_tpu_torch.engine.graphs import StepGraphs
 from pie_tpu_torch.ops.sampling import (
+    SAMPLER_KINDS,
     SamplingParams,
     apply_logit_bias,
     dry_penalty,
@@ -71,7 +87,9 @@ class PenaltyParams:
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
-    """Carried state of the decode loop (one slot per batch lane)."""
+    """Carried state of the decode loop (one slot per batch lane). The
+    core's state is updated in place: ``_prefill`` and ``_decode`` return
+    the very state they were given, which a later call changes again."""
 
     cache: object
     last_token: torch.Tensor  # [B] int32
@@ -79,6 +97,25 @@ class DecodeState:
     history: torch.Tensor  # [B, H] recent tokens for penalties (-1 pad)
     done: torch.Tensor  # [B] bool
     key: torch.Generator
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepInputs:
+    """Static buffers of a chunk's per-sequence inputs."""
+
+    sampling: SamplingParams
+    penalties: PenaltyParams
+    bias_ids: torch.Tensor  # [B, NB] int32 (-1 pad)
+    bias_vals: torch.Tensor  # [B, NB] f32
+    stop_ids: torch.Tensor  # [NS] int32 (-1 pad)
+
+
+def _copy_fields(dst, src) -> None:
+    """Copy every tensor field of dataclass ``src`` into ``dst``'s."""
+    for f in dataclasses.fields(dst):
+        d = getattr(dst, f.name)
+        if isinstance(d, torch.Tensor):
+            d.copy_(getattr(src, f.name))
 
 
 class EngineCore:
@@ -106,8 +143,29 @@ class EngineCore:
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
         self.logprobs_k = logprobs_k
+        self._gen = torch.Generator(device=self.device)
+        #: the decode step's graphs (jax.jit's cache of compiled programs)
+        self.graphs = StepGraphs(self.device, self._gen)
+        self._state: Optional[DecodeState] = None
+        # (bias width, stop width) -> static chunk inputs
+        self._inputs: dict = {}
 
     def new_state(self, seed: int = 0) -> DecodeState:
+        """The core's decode state, reset, with its generator seeded. The
+        first call makes the static buffers; later calls reset them in
+        place, so the graphs captured over them stay valid. ``_prefill``
+        and ``_decode`` take and return this very state."""
+        self._gen.manual_seed(seed)
+        st = self._state
+        kind = QuantizedKVCache if self.kv_quantized else KVCache
+        if st is not None and type(st.cache) is kind:
+            st.cache.slot_positions.fill_(-1)
+            st.cache.length.zero_()
+            st.last_token.zero_()
+            st.lengths.zero_()
+            st.history.fill_(PAD_TOKEN)
+            st.done.fill_(True)
+            return st
         cfg = self.model.config
         cache = make_kv_cache(
             cfg.num_hidden_layers, self.batch_size, self.max_seq_len,
@@ -116,29 +174,88 @@ class EngineCore:
             device=self.device,
         )
         b, dev = self.batch_size, self.device
-        return DecodeState(
+        if st is not None:  # the INT8 cache goes: so do its graphs
+            self.graphs = StepGraphs(self.device, self._gen)
+        self._state = DecodeState(
             cache=cache,
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             lengths=torch.zeros((b,), dtype=torch.int32, device=dev),
             history=torch.full((b, self.history_len), PAD_TOKEN,
                                dtype=torch.int32, device=dev),
             done=torch.ones((b,), dtype=torch.bool, device=dev),
-            key=torch.Generator(device=dev).manual_seed(seed),
+            key=self._gen,
         )
+        return self._state
+
+    def set_cache(self, cache) -> DecodeState:
+        """Put ``cache`` (a prompt-cache load, an INT8 conversion) in the
+        static state: copied in place when it matches the static cache in
+        kind, shapes and dtypes, so the graphs stay valid; else it becomes
+        the static cache and the graphs over the old one go."""
+        st = self._adopt(self._state)
+        old = st.cache
+        tensors = [f.name for f in dataclasses.fields(old)
+                   if isinstance(getattr(old, f.name), torch.Tensor)]
+        if type(cache) is type(old) and all(
+                getattr(cache, n).shape == getattr(old, n).shape
+                and getattr(cache, n).dtype == getattr(old, n).dtype
+                for n in tensors):
+            for n in tensors:
+                getattr(old, n).copy_(getattr(cache, n))
+        else:
+            self._state = st = dataclasses.replace(st, cache=cache)
+            self.graphs = StepGraphs(self.device, self._gen)
+        return st
+
+    def _adopt(self, state: DecodeState) -> DecodeState:
+        """``state``, checked to be the core's static state."""
+        if state is None or state is not self._state:
+            raise ValueError("not this core's decode state: new_state() makes "
+                             "it, set_cache() swaps its cache")
+        return state
+
+    def _step_inputs(self, sampling, penalties, bias_ids, bias_vals,
+                     stop_ids) -> _StepInputs:
+        """The static input buffers of this width, holding these values
+        (copied, queued on the stream)."""
+        shape = (bias_ids.shape[1], stop_ids.shape[0])
+        inp = self._inputs.get(shape)
+        if inp is None:
+            inp = self._inputs[shape] = _StepInputs(
+                sampling=SamplingParams(**{
+                    f.name: getattr(sampling, f.name).clone()
+                    for f in dataclasses.fields(sampling)}),
+                penalties=PenaltyParams(**{
+                    f.name: getattr(penalties, f.name).clone()
+                    for f in dataclasses.fields(penalties)}),
+                bias_ids=bias_ids.clone(), bias_vals=bias_vals.clone(),
+                stop_ids=stop_ids.clone(),
+            )
+            return inp
+        _copy_fields(inp.sampling, sampling)
+        _copy_fields(inp.penalties, penalties)
+        inp.bias_ids.copy_(bias_ids)
+        inp.bias_vals.copy_(bias_vals)
+        inp.stop_ids.copy_(stop_ids)
+        return inp
 
     # ------------------------------------------------------------------
 
     def _process_logits(self, logits, history, penalties, bias_ids,
                         bias_vals, allowed_mask):
-        logits = apply_logit_bias(logits, bias_ids, bias_vals)
-        logits = repetition_penalty(logits, history, penalties.repetition)
-        logits = presence_frequency_penalty(
-            logits, history, penalties.presence, penalties.frequency
-        )
-        logits = dry_penalty(
-            logits, history, penalties.dry_multiplier, penalties.dry_base,
-            penalties.dry_allowed,
-        )
+        """Bias, then the penalties; ``penalties`` or ``bias_ids`` None
+        leaves that processor out (with neutral values it changes nothing)."""
+        if bias_ids is not None:
+            logits = apply_logit_bias(logits, bias_ids, bias_vals)
+        if penalties is not None:
+            logits = repetition_penalty(logits, history, penalties.repetition)
+            logits = presence_frequency_penalty(
+                logits, history, penalties.presence, penalties.frequency
+            )
+            logits = dry_penalty(
+                logits, history, penalties.dry_multiplier, penalties.dry_base,
+                penalties.dry_allowed,
+            )
         if allowed_mask is not None:
             logits = torch.where(allowed_mask, logits,
                                  torch.full_like(logits, -1e30))
@@ -170,12 +287,15 @@ class EngineCore:
         return_logprobs: bool = False,
         sampler_kind: str = "auto",
     ):
-        """Run the prompt through the model, sample the first new token."""
+        """Run the prompt through the model, sample the first new token.
+        Eager on every device; writes the result into the static state.
+        Returns (state, token, aux) with ``token`` a tensor of its own."""
+        st = self._adopt(state)
         b, t = input_ids.shape
         dev = input_ids.device
         positions = first_pos[:, None] + torch.arange(t, dtype=torch.int32,
                                                       device=dev)[None, :]
-        cache = state.cache.advance(first_pos, t, valid_lens=prompt_lens)
+        cache = st.cache.advance(first_pos, t, valid_lens=prompt_lens)
         logits, cache = self.model(params, input_ids, cache, positions,
                                    valid_lens=prompt_lens)
         cache = cache.trim_to(first_pos + prompt_lens)
@@ -198,19 +318,52 @@ class EngineCore:
 
         proc = self._process_logits(last_logits, hist, penalties, bias_ids,
                                     bias_vals, allowed_mask)
-        token = sample(proc, sampling, state.key, kind=sampler_kind)
-        new_state = DecodeState(
-            cache=cache,
-            last_token=token,
-            lengths=(first_pos + prompt_lens).to(torch.int32),
-            history=self._push_history(
-                hist, token, torch.ones((b,), dtype=torch.bool, device=dev)
-            ),
-            done=torch.zeros((b,), dtype=torch.bool, device=dev),
-            key=state.key,
-        )
+        token = sample(proc, sampling, st.key, kind=sampler_kind)
+        st.cache.slot_positions.copy_(cache.slot_positions)
+        st.cache.length.copy_(cache.length)
+        st.last_token.copy_(token)
+        st.lengths.copy_(first_pos + prompt_lens)
+        st.history.copy_(self._push_history(
+            hist, token, torch.ones((b,), dtype=torch.bool, device=dev)))
+        st.done.fill_(False)
         aux = self._logprobs(proc, token) if return_logprobs else None
-        return new_state, token, aux
+        return st, token, aux
+
+    def _decode_step(self, params, st: DecodeState, inp: _StepInputs,
+                     bucket: int, sampler_kind: str, return_logprobs: bool,
+                     use_penalties: bool, use_bias: bool):
+        """One decode step over the static state (the graph's body): done
+        lanes emit PAD and freeze. Returns (emitted [B], processed logits
+        [B, V]) plus (chosen, top values, top ids) with logprobs."""
+        full = st.cache
+        cache = full.trim_capacity(bucket) if bucket < full.capacity else full
+        active = ~st.done
+        adv = cache.advance(st.lengths, 1)
+        logits, _ = self.model(params, st.last_token[:, None], adv,
+                               st.lengths[:, None])
+        proc = self._process_logits(
+            logits[:, 0], st.history, inp.penalties if use_penalties else None,
+            inp.bias_ids if use_bias else None, inp.bias_vals, None)
+        token = sample(proc, inp.sampling, st.key, kind=sampler_kind)
+        token = torch.where(active, token, st.last_token)
+        # stop ids are -1 padded; real tokens are >= 0 so pads never match
+        hit_stop = (token[:, None] == inp.stop_ids[None, :]).any(dim=1)
+        emitted = torch.where(active, token, torch.full_like(token, PAD_TOKEN))
+        out = (emitted, proc)
+        if return_logprobs:
+            out += self._logprobs(proc, token)
+        lengths = torch.where(active, st.lengths + 1, st.lengths)
+        history = self._push_history(st.history, token, active)
+        done = st.done | hit_stop
+        # carry the state into the static buffers (k / v were written in
+        # place through the bucket's view)
+        cache.slot_positions.copy_(adv.slot_positions)
+        full.length.copy_(adv.length)
+        st.last_token.copy_(token)
+        st.lengths.copy_(lengths)
+        st.history.copy_(history)
+        st.done.copy_(done)
+        return out
 
     @torch.no_grad()
     def _decode(
@@ -222,63 +375,48 @@ class EngineCore:
         bias_ids,
         bias_vals,
         stop_ids,  # [NS] int32, -1 padded
-        allowed_mask=None,
         num_steps: int = 8,
         return_logprobs: bool = False,
-        sampler_kind: str = "auto",
+        sampler_kind: str = "greedy",
         kv_bucket: int = 0,
+        use_penalties: bool = True,
+        use_bias: bool = True,
     ):
         """``num_steps`` decode steps; done lanes emit PAD and freeze.
 
-        kv_bucket: the chunk attends over a [.., :kv_bucket] view of the
-        cache (every position it touches is < kv_bucket), then merges the
-        metadata back. Returns (state, outs) with outs[0] the emitted
-        tokens [num_steps, B] (+ chosen, top values, top ids with logprobs).
+        kv_bucket: every step attends over a [.., :kv_bucket] view of the
+        cache (every position the chunk touches is < kv_bucket).
+        sampler_kind is resolved on the host ("greedy" / "categorical" /
+        "filtered"); use_penalties / use_bias False leave those processors
+        out of the step. Every step draws its random numbers, whether or
+        not a lane is still live (as the JAX scan splits its key on every
+        step). Returns (state, outs) with outs[0] the emitted tokens
+        [num_steps, B] (+ chosen, top values, top ids with logprobs): this
+        chunk's own tensors, which later chunks leave alone.
         """
-        full_cache = None
-        cache0 = state.cache
-        if (kv_bucket and getattr(cache0, "window", None) is None
-                and kv_bucket < cache0.capacity):
-            full_cache = cache0
-            state = dataclasses.replace(state, cache=cache0.trim_capacity(kv_bucket))
-
-        outs = []
-        for _ in range(num_steps):
-            active = ~state.done
-            cache = state.cache.advance(state.lengths, 1)
-            logits, cache = self.model(params, state.last_token[:, None], cache,
-                                       state.lengths[:, None])
-            logits = logits[:, 0]
-            proc = self._process_logits(logits, state.history, penalties,
-                                        bias_ids, bias_vals, allowed_mask)
-            if sampler_kind == "greedy":
-                token = sample(proc, sampling, state.key, kind=sampler_kind)
-            elif bool(active.any()):
-                # random draws only while some lane samples: a speculative
-                # chunk after every lane froze leaves the generator as it
-                # was (the host reads the flags here, off the greedy path)
-                token = sample(proc, sampling, state.key, kind=sampler_kind)
-            else:
-                token = state.last_token
-            token = torch.where(active, token, state.last_token)
-            # stop ids are -1 padded; real tokens are >= 0 so pads never match
-            hit_stop = (token[:, None] == stop_ids[None, :]).any(dim=1)
-            emitted = torch.where(active, token, torch.full_like(token, PAD_TOKEN))
-            state = DecodeState(
-                cache=cache,
-                last_token=token,
-                lengths=torch.where(active, state.lengths + 1, state.lengths),
-                history=self._push_history(state.history, token, active),
-                done=state.done | hit_stop,
-                key=state.key,
-            )
-            if return_logprobs:
-                outs.append((emitted, *self._logprobs(proc, token)))
-            else:
-                outs.append((emitted,))
-        stacked = tuple(torch.stack(col) for col in zip(*outs))
-        if full_cache is not None:
-            state = dataclasses.replace(
-                state, cache=full_cache.merge_trimmed(state.cache)
-            )
-        return state, stacked
+        if sampler_kind not in SAMPLER_KINDS:
+            raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host "
+                             f"(one of {sorted(SAMPLER_KINDS)})")
+        st = self._adopt(state)
+        inp = self._step_inputs(sampling, penalties, bias_ids, bias_vals, stop_ids)
+        bucket = st.cache.capacity
+        if kv_bucket and getattr(st.cache, "window", None) is None:
+            bucket = min(kv_bucket, bucket)
+        key = ("decode", bucket, sampler_kind, return_logprobs, use_penalties,
+               use_bias, bias_ids.shape[1], stop_ids.shape[0],
+               id(params))
+        step = functools.partial(self._decode_step, params, st, inp, bucket,
+                                 sampler_kind, return_logprobs, use_penalties,
+                                 use_bias)
+        b, k, dev = self.batch_size, self.logprobs_k, self.device
+        outs = [torch.empty((num_steps, b), dtype=torch.int32, device=dev)]
+        if return_logprobs:
+            outs += [torch.empty((num_steps, b), dtype=torch.float32, device=dev),
+                     torch.empty((num_steps, b, k), dtype=torch.float32, device=dev),
+                     torch.empty((num_steps, b, k), dtype=torch.int32, device=dev)]
+        for s in range(num_steps):
+            res = self.graphs(key, step, samples=sampler_kind != "greedy")
+            outs[0][s].copy_(res[0])
+            for o, r in zip(outs[1:], res[2:]):
+                o[s].copy_(r)
+        return st, tuple(outs)

@@ -21,7 +21,7 @@ import torch
 
 from pie_tpu_torch.engine.core import PAD_TOKEN, EngineCore, PenaltyParams
 from pie_tpu_torch.ops.sampling import SamplingParams, sampler_kind_for
-from pie_tpu_torch.utils.device import resolve_device
+from pie_tpu_torch.utils.device import host_tensor, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +64,15 @@ def _decode_steps(chunk: int, remaining: int) -> int:
     while steps > 8 and steps > remaining:
         steps //= 2
     return steps
+
+
+def _pow2_width(n: int) -> int:
+    """The width of a padded per-request list of ``n`` entries: a power of
+    two, at least 8."""
+    w = 8
+    while w < n:
+        w *= 2
+    return w
 
 
 def _bucket(n: int, buckets=PREFILL_BUCKETS) -> int:
@@ -128,7 +137,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _ids(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+        return host_tensor(np.asarray(a, np.int32), self.device)
 
     def _full(self, v: int) -> torch.Tensor:
         return torch.full((1,), v, dtype=torch.int32, device=self.device)
@@ -161,13 +170,13 @@ class InferenceEngine:
         logit_bias = kw.get("logit_bias")
         if not logit_bias:
             return self._empty_bias
-        n = max(8, len(logit_bias))
+        n = _pow2_width(len(logit_bias))  # one decode graph per width
         ids = np.full((1, n), PAD_TOKEN, np.int32)
         vals = np.zeros((1, n), np.float32)
         for i, (tid, b) in enumerate(sorted(logit_bias.items())):
             ids[0, i] = int(tid)
             vals[0, i] = float(b)
-        return self._ids(ids), torch.as_tensor(vals, device=self.device)
+        return self._ids(ids), host_tensor(vals, self.device)
 
     def _prefill_bucket(self, n: int) -> int:
         return _bucket(
@@ -266,7 +275,7 @@ class InferenceEngine:
 
             qc = maybe_quantize(self.state.cache, self.kv_quantize_threshold)
             if qc is not self.state.cache:
-                self.state = dataclasses.replace(self.state, cache=qc)
+                self.state = self.core.set_cache(qc)
         # prompt-cache prefix reuse: prefill only the un-cached suffix
         first_pos = 0
         if self.prompt_cache is not None:
@@ -282,7 +291,7 @@ class InferenceEngine:
                     hit = None
                 if hit is not None and self._cache_compatible(hit[0]):
                     cache, computed = hit
-                    self.state = dataclasses.replace(self.state, cache=cache)
+                    self.state = self.core.set_cache(cache)
                     self.prompt_cache.update(computed)
                     first_pos = self.prompt_cache.reuse_prefix(prompt_ids)
         suffix = prompt_ids[first_pos:]
@@ -299,7 +308,15 @@ class InferenceEngine:
             kw.get("temperature", 1.0), kw.get("top_p", 1.0),
             kw.get("min_p", 0.0), kw.get("top_k", -1),
         )
-        stop = self._ids(list(stop_token_ids) or [PAD_TOKEN])
+        stop = np.full((_pow2_width(len(stop_token_ids)),), PAD_TOKEN, np.int32)
+        stop[:len(stop_token_ids)] = list(stop_token_ids)
+        stop = self._ids(stop)
+        # penalties / bias on: host values, static arguments of the step
+        use_pen = (float(kw.get("repetition_penalty", 1.0)) != 1.0
+                   or float(kw.get("presence_penalty", 0.0)) != 0.0
+                   or float(kw.get("frequency_penalty", 0.0)) != 0.0
+                   or float(kw.get("dry_multiplier", 0.0)) > 0.0)
+        use_bias = bool(kw.get("logit_bias"))
 
         state, token, aux = self.core._prefill(
             self.params, self.state, self._ids(ids), self._full(slen),
@@ -349,7 +366,10 @@ class InferenceEngine:
         def dispatch_next():
             """Queue one more decode chunk: PyTorch returns before the
             device has run it, so the device works on chunk k+1 while the
-            host drains chunk k."""
+            host drains chunk k. The chunk's inputs were queued to the
+            card already (pinned copies); ``_decode`` copies them into its
+            static buffers on the stream, and the chunk's tokens land in
+            tensors of its own, which later chunks leave alone."""
             nonlocal state, planned
             steps = _decode_steps(self.decode_chunk, max_tokens - planned)
             # capacity-bucketed attention: round the positions this chunk
@@ -362,7 +382,8 @@ class InferenceEngine:
             state, outs = self.core._decode(
                 self.params, state, sampling, penalties, bias_ids, bias_vals,
                 stop, num_steps=steps, return_logprobs=logprobs,
-                sampler_kind=skind, kv_bucket=kvb,
+                sampler_kind=skind, kv_bucket=kvb, use_penalties=use_pen,
+                use_bias=use_bias,
             )
             planned += steps
             pending.append(outs)

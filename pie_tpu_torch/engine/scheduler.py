@@ -12,14 +12,21 @@ lanes plus the rider, one pass over the weights); a step without one runs
 ``paged_forward`` at M = lanes. The JAX package compiles one program per
 chunk and therefore picks one of the two for the whole chunk; here the
 choice is host data per step, so rider-free steps of a mixed chunk take
-the decode path. Long prompt bodies prefill through dedicated programs
-(``PagedEngine._prefill``) before the chunk. In steady decode the next
-chunk is dispatched on the previous chunk's device state before that
+the decode path. Each of the two steps is a function over the engine's
+static buffers (lane state, block tables, request parameters, the step's
+rider slice) run through ``StepGraphs`` (``engine/graphs.py``): on the card
+a CUDA graph per (step, sampler kind, penalties on, bias on), captured at
+its first use and replayed after; on the CPU the same function, called
+directly. Long prompt bodies prefill through dedicated programs
+(``PagedEngine._prefill``, eager) before the chunk. In steady decode the
+next chunk is dispatched on the previous chunk's device state before that
 chunk's tokens are read (pipelining): nothing inside a chunk reads the
-device, so PyTorch queues chunk k+1 while the host drains chunk k.
+device, so PyTorch queues chunk k+1 while the host drains chunk k, and
+each chunk's tokens land in a tensor of its own.
 
 The pool is written in place; inputs go to the card through pinned host
-buffers (a copy from pageable memory would wait for the device). Not
+buffers (a copy from pageable memory would wait for the device), copied
+into the static buffers on the stream, outside any graph. Not
 ported: constrained decoding, image prompts and M-RoPE (requests carrying
 them are refused by ``BatchedInferenceEngine``), and the native
 scheduler's ``_decode_impl`` / ``_sample_first_impl`` (ROADMAP A7).
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import itertools
 import logging
 from collections import deque
@@ -44,7 +52,9 @@ from pie_tpu_torch.cache.paged import (
     PrefixStore,
 )
 from pie_tpu_torch.engine.core import PAD_TOKEN, PenaltyParams
+from pie_tpu_torch.engine.graphs import StepGraphs
 from pie_tpu_torch.ops.sampling import (
+    SAMPLER_KINDS,
     SamplingParams,
     apply_logit_bias,
     dry_penalty,
@@ -53,7 +63,7 @@ from pie_tpu_torch.ops.sampling import (
     sample,
     sampler_kind_for,
 )
-from pie_tpu_torch.utils.device import resolve_device
+from pie_tpu_torch.utils.device import host_tensor, resolve_device, upload
 
 logger = logging.getLogger(__name__)
 
@@ -120,7 +130,8 @@ class Sequence:
 
 @dataclasses.dataclass
 class LaneState:
-    """Per-lane decode state carried from step to step on the device."""
+    """Per-lane decode state carried from step to step on the device (the
+    engine's static buffers, updated in place by every step)."""
 
     last: torch.Tensor  # [B] int32 next input token
     ctx: torch.Tensor  # [B] int32 tokens in the pool
@@ -163,8 +174,9 @@ class WakePlan:
 
 
 class PagedEngine:
-    """The device side of the scheduler: the pool, the parameters and the
-    two programs (direct prefill, chunk)."""
+    """The device side of the scheduler: the pool, the parameters, the
+    static lane buffers and the device programs (direct prefill, and the
+    rider-free and mixed steps a chunk runs through ``StepGraphs``)."""
 
     def __init__(
         self,
@@ -183,7 +195,7 @@ class PagedEngine:
         seed: int = 0,
         device="cuda",
     ):
-        self.device = resolve_device(device)
+        self.device = dev = resolve_device(device)
         cfg = model.config
         self.model = model
         self.params = params
@@ -193,20 +205,41 @@ class PagedEngine:
         self.rider_width = rider_width
         self.pool = PagedKVPool.create(
             cfg.num_hidden_layers, num_pages, cfg.num_key_value_heads,
-            cfg.resolved_head_dim, kv_dtype, kv_quantized, device=self.device,
+            cfg.resolved_head_dim, kv_dtype, kv_quantized, device=dev,
         )
-        self.key = torch.Generator(device=self.device).manual_seed(seed)
+        self.key = torch.Generator(device=dev).manual_seed(seed)
+        #: the steps' graphs (jax.jit's cache of compiled programs)
+        self.graphs = StepGraphs(dev, self.key)
         #: device steps dispatched (decode or mixed; a direct prefill is
         #: not one): each runs the paged attention once per layer
         self.device_steps = 0
+        # the static buffers the steps read and write: lane state, block
+        # tables, request parameters, and one step's rider slice packed as
+        # [ids (Cs) | positions (Cs) | lane | ctx]
+        b, i32 = num_lanes, torch.int32
+        self.lanes = LaneState(
+            last=torch.zeros((b,), dtype=i32, device=dev),
+            ctx=torch.zeros((b,), dtype=i32, device=dev),
+            hist=torch.full((b, HISTORY_LEN), PAD_TOKEN, dtype=i32, device=dev),
+            done=torch.ones((b,), dtype=torch.bool, device=dev),
+            prod=torch.zeros((b,), dtype=i32, device=dev),
+        )
+        self.block_tables = torch.full((b, max_pages_per_seq), -1, dtype=i32,
+                                       device=dev)
+        self.lane_params = LaneParams(
+            max_new=torch.ones((b,), dtype=i32, device=dev),
+            stop_ids=torch.full((b, MAX_STOP_IDS), -1, dtype=i32, device=dev),
+            sampling=SamplingParams.make(b, device=dev),
+            pen=PenaltyParams.make(b, device=dev),
+            bias_ids=torch.full((b, MAX_BIAS), -1, dtype=i32, device=dev),
+            bias_vals=torch.zeros((b, MAX_BIAS), dtype=torch.float32, device=dev),
+        )
+        self._rider = torch.full((2 * rider_width + 2,), -1, dtype=i32, device=dev)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A copy of host array ``a`` on the engine's device, queued without
         waiting for the device (pinned staging buffer)."""
-        t = torch.from_numpy(np.array(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return host_tensor(a, self.device)
 
     # -- device programs -------------------------------------------------
 
@@ -214,85 +247,111 @@ class PagedEngine:
     def _prefill(self, params, ids, positions, block_table, context_len):
         """One prefill chunk of ONE sequence: writes its K/V into the pool;
         no logits (the prompt's final token is its lane's first decode
-        input). ids, positions [1, T]; block_table [1, maxP]."""
+        input). ids, positions [1, T]; block_table [1, maxP]. Eager."""
         self.model.paged_forward(params, ids, self.pool, block_table, positions,
                                  context_len, with_logits=False)
+
+    def _step(self, params, sampler_kind: str, use_penalties: bool,
+              use_bias: bool, mixed: bool):
+        """One continuous-batching step over the static buffers (a graph's
+        body): every live lane advances one token (a mixed step also
+        writes the rider slice's K/V), samples, and freezes on a stop token
+        or its length budget; frozen lanes emit PAD. Returns (emitted [B],
+        logits [B, V])."""
+        st, lp, model = self.lanes, self.lane_params, self.model
+        pad = torch.full_like(st.last, PAD_TOKEN)
+        active = ~st.done
+        dec_pos = torch.where(active, st.ctx, pad)
+        dec_ctx = torch.where(active, st.ctx + 1, torch.ones_like(st.ctx))
+        if mixed:
+            r, cs = self._rider, self.rider_width
+            logits, _ = model.mixed_forward(
+                params, self.pool, st.last, dec_pos, dec_ctx, self.block_tables,
+                r[:cs], r[cs:2 * cs], r[2 * cs:2 * cs + 1], r[2 * cs + 1:],
+            )
+        else:
+            logits, _ = model.paged_forward(
+                params, st.last[:, None], self.pool, self.block_tables,
+                dec_pos[:, None], dec_ctx,
+            )
+            logits = logits[:, 0]
+        if use_penalties:
+            logits = repetition_penalty(logits, st.hist, lp.pen.repetition)
+            logits = presence_frequency_penalty(
+                logits, st.hist, lp.pen.presence, lp.pen.frequency)
+            logits = dry_penalty(logits, st.hist, lp.pen.dry_multiplier,
+                                 lp.pen.dry_base, lp.pen.dry_allowed)
+        if use_bias:
+            logits = apply_logit_bias(logits, lp.bias_ids, lp.bias_vals)
+        tok = sample(logits, lp.sampling, self.key, kind=sampler_kind)
+        tok = torch.where(active, tok, st.last)
+        emitted = torch.where(active, tok, pad)
+        hit_stop = (tok[:, None] == lp.stop_ids).any(dim=1)
+        step = active.to(torch.int32)
+        prod = st.prod + step
+        done = st.done | (active & (hit_stop | (prod >= lp.max_new)))
+        ctx = st.ctx + step
+        hist = torch.where(active[:, None],
+                           torch.cat([st.hist[:, 1:], tok[:, None]], dim=1), st.hist)
+        st.last.copy_(tok)
+        st.ctx.copy_(ctx)
+        st.hist.copy_(hist)
+        st.done.copy_(done)
+        st.prod.copy_(prod)
+        return emitted, logits
 
     @torch.no_grad()
     def _chunk(
         self,
         params,
-        state: LaneState,
-        block_tables: torch.Tensor,  # [B, maxP] int32
-        lp: LaneParams,
         num_steps: int,
         sampler_kind: str,
         use_penalties: bool,
         use_bias: bool,
         rider: Optional[RiderPlan] = None,
         wake: Optional[WakePlan] = None,
-    ):
-        """``num_steps`` continuous-batching steps on the device with no read
-        back to the host: lanes wake at their planned step, sample, and
-        freeze on a stop token or their length budget (frozen lanes emit
-        PAD). Returns (emitted [N, B] int32, final LaneState)."""
-        model, dev = self.model, self.device
-        last, ctx, hist, done, prod = (state.last, state.ctx, state.hist,
-                                       state.done, state.prod)
+    ) -> torch.Tensor:
+        """``num_steps`` continuous-batching steps on the static lane state
+        with no read back to the host: lanes wake at their planned step
+        (eager updates of the static buffers before that step), then each
+        step runs the rider-free or the mixed step graph, keyed by
+        (sampler kind, penalties on, bias on), as JAX's ``use_rider``
+        picks one of two programs. Returns the chunk's emitted tokens
+        [N, B] int32, a tensor of its own that later chunks leave alone."""
+        st, b = self.lanes, self.num_lanes
+        if sampler_kind not in SAMPLER_KINDS:
+            raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host")
         if rider is not None:
-            pf_ids = self.to_device(rider.ids)
-            pf_pos = self.to_device(rider.pos)
+            rider_dev = self.to_device(np.concatenate(
+                [rider.ids, rider.pos, rider.lane[:, None], rider.ctx[:, None]],
+                axis=1).astype(np.int32))  # [N, 2 Cs + 2]
             rides = (rider.ids >= 0).any(axis=1)
         if wake is not None:
             w_step = self.to_device(wake.step)
             w_tok, w_ctx, w_prod, w_hist = (
                 self.to_device(a) for a in (wake.tokens, wake.ctx, wake.prod, wake.hist))
             woken = set(int(s) for s in wake.step if s >= 0)
-        pad = torch.full_like(last, PAD_TOKEN)
-        emitted = []
+        emitted = torch.empty((num_steps, b), dtype=torch.int32, device=self.device)
         for s in range(num_steps):
             self.device_steps += 1
             if wake is not None and s in woken:
                 w = w_step == s
-                last = torch.where(w, w_tok, last)
-                ctx = torch.where(w, w_ctx, ctx)
-                prod = torch.where(w, w_prod, prod)
-                hist = torch.where(w[:, None], w_hist, hist)
-                done = done & ~w
-            active = ~done
-            dec_pos = torch.where(active, ctx, pad)
-            dec_ctx = torch.where(active, ctx + 1, torch.ones_like(ctx))
-            if rider is not None and rides[s]:
-                logits, _ = model.mixed_forward(
-                    params, self.pool, last, dec_pos, dec_ctx, block_tables,
-                    pf_ids[s], pf_pos[s], int(rider.lane[s]), int(rider.ctx[s]),
-                )
-            else:
-                logits, _ = model.paged_forward(
-                    params, last[:, None], self.pool, block_tables,
-                    dec_pos[:, None], dec_ctx,
-                )
-                logits = logits[:, 0]
-            if use_penalties:
-                logits = repetition_penalty(logits, hist, lp.pen.repetition)
-                logits = presence_frequency_penalty(
-                    logits, hist, lp.pen.presence, lp.pen.frequency)
-                logits = dry_penalty(logits, hist, lp.pen.dry_multiplier,
-                                     lp.pen.dry_base, lp.pen.dry_allowed)
-            if use_bias:
-                logits = apply_logit_bias(logits, lp.bias_ids, lp.bias_vals)
-            tok = sample(logits, lp.sampling, self.key, kind=sampler_kind)
-            tok = torch.where(active, tok, last)
-            emitted.append(torch.where(active, tok, pad))
-            hit_stop = (tok[:, None] == lp.stop_ids).any(dim=1)
-            step = active.to(torch.int32)
-            prod = prod + step
-            done = done | (active & (hit_stop | (prod >= lp.max_new)))
-            ctx = ctx + step
-            hist = torch.where(active[:, None],
-                               torch.cat([hist[:, 1:], tok[:, None]], dim=1), hist)
-            last = tok
-        return torch.stack(emitted), LaneState(last, ctx, hist, done, prod)
+                st.last.copy_(torch.where(w, w_tok, st.last))
+                st.ctx.copy_(torch.where(w, w_ctx, st.ctx))
+                st.prod.copy_(torch.where(w, w_prod, st.prod))
+                st.hist.copy_(torch.where(w[:, None], w_hist, st.hist))
+                st.done.logical_and_(~w)
+            mixed = bool(rider is not None and rides[s])
+            if mixed:
+                self._rider.copy_(rider_dev[s])
+            key = ("mixed" if mixed else "decode", sampler_kind, use_penalties,
+                   use_bias, id(params))
+            out = self.graphs(
+                key, functools.partial(self._step, params, sampler_kind,
+                                       use_penalties, use_bias, mixed),
+                samples=sampler_kind != "greedy")
+            emitted[s].copy_(out[0])
+        return emitted
 
 
 class Scheduler:
@@ -347,11 +406,12 @@ class Scheduler:
         self.bias_ids = np.full((b, MAX_BIAS), -1, np.int32)
         self.bias_vals = np.zeros((b, MAX_BIAS), np.float32)
         self._lane_params: Optional[LaneParams] = None  # device copy of the above
-        # steady-state pipelining: the last dispatched chunk's device lane
-        # state and the chunks in flight, oldest first, as (emitted, n).
-        # Host mirrors lag the device while a chunk is in flight; draining
-        # its emitted tokens alone reconstructs them exactly.
-        self._dev_state: Optional[LaneState] = None
+        # steady-state pipelining: whether the engine's lane state carries
+        # on from the last dispatched chunk, and the chunks in flight,
+        # oldest first, as (emitted, n). Host mirrors lag the device while
+        # a chunk is in flight; draining its emitted tokens alone
+        # reconstructs them exactly.
+        self._chained = False
         self._inflight: deque = deque()
         self.pipeline_depth = 1
 
@@ -396,19 +456,7 @@ class Scheduler:
         decoding, nothing queued) the next chunk is dispatched on the
         device-chained lane state before the previous one is drained."""
         if not self.waiting and self._all_decoding():
-            n = self.decode_steps
-            ok = True
-            while ok and len(self._inflight) < self.pipeline_depth:
-                hold = self._hold
-                for lane, seq in self.running.items():
-                    if not self.manager.extend_seq(
-                        seq.seq_id, int(self.context_lens[lane]) + hold + n
-                    ):
-                        ok = False
-                        break
-                    self._sync_table(lane, seq)
-                if ok:
-                    self._inflight.append((self._dispatch_steady(n), n))
+            self._fill_pipeline()
             if self._inflight:
                 return self._drain_inflight()
         # admission and direct prefill before the pipeline flush: new lanes
@@ -432,7 +480,7 @@ class Scheduler:
         finished_prev = []
         while self._inflight:
             finished_prev.extend(self._drain_inflight())
-        self._dev_state = None
+        self._chained = False
         self._admit()
         self._direct_prefill()
         cs = self.engine.rider_width
@@ -446,6 +494,21 @@ class Scheduler:
         if plan is None:
             return finished_prev
         return finished_prev + self._dispatch_and_drain(plan, n)
+
+    def _fill_pipeline(self) -> None:
+        """Steady decode: dispatch decode-only chunks on the chained device
+        state until ``pipeline_depth`` are in flight, growing every lane's
+        pages first (a lane out of pages stops it). Reads nothing back."""
+        n = self.decode_steps
+        while len(self._inflight) < self.pipeline_depth:
+            hold = self._hold
+            for lane, seq in self.running.items():
+                if not self.manager.extend_seq(
+                    seq.seq_id, int(self.context_lens[lane]) + hold + n
+                ):
+                    return
+                self._sync_table(lane, seq)
+            self._inflight.append((self._dispatch_steady(n), n))
 
     # -- device dispatch -------------------------------------------------
 
@@ -461,28 +524,40 @@ class Scheduler:
         )
 
     def _device_params(self) -> LaneParams:
-        """The lanes' request parameters on the device, uploaded again only
-        after an admission changed them."""
+        """The lanes' request parameters in the engine's static buffers,
+        uploaded again only after an admission changed them."""
+        lp = self.engine.lane_params
         if self._lane_params is None:
-            up = self.engine.to_device
-            self._lane_params = LaneParams(
-                max_new=up(self.max_new),
-                stop_ids=up(self.stop_ids),
-                sampling=SamplingParams(**{k: up(v) for k, v in self.samp.items()}),
-                pen=PenaltyParams(**{k: up(v) for k, v in self.pen.items()}),
-                bias_ids=up(self.bias_ids),
-                bias_vals=up(self.bias_vals),
-            )
-        return self._lane_params
+            upload(lp.max_new, self.max_new)
+            upload(lp.stop_ids, self.stop_ids)
+            for k, v in self.samp.items():
+                upload(getattr(lp.sampling, k), v)
+            for k, v in self.pen.items():
+                upload(getattr(lp.pen, k), v)
+            upload(lp.bias_ids, self.bias_ids)
+            upload(lp.bias_vals, self.bias_vals)
+            self._lane_params = lp
+        return lp
 
-    def _host_state(self) -> LaneState:
-        up = self.engine.to_device
-        return LaneState(up(self.last_tokens), up(self.context_lens),
-                         up(self.histories), up(self.done), up(self.produced))
+    def _host_state(self) -> None:
+        """Upload the host mirrors into the engine's static lane state."""
+        st = self.engine.lanes
+        for dst, a in ((st.last, self.last_tokens), (st.ctx, self.context_lens),
+                       (st.hist, self.histories), (st.done, self.done),
+                       (st.prod, self.produced)):
+            upload(dst, a)
 
-    def _run_chunk(self, state, n, rider=None, wake=None):
-        """Dispatch one chunk; returns (emitted, final state) on the device."""
+    def _run_chunk(self, n, rider=None, wake=None) -> torch.Tensor:
+        """Dispatch one chunk on the engine's static lane state: chained
+        from the previous chunk when ``_chained`` is set, else loaded from
+        the host mirrors. The block tables and (after an admission) the
+        request parameters are copied into their static buffers first, all
+        queued from pinned memory. Returns the chunk's emitted tokens."""
         e = self.engine
+        if not self._chained:
+            self._host_state()
+        upload(e.block_tables, self.block_tables)
+        self._device_params()
         pen_on = (
             (self.pen["repetition"] != 1.0).any()
             or (self.pen["presence"] != 0.0).any()
@@ -490,17 +565,16 @@ class Scheduler:
             or (self.pen["dry_multiplier"] > 0.0).any()
         )
         return e._chunk(
-            e.params, state, e.to_device(self.block_tables),
-            self._device_params(), num_steps=n,
-            sampler_kind=self._sampler_kind(), use_penalties=bool(pen_on),
+            e.params, num_steps=n, sampler_kind=self._sampler_kind(),
+            use_penalties=bool(pen_on),
             use_bias=bool((self.bias_ids >= 0).any()), rider=rider, wake=wake,
         )
 
     def _dispatch_steady(self, n: int) -> torch.Tensor:
         """Dispatch a decode-only chunk on the lane state chained from the
-        previous chunk's device outputs (no host round trip)."""
-        state = self._dev_state if self._dev_state is not None else self._host_state()
-        emitted, self._dev_state = self._run_chunk(state, n)
+        previous chunk (no host round trip)."""
+        emitted = self._run_chunk(n)
+        self._chained = True
         return emitted
 
     def _dispatch_pipelined_wake(self, new) -> Optional[list[Sequence]]:
@@ -547,11 +621,11 @@ class Scheduler:
                 seq.prefix_cached = True
                 self.prefix_store.insert(seq.prompt_ids,
                                          self.manager.block_table(seq.seq_id))
-        emitted, state = self._run_chunk(self._dev_state, n, wake=wake)
+        emitted = self._run_chunk(n, wake=wake)
         finished = []
         while self._inflight:
             finished.extend(self._drain_inflight())
-        self._dev_state = state
+        self._chained = True
         self._inflight.append((emitted, n))
         return finished
 
@@ -609,7 +683,8 @@ class Scheduler:
 
     def _dispatch_and_drain(self, plan, n: int) -> list[Sequence]:
         rider, wake = plan
-        emitted, st = self._run_chunk(self._host_state(), n, rider=rider, wake=wake)
+        emitted = self._run_chunk(n, rider=rider, wake=wake)
+        st = self.engine.lanes
         # one read of the device for the whole chunk: everything packed into
         # one int32 buffer
         b, h = self.engine.num_lanes, HISTORY_LEN

@@ -626,18 +626,21 @@ class LlamaModel:
         block_tables: torch.Tensor,  # [B, maxP] int32
         pf_ids: torch.Tensor,  # [Cs] prefill-rider tokens (-1 pad)
         pf_positions: torch.Tensor,  # [Cs] their positions (-1 pad)
-        pf_lane: int,  # lane whose table the rider uses
-        pf_ctx: int,  # rider-lane tokens in the pool AFTER this slice
+        pf_lane: torch.Tensor,  # [1] int: the rider's lane
+        pf_ctx: torch.Tensor,  # [1] int32: rider-lane tokens
+        #          in the pool AFTER this slice
         pf_any: bool = True,  # the rider carries a token
     ):
         """One mixed continuous-batching step: every decode lane advances one
         token AND a chunk of prefill tokens rides along, sharing one pass
         over the weights (flat token axis M = B + Cs). Lanes attend through
         the paged decode-attention kernel, the rider by masked dense
-        attention over its lane's gathered pages. The rider's lane, context
-        and emptiness are host values from the scheduler's plan (JAX's
-        ``lax.cond`` on the device becomes a branch on the host), so nothing
-        is read back. Returns (decode logits [B, V] f32, pool)."""
+        attention over its lane's gathered pages. The rider's lane and
+        context are device tensors, so a captured step reads them anew at
+        every replay; its emptiness is a host value from the scheduler's
+        plan (JAX's ``lax.cond`` on the device becomes a branch on the
+        host, as ``use_rider`` picks one of two programs), so nothing is
+        read back. Returns (decode logits [B, V] f32, pool)."""
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -662,17 +665,17 @@ class LlamaModel:
             cos, sin = rope_tables(positions[None], inv_freq)
         h = self.embed(params, torch.clamp(flat_ids, min=0)[None])  # [1, M, D]
 
-        pf_table = block_tables[pf_lane]  # [maxP]
+        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
         dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
                                         pool.num_pages)
-        pf_phys, pf_slot = page_slots(pf_table[None], pf_positions[None],
+        pf_phys, pf_slot = page_slots(pf_table, pf_positions[None],
                                       pool.num_pages)
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
         slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
         if pf_any:
-            pf_ctx_t = torch.full((1,), pf_ctx, dtype=torch.int32, device=dev)
-            pf_mask = attention_mask(pf_positions[None],
-                                     _paged_kv_positions(pf_table[None], pf_ctx_t))
+            pf_mask = attention_mask(
+                pf_positions[None],
+                _paged_kv_positions(pf_table, pf_ctx))
 
         for i in range(cfg.num_hidden_layers):
             x = rms_norm(h, _row(p["ln1"], i), eps)
@@ -689,7 +692,7 @@ class LlamaModel:
                 pool.v_scale, i, block_tables, dec_ctx, scale,
             )
             if pf_any:
-                attn_pf = self._gathered_attn(pool, i, pf_table[None], q[:, b:],
+                attn_pf = self._gathered_attn(pool, i, pf_table, q[:, b:],
                                               pf_mask, scale)[0]
             else:
                 attn_pf = torch.zeros((cs, hq, dh), dtype=q.dtype, device=dev)

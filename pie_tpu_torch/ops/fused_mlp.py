@@ -57,6 +57,9 @@ _RING_BUDGET, _MAX_STAGES = 100 * 1024, 8
 
 _lock = threading.Lock()
 _workspaces: dict = {}  # per device: K4's scratch (partial sums, h2, act)
+#: workspaces a larger one replaced: a CUDA graph captured over one still
+#: writes into it at every replay, so it is never freed
+_retired: list = []
 _maps: dict = {}  # per stacked weight: its three encoded tensor maps
 _blocks: dict = {}  # per (device, format): resident blocks per SM
 
@@ -240,10 +243,14 @@ def mlp_plan(m: int, d_attn: int, d: int, di: int, bits: int, group_size: int,
 
 def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
     """The device's K4 workspace, grown as needed and kept between calls,
-    which run one at a time on the current stream."""
+    which run one at a time on the current stream. A workspace that a
+    larger plan replaces stays allocated (``_retired``): a graph captured
+    at a smaller M keeps its address."""
     with _lock:
         ws = _workspaces.get(device)
         if ws is None or ws.numel() < nbytes:
+            if ws is not None:
+                _retired.append(ws)
             ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
             _workspaces[device] = ws
         return ws

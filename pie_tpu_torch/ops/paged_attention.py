@@ -53,6 +53,9 @@ HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
 
 _counters: dict = {}  # per device: K3's zeroed arrival counters
+#: counters a larger set replaced: a CUDA graph captured over them still
+#: uses them at every replay, so they are never freed
+_retired: list = []
 _geometry: dict = {}  # per (device, D, quantized, rep): K3's block geometry
 
 
@@ -166,6 +169,8 @@ def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
                          device=q.device)
         counters = _counters.get(q.device)
         if counters is None or counters.numel() < b * hkv:
+            if counters is not None:
+                _retired.append(counters)
             counters = torch.zeros(max(4096, b * hkv), dtype=torch.int32,
                                    device=q.device)
             _counters[q.device] = counters

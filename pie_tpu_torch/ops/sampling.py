@@ -5,7 +5,10 @@ whose per-sequence parameters are tensors [B] (disabled filters encoded as
 neutral values: top_k <= 0, top_p >= 1, min_p <= 0), Gumbel-max sampling,
 and the repetition / presence / frequency / DRY / logit-bias processors.
 Random numbers come from an explicit ``torch.Generator``; they are not the
-JAX package's bits, so sampled paths agree in distribution only.
+JAX package's bits, so sampled paths agree in distribution only. Every
+draw is a ``torch.rand`` on that generator, which a CUDA graph can capture
+(``engine/graphs.py`` registers the generator with each graph that
+samples).
 """
 
 from __future__ import annotations
@@ -143,7 +146,10 @@ def sample(logits: torch.Tensor, params: SamplingParams, gen,
            kind: str = "auto") -> torch.Tensor:
     """Batched sampler: logits [B, V] f32 -> token ids [B] int32.
     ``kind`` picks the path ("greedy" / "categorical" / "filtered"); "auto"
-    decides from the parameters."""
+    decides from the parameters, which it reads back to the host, so a
+    decode step (a captured graph) is always given a kind resolved on the
+    host (``sampler_kind_for``). The draws come from ``gen``; a graph that
+    samples registers it, so each replay draws anew."""
     if kind == "auto":
         kind = sampler_kind_for(
             params.temperature.cpu().numpy(), params.top_p.cpu().numpy(),

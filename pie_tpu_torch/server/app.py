@@ -76,6 +76,9 @@ def _gen_kwargs(req) -> dict[str, Any]:
 
 
 async def _run_blocking(app, fn, *args, **kwargs):
+    # the single-stream engine runs one call at a time under the lock, in
+    # a worker thread: its decode-step captures (engine/graphs.py) happen
+    # there while no other thread drives the engine
     async with app[LOCK_KEY]:
         return await asyncio.get_event_loop().run_in_executor(
             None, lambda: fn(*args, **kwargs)

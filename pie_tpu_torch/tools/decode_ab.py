@@ -3,7 +3,7 @@ K4 (the fused decode MLP block) and decode speed between checkouts of this
 repository, on one CUDA card.
 
     python3 pie_tpu_torch/tools/decode_ab.py --root A --root B --root B --root A \
-        [--parts k1 k4 k3 8b 1b]
+        [--parts k1 k4 k3 8b 1b first]
 
 Each ``--root`` is a checkout whose ``pie_tpu_torch`` is imported, in a
 fresh process per root and in the order given (parent, change, change,
@@ -29,7 +29,14 @@ parent takes the card's drift out of the comparison). For each root:
   the 128-token drain after every lane's first token, as ``chip_smoke.py``
   times it), with random INT4 g64 weights from a seed (``8b``);
 - the same single-stream and 8-lane paged tok/s on the 16-layer
-  Llama-3.2-1B geometry, where K4 runs every layer's MLP block (``1b``).
+  Llama-3.2-1B geometry, where K4 runs every layer's MLP block (``1b``);
+- on the same 1B geometry, the ms of the first and the second request
+  (a 64-token prompt, 9 greedy tokens) of a fresh single-stream engine
+  and of a fresh scheduler (``first``): what the first user of a process
+  pays for one-time set-up (kernel attributes, workspaces, and where the
+  checkout compiles its steps, the graph captures). It runs before the
+  other engine parts; choose it without the kernel parts for a process
+  whose first request it is.
 
 ``--parts`` picks sections (K1 is ``k1``, K3 ``k3``; all by default).
 
@@ -117,7 +124,7 @@ def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
     return device_ms(lambda i: qmc.quant_matmul_cuda(x, qt, layer=i % ROTATE, **kw))
 
 
-PARTS = ("k1", "k4", "k3", "8b", "1b")
+PARTS = ("k1", "k4", "k3", "8b", "1b", "first")
 # K4 cases: name, d, di, M, bits
 K4_CASES = [("1B M=1", 2048, 8192, 1, 4), ("1B M=8", 2048, 8192, 8, 4),
             ("1B M=8 int8", 2048, 8192, 8, 8), ("8B M=1", 4096, 14336, 1, 4),
@@ -160,6 +167,36 @@ def engine_tok_s(model, params, prompt) -> tuple[float, float]:
     del sched, paged
     torch.cuda.empty_cache()
     return single, lanes
+
+
+def first_request_ms(model, params, prompt) -> dict:
+    """ms of the first and second request (9 greedy tokens) of a fresh
+    InferenceEngine and of a fresh Scheduler over 8 lanes of INT8 pages,
+    each ending in a synchronize."""
+    import torch
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+
+    out = {}
+    engine = InferenceEngine(model=model, params=params, max_seq_len=1024, decode_chunk=128)
+    for i, p in enumerate((prompt, [t + 1 for t in prompt])):
+        t0 = time.perf_counter()
+        engine.generate(p, max_completion_tokens=9, temperature=0.0)
+        torch.cuda.synchronize()
+        out[f"1B single request {i + 1} ms"] = (time.perf_counter() - t0) * 1e3
+    del engine
+    sched = Scheduler(PagedEngine(model, params, num_lanes=8, num_pages=112,
+                                  max_pages_per_seq=12, kv_quantized=True), decode_steps=8)
+    for i, p in enumerate((prompt, [t + 1 for t in prompt])):
+        t0 = time.perf_counter()
+        sched.add_request(p, max_new_tokens=9, temperature=0.0)
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        out[f"1B paged request {i + 1} ms"] = (time.perf_counter() - t0) * 1e3
+    del sched
+    torch.cuda.empty_cache()
+    return out
 
 
 def measure(root: str, parts=PARTS) -> dict:
@@ -219,14 +256,18 @@ def measure(root: str, parts=PARTS) -> dict:
         torch.cuda.empty_cache()
 
     prompt = list(range(1, 65))
-    if "1b" in parts:
+    if "1b" in parts or "first" in parts:
         model = LlamaModel(LlamaConfig(
             model_type="llama", hidden_size=2048, intermediate_size=8192,
             num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
             head_dim=64, vocab_size=128256, rope_theta=500000.0,
             tie_word_embeddings=True))
         params = model.init_quantized_params(seed=0, group_size=64, bits=4)
-        out["1B decode tok/s"], out["1B paged tok/s"] = engine_tok_s(model, params, prompt)
+        if "first" in parts:
+            out.update(first_request_ms(model, params, prompt))
+        if "1b" in parts:
+            out["1B decode tok/s"], out["1B paged tok/s"] = engine_tok_s(
+                model, params, prompt)
         del model, params
         torch.cuda.empty_cache()
     if "8b" not in parts:

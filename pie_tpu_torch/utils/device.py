@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -15,3 +16,23 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def host_tensor(a, device: torch.device) -> torch.Tensor:
+    """A copy of host array ``a`` on ``device``. To the card it goes through
+    a pinned staging buffer, queued without waiting for the device (a copy
+    from pageable memory would wait for it)."""
+    t = torch.from_numpy(np.array(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def upload(dst: torch.Tensor, a) -> torch.Tensor:
+    """Copy host array ``a`` into the device tensor ``dst`` in place, queued
+    as ``host_tensor`` is (``dst`` keeps its address: a captured step may
+    read it)."""
+    t = torch.from_numpy(np.array(a)).reshape(dst.shape)
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    return dst.copy_(t, non_blocking=dst.device.type == "cuda")

@@ -541,3 +541,229 @@ def test_fused_mlp_rejects_what_it_does_not_take(cuda):
     finally:
         fm.mlp_plan = real
     assert qmc.launch_counts["K4"] == 0  # a refused call counts no launch
+
+
+# -- compiled steps: the decode steps as CUDA graphs ------------------------------
+
+
+def _graph_model(dev):
+    """Two layers at the Llama-3.2-1B widths (K4 takes their MLP block) with
+    a small vocabulary and random INT4 g64 weights."""
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    model = LlamaModel(LlamaConfig(
+        model_type="llama", hidden_size=2048, intermediate_size=8192,
+        num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=8,
+        head_dim=64, vocab_size=1024, rope_theta=500000.0,
+        tie_word_embeddings=False))
+    return model, model.init_quantized_params(seed=0, device=dev)
+
+
+def _eager(graphs):
+    """The same engine's steps run eagerly on the card: the reference the
+    graphs are held against."""
+    from pie_tpu_torch.engine.graphs import StepGraphs
+
+    class Eager(StepGraphs):
+        def __call__(self, key, fn, samples=False):
+            self.keys.add(key)
+            return fn()
+
+    return Eager(graphs.device, graphs.generator)
+
+
+class _Tap:
+    """A step runner that keeps a copy of every step's logits."""
+
+    def __init__(self, inner):
+        self.inner, self.logits = inner, []
+
+    def __call__(self, key, fn, samples=False):
+        out = self.inner(key, fn, samples)
+        self.logits.append(out[1].float().clone())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _single_pair(dev):
+    from pie_tpu_torch.engine import InferenceEngine
+
+    model, params = _graph_model(dev)
+    engines = [InferenceEngine(model=model, params=params, max_seq_len=512,
+                               decode_chunk=16, prompt_cache=False, device=dev)
+               for _ in range(2)]
+    engines[1].core.graphs = _eager(engines[1].core.graphs)
+    return engines
+
+
+def _paged_pair(dev):
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+
+    model, params = _graph_model(dev)
+    scheds = [Scheduler(PagedEngine(model, params, num_lanes=4, num_pages=64,
+                                    max_pages_per_seq=8, prefill_chunk=64,
+                                    rider_width=44, kv_quantized=True, device=dev),
+                        decode_steps=4) for _ in range(2)]
+    scheds[1].engine.graphs = _eager(scheds[1].engine.graphs)
+    return scheds
+
+
+PAGED_PROMPTS = (list(range(1, 101)), [5, 6, 7], list(range(40, 60)), [9])
+
+
+def test_step_graphs_replay_the_eager_steps(cuda):
+    """The single-stream decode step and the paged rider-free and mixed
+    steps, replayed from their graphs, give the greedy tokens of the same
+    steps run eagerly on the card, logits within 1e-3 normalized; every
+    key but the first call of each replays."""
+    engines = _single_pair(cuda)
+    taps = []
+    for e in engines:
+        e.core.graphs = _Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    outs = [e.generate(list(range(3, 40)), max_completion_tokens=40, temperature=0.0,
+                       logprobs=True) for e in engines]
+    assert outs[0].token_ids == outs[1].token_ids and len(outs[0].token_ids) == 40
+    assert taps[0].inner.replays > 0 and taps[0].inner.captures == len(taps[0].inner.keys)
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+    scheds = _paged_pair(cuda)
+    taps = []
+    for s in scheds:
+        s.engine.graphs = _Tap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+    streams = []
+    for s in scheds:
+        seqs = [s.add_request(p, max_new_tokens=12, temperature=0.0) for p in PAGED_PROMPTS]
+        s.run_to_completion(max_steps=200)
+        streams.append([q.output_ids for q in seqs])
+    assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
+    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed"}
+    assert taps[0].inner.replays > 0
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+
+def test_step_graph_samples_anew_at_every_replay(cuda):
+    """A graph that samples (temperature 1, the categorical sampler) with
+    the engine's generator registered: two replays draw different tokens,
+    and 8,192 rows over 8 logits follow the softmax."""
+    from pie_tpu_torch.engine.graphs import StepGraphs
+    from pie_tpu_torch.ops.sampling import SamplingParams, sample
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    graphs = StepGraphs(cuda, gen)
+    rows = 8192
+    logits = torch.log(torch.tensor([0.3, 0.2, 0.15, 0.1, 0.1, 0.08, 0.05, 0.02],
+                                    device=cuda)).repeat(rows, 1)
+    params = SamplingParams.make(rows, temperature=1.0, device=cuda)
+    step = lambda: (sample(logits, params, gen, kind="categorical"),)
+    draws = [graphs("s", step, samples=True)[0].clone() for _ in range(3)]
+    assert graphs.captures == 1 and graphs.replays == 2
+    assert not torch.equal(draws[1], draws[2]) and not torch.equal(draws[0], draws[1])
+    for d in draws[1:]:
+        freq = torch.bincount(d.long(), minlength=8).double().cpu() / rows
+        want = torch.softmax(logits[0].double().cpu(), 0)
+        assert float((freq - want).abs().max()) < 0.02
+
+
+def test_step_graph_launch_counts(cuda):
+    """Kernel launches counted over a request of replayed steps equal those
+    of the same request with the steps run eagerly (K1, its ln pre-pass,
+    K2, K4), and K3 runs once per layer per paged device step."""
+    engines = _single_pair(cuda)
+    counts = []
+    for e in engines:
+        e.generate(list(range(3, 40)), max_completion_tokens=9, temperature=0.0)
+        qmc.reset_counts()
+        e.generate(list(range(4, 41)), max_completion_tokens=33, temperature=0.0)
+        torch.cuda.synchronize()
+        counts.append(dict(qmc.launch_counts))
+    assert counts[0] == counts[1] and counts[0]["K4"] == 2 * 32 and counts[0]["K1"] > 0
+    scheds = _paged_pair(cuda)
+    counts = []
+    for s in scheds:
+        s.add_request([5, 6, 7], max_new_tokens=6, temperature=0.0)
+        s.run_to_completion(max_steps=100)
+        qmc.reset_counts()
+        steps0 = s.engine.device_steps
+        for p in PAGED_PROMPTS:
+            s.add_request(p, max_new_tokens=12, temperature=0.0)
+        s.run_to_completion(max_steps=200)
+        torch.cuda.synchronize()
+        counts.append(dict(qmc.launch_counts))
+        assert qmc.launch_counts["K3"] == 2 * (s.engine.device_steps - steps0)
+    assert counts[0] == counts[1]
+
+
+def test_graph_at_m1_keeps_its_k4_workspace(cuda, monkeypatch):
+    """A graph captured over K4 at M = 1 replays correctly after an M = 8
+    call grew the workspace, and writes nothing into memory allocated
+    since: the workspace it captured stays allocated."""
+    monkeypatch.setattr(fm, "_workspaces", {})
+    monkeypatch.setattr(fm, "_retired", [])
+    wo, wgu, wd, ln2 = mlp_weights(cuda, 2048, 8192)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x1 = [torch.randn((1, 2048), generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    x8 = [torch.randn((8, 2048), generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    fm.fused_mlp_stacked(*x1, ln2, 1, wo, wgu, wd, 1e-5)  # warm-up
+    dev = x1[0].device  # the workspaces' key: cuda:0
+    nbytes = fm._workspaces[dev].numel()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fm.fused_mlp_stacked(*x1, ln2, 1, wo, wgu, wd, 1e-5)
+    fm.fused_mlp_stacked(*x8, ln2, 1, wo, wgu, wd, 1e-5)
+    assert fm._workspaces[dev].numel() > nbytes
+    # a freed workspace would be handed out again here, and the replay
+    # would write into it
+    junk = torch.full((nbytes,), 7, dtype=torch.uint8, device=cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool((junk == 7).all())
+    assert torch.equal(out, fm.fused_mlp_stacked(*x1, ln2, 1, wo, wgu, wd, 1e-5))
+    assert len(fm._retired) == 1
+
+
+def test_steady_chunk_reads_nothing_back(cuda):
+    """Once its graphs are captured, a steady chunk of each engine is
+    dispatched with CUDA's sync debug mode set to raise."""
+    from pie_tpu_torch.engine.core import PenaltyParams
+    from pie_tpu_torch.engine.scheduler import SeqStatus
+    from pie_tpu_torch.ops.sampling import SamplingParams
+
+    e = _single_pair(cuda)[0]
+    e.generate(list(range(3, 40)), max_completion_tokens=40, temperature=0.0)
+    core = e.core
+    args = (SamplingParams.make(1, temperature=0.0, device=cuda),
+            PenaltyParams.make(1, device=cuda), *e._empty_bias,
+            torch.full((8,), -1, dtype=torch.int32, device=cuda))
+    core._decode(e.params, e.state, *args, num_steps=16, sampler_kind="greedy",
+                 kv_bucket=256, use_penalties=False, use_bias=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, outs = core._decode(e.params, e.state, *args, num_steps=16,
+                               sampler_kind="greedy", kv_bucket=256,
+                               use_penalties=False, use_bias=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert outs[0].shape == (16, 1)
+
+    sched = _paged_pair(cuda)[0]
+    seqs = [sched.add_request(p, max_new_tokens=40, temperature=0.0) for p in PAGED_PROMPTS]
+    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
+        sched.step()
+    sched.step()
+    assert not sched._inflight
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched._fill_pipeline()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(sched._inflight) == 1
+    sched.run_to_completion(max_steps=200)
+    assert all(len(s.output_ids) == 40 for s in seqs)

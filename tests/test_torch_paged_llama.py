@@ -82,8 +82,8 @@ class Pair:
         with torch.no_grad():
             lt, _ = self.tm.mixed_forward(
                 self.tp, self.tpool, t(dec_tok), t(dec_pos), t(dec_ctx),
-                torch.from_numpy(self.tables), t(pf_ids), t(pf_pos), pf_lane, pf_ctx,
-                pf_any=bool((a(pf_ids) >= 0).any()))
+                torch.from_numpy(self.tables), t(pf_ids), t(pf_pos), t([pf_lane]),
+                t([pf_ctx]), pf_any=bool((a(pf_ids) >= 0).any()))
         return np.asarray(lj), lt.numpy()
 
     def check_pool(self):

@@ -249,7 +249,7 @@ def test_steady_decode_chains_device_state(models, single, depth):
     while sched.has_work:
         sched.step()
         depths.append(len(sched._inflight))
-        chained.append(sched._dev_state is not None)
+        chained.append(sched._chained)
     assert max(depths) == depth - 1 and any(chained)
     for k, s in zip(("a", "b"), seqs):
         assert s.output_ids == single(PROMPTS[k], 20)
