@@ -88,8 +88,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. serve: `MODEL_PATH=<snapshot> python -m pie_tpu_torch.server` as a
    subprocess: a chat, a streamed chat and a completion; then again with
    BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8: 4 concurrent chats and one n=2
-   chat. Every request returns 200; startup and request times printed,
+   chat; on each server a json_schema chat (phase 11d). Every request
+   returns 200; startup and request times printed,
    the first request (which captures the step graphs) beside a second.
+11. constrained (run after 7, on the 8B engines; random weights, so logit
+   biases toward '"', '}', ',' and ':' and against whitespace make the
+   greedy JSON close soon, inside masks that keep every token valid):
+   (a) engine.chat with a json_schema, a json_object, a named tool call and
+   a reasoning request, each parsed and checked; host ms per mask build;
+   one masked extend per bucket (8-256 tokens: eager ms, 129 K1 or K2
+   launches); a greedy request after them equal to a fresh engine's.
+   (b) a json_schema chat and a named tool_choice chat over HTTP through
+   create_app (200, parsed content / tool_calls). (c) the paged 8-lane
+   INT8 engine with a json_schema lane and a tool-call lane beside 6 free
+   greedy lanes, on graphs and on an eager twin (equal tokens, logits
+   within 1e-3 normalized, the masked decode and mixed steps among them),
+   the free lanes (each pinned to a word by a logit bias) equal to the
+   same prompts alone, the outputs checked;
+   speculation acceptance (accepted over speculated tokens), launches per
+   masked chunk and step, a masked 8-step chunk against an unmasked one
+   (CUDA events), the masked graphs and the pool's bytes. (d) runs in
+   phase 9: a json_schema chat on each 1B server, parsed and checked.
 10. 1B engines from the snapshot, in process: InferenceEngine(model_path=)
    (load time, quantized bytes, K4 16, K1 17 and its pre-pass 17 per
    decoded token, TTFT
@@ -1134,9 +1153,21 @@ def phase_engine(card):
 # -- phase 5 -------------------------------------------------------------------
 
 
+# the JSON and tool pieces of tests/test_constrained_engine.py: what a
+# constrained request's machine needs to find in the vocabulary
+JSON_PIECES = (
+    list('{}[]":,.-0123456789 ')
+    + ['{"', '"}', '": ', '", "', "true", "false", "null"]
+    + list("abcdefghijklmnopqrstuvwxyz</>")
+    + ["name", "count", "city", "alpha", "beta", "get_weather", "arguments"]
+    + ["<think>", "</think>"]
+)
+
+
 def word_tokenizer_hf():
     """Offline word-level HF tokenizer with the Llama-3 control tokens (the
-    recipe of tests/test_server.py)."""
+    recipe of tests/test_server.py), extended with JSON_PIECES after the
+    words."""
     import transformers
     from tokenizers import Tokenizer as RawTok
     from tokenizers import models, pre_tokenizers
@@ -1147,6 +1178,8 @@ def word_tokenizer_hf():
              "assistant", "system", "weather", "sunny", "<unk>"]
     specials = LLAMA3.all_control_tokens
     vocab = {w: i for i, w in enumerate(specials + words)}
+    for piece in JSON_PIECES:
+        vocab.setdefault(piece, len(vocab))
     raw = RawTok(models.WordLevel(vocab, unk_token="<unk>"))
     raw.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
     raw.add_special_tokens(specials)
@@ -1444,6 +1477,367 @@ def phase_batched_requests(model, params):
               n2_ms=two_ms, content=texts[0], n2_usage=two["usage"]))
 
 
+# -- phase 11: constrained decoding ---------------------------------------------
+
+SCHEMA = {
+    "type": "object",
+    "properties": {"name": {"enum": ["alpha", "beta"]}, "count": {"type": "integer"}},
+    "required": ["name", "count"],
+    "additionalProperties": False,
+}
+TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "parameters": {
+        "type": "object", "properties": {"city": {"type": "string"}},
+        "required": ["city"], "additionalProperties": False}}}]
+NAMED_TOOL = {"type": "function", "function": {"name": "get_weather"}}
+HELLO = [{"role": "user", "text": "hello world"}]
+
+
+def steer_bias(tok, reasoning: bool = False) -> dict:
+    """Logit biases that make a random model close its JSON soon, wherever
+    the mask allows: '"' first (a string ends at once), then '}', then ','
+    and ':', whitespace last. For a reasoning request '</think>' ends the
+    think phase at once and '"' is left alone (so '}' closes the object
+    before any string, inside which '</think>' would win). The masks keep
+    every token valid; without the biases greedy decoding of random weights
+    fills any budget with whitespace or one long string."""
+    vocab = tok._tok.get_vocab()
+    if reasoning:
+        return {vocab["</think>"]: 50.0, vocab["}"]: 40.0, vocab[" "]: -30.0}
+    return {vocab['"']: 45.0, vocab["}"]: 40.0, vocab[","]: 30.0, vocab[":"]: 30.0,
+            vocab[" "]: -30.0}
+
+
+def check_schema(text) -> dict:
+    data = json.loads(text)
+    if not (set(data) == {"name", "count"} and data["name"] in ("alpha", "beta")
+            and isinstance(data["count"], int)):
+        raise AssertionError(f"output outside the schema: {text!r}")
+    return data
+
+
+def check_tool_call(calls) -> None:
+    if not (calls and calls[0]["name"] == "get_weather"
+            and set(calls[0]["arguments"]) == {"city"}):
+        raise AssertionError(f"not a get_weather call: {calls}")
+
+
+def constrained_single(engine, tok):
+    """(a) The single stream through engine.chat: a json_schema chat, a
+    json_object chat, a forced (named) tool call and a reasoning chat, each
+    parsed and checked; host ms per mask build; ms and launches per
+    choice point (the eager masked extend) by bucket; an unconstrained
+    greedy request right after against a fresh engine's."""
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    engine.tokenizer = tok
+    engine._token_masker = None
+    masker = engine.token_masker
+    builds, dispatches = [], []
+    real_build, real_prefill = masker.build_mask, engine.core._prefill
+
+    def timed_build(machine, *a):
+        t0 = time.perf_counter()
+        out = real_build(machine, *a)
+        builds.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def counted_prefill(*a, **kw):
+        dispatches.append(a[2].shape[1])
+        return real_prefill(*a, **kw)
+
+    masker.build_mask, engine.core._prefill = timed_build, counted_prefill
+    chats = {}
+    try:
+        for name, kw in (
+            ("json_schema", dict(response_format={"type": "json_schema", "json_schema": {
+                "name": "t", "schema": SCHEMA}})),
+            ("json_object", dict(response_format={"type": "json_object"})),
+            ("tool_call", dict(tools=TOOLS, tool_choice=NAMED_TOOL)),
+            ("reasoning", dict(response_format={"type": "json_object"}, reasoning=True)),
+        ):
+            n0, t0 = len(dispatches), time.perf_counter()
+            inter = engine.chat(HELLO, max_completion_tokens=48, temperature=0.0,
+                                logit_bias=steer_bias(tok, reasoning=name == "reasoning"),
+                                **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "json_schema":
+                check_schema(inter.text)
+            elif name == "tool_call":
+                if inter.finish_reason != "tool_calls":
+                    raise AssertionError(f"tool call: {inter.finish_reason} {inter.text!r}")
+                check_tool_call(inter.tool_calls)
+            else:
+                if not isinstance(json.loads(inter.text), dict):
+                    raise AssertionError(f"{name}: {inter.text!r}")
+                if name == "reasoning" and inter.metadata["reasoning_content"] is None:
+                    raise AssertionError(f"reasoning: no reasoning content {inter}")
+            chats[name] = dict(ms=ms, text=inter.text if name != "tool_call"
+                               else inter.tool_calls, finish=inter.finish_reason,
+                               tokens=inter.metadata["completion_tokens"],
+                               choice_points=len(dispatches) - n0)
+    finally:
+        masker.build_mask, engine.core._prefill = real_build, real_prefill
+
+    # one masked extend per bucket: host wall ms (the extend is eager) and
+    # the kernels it launches
+    core, dev = engine.core, engine.device
+    mask = torch.zeros((1, VOCAB), dtype=torch.bool, device=dev)
+    mask[0, :masker.vocab_size] = True
+    args = (engine._sampling({"temperature": 0.0}), engine._penalties({}),
+            *engine._empty_bias)
+    extends = {}
+    for bucket in engine.EXTEND_BUCKETS:
+        ids = torch.randint(1, 100, (1, bucket), dtype=torch.int32, device=dev)
+        call = lambda: core._prefill(  # noqa: E731
+            engine.params, engine.state, ids, engine._full(bucket), engine._full(64),
+            *args, allowed_mask=mask, sampler_kind="greedy")[1].cpu()
+        call()
+        qmc.reset_counts()
+        call()
+        launches = dict(qmc.launch_counts)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e3)
+        extends[bucket] = dict(ms=sorted(times)[2], launches=launches)
+        if not launches["K1" if bucket <= qmc.DECODE_MAX_M else "K2"] == 4 * LAYERS + 1:
+            raise AssertionError(f"masked extend of {bucket} tokens: {launches}")
+    engine.prompt_cache.update([])  # the timed extends wrote KV of their own
+
+    prompt = [p + 11 for p in range(1, 65)]
+    got = engine.generate(prompt, max_completion_tokens=24, temperature=0.0).token_ids
+    fresh = InferenceEngine(model=engine.model, params=engine.params, max_seq_len=1024,
+                            decode_chunk=128)
+    want = fresh.generate(prompt, max_completion_tokens=24, temperature=0.0).token_ids
+    del fresh
+    if got != want:
+        raise AssertionError(f"greedy request after constrained ones: {got} != {want}")
+    return dict(chats=chats, choice_point_ms_by_bucket={b: e["ms"] for b, e in extends.items()},
+                launches_per_choice_point={b: e["launches"] for b, e in extends.items()},
+                mask_build_host_ms=dict(n=len(builds), median=sorted(builds)[len(builds) // 2],
+                                        max=max(builds)),
+                dispatch_buckets={b: dispatches.count(b) for b in sorted(set(dispatches))},
+                after_constrained_equals_fresh=True)
+
+
+def constrained_http(engine, bias):
+    """(b) create_app over the 8B engine: a json_schema chat and a named
+    tool_choice chat over HTTP, each 200 with parsed content / tool_calls."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+
+    from pie_tpu_torch.server.app import create_app
+    from pie_tpu_torch.server.config import Settings
+
+    body = dict(messages=[{"role": "user", "content": "hello world"}], max_tokens=48,
+                temperature=0.0, logit_bias={str(k): v for k, v in bias.items()})
+
+    async def serve():
+        runner = web.AppRunner(create_app(engine=engine, settings=Settings(),
+                                          device=engine.device))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+        out = {}
+        try:
+            async with aiohttp.ClientSession() as s:
+                for name, extra in (
+                    ("json_schema", {"response_format": {"type": "json_schema",
+                                                         "json_schema": {"name": "t",
+                                                                         "schema": SCHEMA}}}),
+                    ("tool_call", {"tools": TOOLS, "tool_choice": NAMED_TOOL,
+                                   "parallel_tool_calls": False}),
+                ):
+                    t0 = time.perf_counter()
+                    async with s.post(f"{url}/v1/chat/completions",
+                                      json=dict(body, **extra)) as r:
+                        data = await r.json()
+                        if r.status != 200:
+                            raise AssertionError(f"{name}: {r.status} {data}")
+                    out[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                                     message=data["choices"][0]["message"])
+        finally:
+            await runner.cleanup()
+        return out
+
+    out = asyncio.run(serve())
+    check_schema(out["json_schema"]["message"]["content"])
+    calls = out["tool_call"]["message"].get("tool_calls") or []
+    check_tool_call([dict(name=c["function"]["name"],
+                          arguments=json.loads(c["function"]["arguments"])) for c in calls])
+    return out
+
+
+def constrained_batched(model, params, tok, bias):
+    """(c) The paged 8-lane INT8 engine with a json_schema lane and a named
+    tool-call lane beside 6 free greedy lanes, twice: on steps replayed from
+    graphs, and on a twin whose same steps run eagerly on the card (tokens
+    equal, every step's logits within 1e-3 normalized, the masked decode
+    and mixed steps among them); the free lanes against the same prompts
+    alone; the constrained outputs checked. Speculation acceptance,
+    launches per masked chunk, ms of a masked chunk against an unmasked
+    one, the masked graphs and the pool's bytes."""
+    import gc
+
+    import numpy as np
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, SeqStatus
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.structured import RootStateMachine
+    from pie_tpu_torch.structured.token_masks import TokenMasker
+
+    def norm_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    masker = TokenMasker(tok)
+    root = RootStateMachine(tok.control_tokens)
+    lanes = [root.configure(response_format={"type": "json_schema", "json_schema": {
+                 "name": "t", "schema": SCHEMA}}),
+             root.configure(tools=TOOLS, tool_choice=NAMED_TOOL)]
+    prompts = [tok.apply_chat_template(HELLO, add_generation_prompt=True),
+               tok.apply_chat_template(HELLO, add_generation_prompt=True, tools=TOOLS)]
+    free = [[1 + (i * 53 + j * 7) % 100000 for j in range(5 + 4 * i)] for i in range(6)]
+    # each free lane's greedy choice pinned to a word of its own: on random
+    # weights a lane's near-ties would flip with the batch around it (a
+    # mixed step's K2 rows against a decode step's K1), while a constrained
+    # neighbour's mask leaking onto it would suppress its word
+    vocab = tok._tok.get_vocab()
+    words = ["hello", "world", "how", "are", "you", "fine"]
+    free_kw = [dict(max_new_tokens=24, temperature=0.0, logit_bias={vocab[w]: 100.0})
+               for w in words]
+    scheds = [Scheduler(PagedEngine(model, params, num_lanes=8, num_pages=112,
+                                    max_pages_per_seq=12, kv_quantized=True),
+                        decode_steps=8) for _ in range(2)]
+    scheds[1].engine.graphs = eager_steps(scheds[1].engine.graphs)
+    spec = dict(speculated=0, accepted=0)
+    chunks = []
+
+    def instrument(sc):
+        drain, emit_c, chunk = (sc._drain_constrained_lane, sc._emit_constrained,
+                                sc.engine._chunk)
+
+        def counted_drain(lane, seq, emitted, n, first_masked):
+            spec["speculated"] += max(0, int((emitted[:, lane] != -1).sum()) - 1)
+            return drain(lane, seq, emitted, n, first_masked)
+
+        def counted_emit(seq, token, masked=True):
+            ok = emit_c(seq, token, masked)
+            spec["accepted"] += int(ok and not masked)
+            return ok
+
+        def counted_chunk(params, num_steps, *a, mask=None, rider=None, **kw):
+            before = dict(qmc.launch_counts)
+            out = chunk(params, num_steps, *a, mask=mask, rider=rider, **kw)
+            if mask is not None:
+                chunks.append(dict(steps=num_steps, mixed=rider is not None, launches={
+                    k: qmc.launch_counts[k] - before[k] for k in before}))
+            return out
+
+        sc._drain_constrained_lane, sc._emit_constrained = counted_drain, counted_emit
+        sc.engine._chunk = counted_chunk
+
+    instrument(scheds[0])
+    runs = []
+    for sc in scheds:
+        sc.engine.graphs = Tap(sc.engine.graphs)
+        seqs = [sc.add_request(p, max_new_tokens=48, logit_bias=bias,
+                               machine=st.machine.copy(),
+                               masker=masker, state_kwargs=st.state_kwargs,
+                               stop_token_ids=tuple(tok.stop_tokens),
+                               temperature=st.generation_kwargs.get("temperature", 0.0))
+                for p, st in zip(prompts, lanes)]
+        seqs += [sc.add_request(p, **kw) for p, kw in zip(free, free_kw)]
+        t0 = time.perf_counter()
+        sc.run_to_completion()
+        torch.cuda.synchronize()
+        runs.append(dict(seqs=seqs, s=time.perf_counter() - t0))
+    masked_chunks = [c for c in chunks if c["steps"]]  # the counted run's
+    streams = [[(q.output_ids, q.finish_reason) for q in r["seqs"]] for r in runs]
+    taps = [sc.engine.graphs for sc in scheds]
+    errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
+    masked_keys = sorted({k[0] for k in taps[0].inner.keys if k[4]})
+    if not (streams[0] == streams[1] and max(errs) < 1e-3
+            and masked_keys == ["decode", "mixed"] and taps[0].inner.replays > 0):
+        raise AssertionError(f"masked graphs against eager steps: tokens equal "
+                             f"{streams[0] == streams[1]}, max err {max(errs)}, "
+                             f"masked keys {masked_keys}")
+    texts = ["".join(masker.token_strs[t] for t in q.output_ids
+                     if t < masker.vocab_size and t not in tok.stop_tokens)
+             for q in runs[0]["seqs"][:2]]
+    check_schema(texts[0])
+    label, calls = RootStateMachine.labeled_output(lanes[1], texts[1])
+    if label != "tool_calls":
+        raise AssertionError(f"tool lane: {texts[1]!r}")
+    check_tool_call(calls)
+    sc = scheds[0]
+    sc.engine.graphs = taps[0].inner
+    alone = [sc.add_request(p, **kw) for p, kw in zip(free, free_kw)]
+    sc.run_to_completion()
+    if [q.output_ids for q in alone] != [q.output_ids for q in runs[0]["seqs"][2:]]:
+        raise AssertionError("free lanes beside constrained ones differ from alone")
+    if [set(q.output_ids) for q in alone] != [{vocab[w]} for w in words]:
+        raise AssertionError(f"free lanes: {[q.output_ids for q in alone]}")
+
+    # a masked chunk against an unmasked one: 8 decoding lanes, 8 steps
+    e = sc.engine
+    busy = [sc.add_request(p, max_new_tokens=200, temperature=0.0) for p in free + free[:2]]
+    while any(q.status != SeqStatus.DECODING for q in busy):
+        sc.step()
+    for q in busy:
+        q.cancelled = True  # the direct chunks below advance only the device state
+    allowed = np.zeros((8, VOCAB), bool)
+    allowed[:, :masker.vocab_size] = True
+    valid = np.zeros((8,), bool)
+    valid[:2] = True
+    graphs0 = e.graphs.stats()
+    chunk_ms = {}
+    for name, kw in (("unmasked", {}), ("masked", dict(mask=(allowed, valid)))):
+        run = lambda: e._chunk(e.params, 8, "greedy", False, False, **kw)  # noqa: E731
+        run()
+        chunk_ms[name] = sorted(event_ms(run) for _ in range(3))[1]
+    sc.run_to_completion()
+    stats = e.graphs.stats()
+    masked_graphs = sum(1 for k in e.graphs.keys if k[4])
+    del scheds, sc, e, taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_chunk = {k: sum(c["launches"][k] for c in masked_chunks) / len(masked_chunks)
+                 for k in ("K1", "K1 ln", "K2", "K3", "K4")}
+    per_step = {k: sum(c["launches"][k] for c in masked_chunks)
+                / sum(c["steps"] for c in masked_chunks) for k in per_chunk}
+    if not (per_step["K1"] > 0 and per_step["K3"] == LAYERS):
+        raise AssertionError(f"masked chunks launched {per_step} per step")
+    return dict(streams_equal_eager=True, steps=len(errs), max_norm_err=max(errs),
+                masked_keys=masked_keys, free_equal_alone=True,
+                outputs=texts, run_s=[r["s"] for r in runs],
+                acceptance=dict(spec, rate=spec["accepted"] / max(1, spec["speculated"])),
+                masked_chunks=len(masked_chunks),
+                launches_per_masked_chunk=per_chunk, launches_per_masked_step=per_step,
+                chunk_ms=chunk_ms, masked_graphs=masked_graphs,
+                graphs_before_timing=graphs0, graphs=stats)
+
+
+def phase_constrained(engine, card):
+    """Phase 11: constrained decoding on the 8B engines, (a) single stream,
+    (b) HTTP, (c) batched; (d) runs inside phase 9's servers."""
+    tok = word_tokenizer()
+    bias = steer_bias(tok)
+    row = dict(phase="constrained", geometry="llama3-8b int4 g64", layers=LAYERS,
+               card=card)
+    row["single"] = constrained_single(engine, tok)
+    row["http"] = constrained_http(engine, bias)
+    row["batched"] = constrained_batched(engine.model, engine.params, tok, bias)
+    emit(row)
+    return row
+
+
 # -- phase 8: the 1B snapshot ---------------------------------------------------
 
 
@@ -1587,6 +1981,17 @@ def phase_serve(snap):
     hello = word_tokenizer().encode("hello", add_bos=False)[0]
     chat = dict(messages=[{"role": "user", "content": "hello world"}], max_tokens=8,
                 temperature=0.0, logit_bias={str(hello): 100.0})
+    # phase 11d: a json_schema chat on each server
+    json_chat = dict(chat, max_tokens=48, response_format={
+        "type": "json_schema", "json_schema": {"name": "t", "schema": SCHEMA}},
+        logit_bias={str(k): v for k, v in steer_bias(word_tokenizer()).items()})
+
+    def json_schema(url):
+        ms, text = ok(*http("POST", f"{url}/v1/chat/completions", json_chat),
+                      "json_schema chat")
+        content = json.loads(text)["choices"][0]["message"]["content"]
+        check_schema(content)
+        return dict(json_schema_ms=ms, json_schema_content=content)
 
     def ok(status, secs, text, what):
         if status != 200:
@@ -1609,7 +2014,7 @@ def phase_serve(snap):
         if "hello" not in content or "hello" not in json.loads(text)["choices"][0]["text"]:
             raise AssertionError(f"replies without the forced word: {content!r}, {text}")
         return dict(chat_ms=ms_chat, chat_again_ms=ms_again, chat_sse_ms=ms_sse,
-                    completion_ms=ms_cmp, content=content)
+                    completion_ms=ms_cmp, content=content, **json_schema(url))
 
     def batched(url):
         ms_first, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "first chat")
@@ -1625,7 +2030,8 @@ def phase_serve(snap):
         if len(set(texts)) != 1 or "hello" not in texts[0] or two != texts[:1] * 2:
             raise AssertionError(f"batched replies differ: {texts}, n=2 {two}")
         return dict(first_chat_ms=ms_first, concurrent_ms=[ms for ms, _ in many],
-                    concurrent_wall_ms=wall, n2_ms=ms_n2, content=texts[0])
+                    concurrent_wall_ms=wall, n2_ms=ms_n2, content=texts[0],
+                    **json_schema(url))
 
     rows = []
     for env, ask in (({}, single),
@@ -1635,6 +2041,9 @@ def phase_serve(snap):
                    startup_s=startup, **out)
         emit(row)
         rows.append(row)
+    emit(dict(phase="constrained 1B", entry="python -m pie_tpu_torch.server",
+              json_schema={("batching" if r["env"] else "single"): dict(
+                  ms=r["json_schema_ms"], content=r["json_schema_content"]) for r in rows}))
     return rows
 
 
@@ -1834,6 +2243,7 @@ def main() -> int:
     timed("graphs vs eager 8B", phase_graphs, engine.model, engine.params,
           "llama3-8b int4 g64")
     timed("batched requests 8B", phase_batched_requests, engine.model, engine.params)
+    timed("constrained 8B", phase_constrained, engine, card)
     del engine
     torch.cuda.empty_cache()
 

@@ -5,13 +5,14 @@ server can serve many concurrent requests with continuous batching.
 Port of the JAX package's ``pie_tpu/engine/async_engine.py`` with its
 Python scheduler. Requests from any thread go through a thread-safe queue
 into the shared ``Scheduler``; tokens stream back per request; a checkpoint
-(``model_path``) loads through ``models/loader.py``. Only the scheduler
+(``model_path``) loads through ``models/loader.py``; a constrained request
+(``generate_constrained``, a structured chat) carries its machine into the
+scheduler, which decodes it beside the other lanes. Only the scheduler
 thread touches CUDA: it runs every device program, so the step graphs are
 captured there (a request thread only queues and reads host objects, and
-``capture_error_mode="thread_local"`` would let it touch CUDA anyway). Not ported yet, and
-refused with ``InferenceError``: the native scheduler
-(``scheduler_impl="native"``, ROADMAP A7), image inputs (A9) and
-constrained decoding (A8).
+``capture_error_mode="thread_local"`` would let it touch CUDA anyway). Not
+ported yet, and refused with ``InferenceError``: the native scheduler
+(``scheduler_impl="native"``, ROADMAP A7) and image inputs (A9).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from pie_tpu_torch.engine.engine import (
     InferenceError,
     StreamedToken,
     _chat_run,
+    masked_text,
 )
 from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, Sequence
 from pie_tpu_torch.utils.device import resolve_device
@@ -202,8 +204,73 @@ class BatchedInferenceEngine:
             except StopIteration as e:
                 return e.value
 
-    def generate_constrained(self, *args, **kwargs):
-        raise InferenceError("constrained decoding is not ported yet")
+    # -- constrained decoding (structured generation) --------------------
+
+    _token_masker = None
+
+    @property
+    def token_masker(self):
+        """The vocabulary index for constrained decoding, built at first use."""
+        if self._token_masker is None:
+            from pie_tpu_torch.structured.token_masks import TokenMasker
+
+            if self.tokenizer is None:
+                raise InferenceError("constrained decoding requires a tokenizer")
+            self._token_masker = TokenMasker(self.tokenizer)
+        return self._token_masker
+
+    def generate_constrained(
+        self,
+        prompt_ids,
+        machine,
+        max_completion_tokens: int = 1024,
+        stop_token_ids=(),
+        logprobs: bool = False,
+        **kwargs,
+    ):
+        """Constrained generation under continuous batching: the sequence
+        carries its character machine into the scheduler, which masks its
+        choice points chunk by chunk and sends forced-token runs through
+        the prefill rider (``Scheduler._emit_constrained``), while the
+        other lanes go on decoding. Returns (GenerationResult, text), as
+        ``InferenceEngine.generate_constrained``; ``logprobs`` is accepted
+        and not reported on the batched path."""
+        if not prompt_ids:
+            raise InferenceError("empty prompt")
+        state_kwargs = kwargs.pop("state_kwargs", None) or {}
+        masker = self.token_masker
+        self.start()
+        done = threading.Event()
+        seq = Sequence(
+            seq_id=self._next_id(),
+            prompt_ids=list(prompt_ids),
+            max_new_tokens=max_completion_tokens,
+            stop_token_ids=tuple(stop_token_ids),
+            temperature=float(kwargs.get("temperature", 1.0)),
+            top_p=float(kwargs.get("top_p", 1.0)),
+            min_p=float(kwargs.get("min_p", 0.0)),
+            top_k=int(kwargs.get("top_k", -1)),
+            repetition_penalty=float(kwargs.get("repetition_penalty", 1.0)),
+            presence_penalty=float(kwargs.get("presence_penalty", 0.0)),
+            frequency_penalty=float(kwargs.get("frequency_penalty", 0.0)),
+            logit_bias=dict(kwargs.get("logit_bias") or {}),
+            machine=machine.copy(),
+            masker=masker,
+            state_kwargs=state_kwargs,
+        )
+        seq.on_finish = lambda s: done.set()
+        self._submit_q.put(seq)
+        self._wake.set()
+        done.wait()
+        finish = seq.finish_reason or "length"
+        if finish.startswith("error") and "constrained" not in finish:
+            raise InferenceError(finish)
+        return GenerationResult(
+            token_ids=list(seq.output_ids),
+            finish_reason=finish,
+            prompt_tokens=len(seq.prompt_ids),
+            completion_tokens=len(seq.output_ids),
+        ), masked_text(masker, seq.output_ids)
 
     # chat surface shared with InferenceEngine
     def chat_stream(self, interactions, **kw):

@@ -4,10 +4,12 @@ Port of the single-stream engine of the JAX package's
 ``pie_tpu/engine/engine.py``: bucketed prefill, chunked decode with a
 bounded lookahead of queued chunks, stop tokens, max tokens, logprobs,
 logit bias and penalties, the prompt cache, and the INT8 KV threshold;
-plus the chat API (``_chat_run`` / ``_chat``) and loading a checkpoint
-(``model_path``: ``models/loader.py`` and the snapshot's tokenizer). Not
-ported yet: constrained decoding (``generate_constrained``) and image
-inputs; both raise ``InferenceError`` rather than decode something else.
+constrained decoding (``generate_constrained``: one masked, bucketed
+prefill per choice point, forced runs encoded on the host); the chat API
+(``_chat_run`` / ``_chat``, structured requests included) and loading a
+checkpoint (``model_path``: ``models/loader.py`` and the snapshot's
+tokenizer). Not ported yet: image inputs, which raise ``InferenceError``
+rather than decode something else.
 """
 
 from __future__ import annotations
@@ -73,6 +75,36 @@ def _pow2_width(n: int) -> int:
     while w < n:
         w *= 2
     return w
+
+
+def forced_run(machine) -> str:
+    """The characters a constraint machine fixes from its current state:
+    followed while exactly one character is allowed (never the FreeString
+    wildcard), up to completion or 4,096 characters. Empty for a machine
+    without ``allowed_chars``."""
+    from pie_tpu_torch.structured.token_masks import ANY_CHAR
+
+    if not hasattr(machine, "allowed_chars"):
+        return ""
+    chars: list[str] = []
+    probe = machine.copy()
+    while len(chars) < 4096:
+        allowed = probe.allowed_chars()
+        if len(allowed) != 1:
+            break
+        ch = next(iter(allowed))
+        if ch == ANY_CHAR or not probe.advance(ch):
+            break
+        chars.append(ch)
+        if probe.is_complete:
+            break
+    return "".join(chars)
+
+
+def masked_text(masker, ids) -> str:
+    """The text of token ids the masker can decode (the others skipped)."""
+    return "".join(masker.token_strs[t] for t in ids
+                   if t < masker.vocab_size and masker.token_strs[t] is not None)
 
 
 def _bucket(n: int, buckets=PREFILL_BUCKETS) -> int:
@@ -421,6 +453,210 @@ class InferenceEngine:
             self.prompt_cache.update(list(prompt_ids) + out_tokens)
         return self._result(prompt_ids, out_tokens, out_logprobs, finish, logprobs)
 
+    # -- constrained decoding (structured generation) -------------------
+
+    @property
+    def token_masker(self):
+        """The vocabulary index for constrained decoding, built at first use."""
+        if getattr(self, "_token_masker", None) is None:
+            from pie_tpu_torch.structured.token_masks import TokenMasker
+
+            if self.tokenizer is None:
+                raise InferenceError("constrained decoding requires a tokenizer")
+            self._token_masker = TokenMasker(self.tokenizer)
+        return self._token_masker
+
+    EXTEND_BUCKETS = (8, 16, 32, 64, 128, 256)
+
+    def generate_constrained(
+        self,
+        prompt_ids,
+        machine,
+        max_completion_tokens: int = 1024,
+        stop_token_ids=(),
+        logprobs: bool = False,
+        **kwargs,
+    ):
+        """Generation under a character-machine constraint: mask, sample,
+        advance, with one device program per choice point.
+
+        - The prompt prefill is the first choice point: one bucketed
+          ``_prefill`` that samples under the mask (the port's models bound
+          no prefill chunk, so no head chunks run before it).
+        - Every later choice point is one bucketed extend
+          (``EXTEND_BUCKETS``) that writes the KV of the pending run and
+          samples the next token under the mask.
+        - Forced tokens: a run of characters the machine fixes is encoded on
+          the host (``encode_longest``), emitted with no device work, and
+          its KV rides the next extend.
+        - A freeform sub-state that admits any token samples unmasked.
+        - Per-state sampler overrides (``state_kwargs``, keyed by the
+          machine's ``active_names()``) at each choice point.
+        - ``stop_token_ids`` and ``logprobs`` (a forced token reports 0.0).
+
+        The mask is built on the host, padded to the model's vocabulary and
+        copied to the device from pinned memory, one [1, V] bool per choice
+        point; the only read back is the sampled token (with its logprobs).
+        The KV this writes replaces the prompt cache's claim: afterwards the
+        cache claims the prompt and the output tokens whose KV was written.
+
+        Returns (GenerationResult, text).
+        """
+        masker = self.token_masker
+        machine = machine.copy()
+        v = self.model.config.vocab_size
+        prompt_ids = list(prompt_ids)
+        plen = len(prompt_ids)
+        state_kwargs = kwargs.pop("state_kwargs", None) or {}
+        sampling = self._sampling(kwargs)
+        penalties = self._penalties(kwargs)
+        bias_ids, bias_vals = self._bias(kwargs)
+        stop_set = set(stop_token_ids)
+
+        def host_kind(kw):
+            return sampler_kind_for(
+                kw.get("temperature", 1.0), kw.get("top_p", 1.0),
+                kw.get("min_p", 0.0), kw.get("top_k", -1),
+                kw.get("xtc_probability", 0.0),
+            )
+
+        skind = host_kind(kwargs)
+
+        def resolve_params():
+            """Sampler parameters for the machine's current state: a
+            composite machine (reasoning + tool call) keys its per-state
+            overrides off active_names() at each choice point."""
+            if not state_kwargs or not hasattr(machine, "active_names"):
+                return sampling, skind
+            kw = dict(kwargs)
+            for n in sorted(machine.active_names()):
+                if n in state_kwargs:
+                    kw.update(state_kwargs[n])
+            return self._sampling(kw), host_kind(kw)
+
+        def build_mask():
+            """The [1, V] mask on the device, or None while a freeform
+            sub-state accepts any token. ANY_CHAR alone is not enough: a
+            JSON FreeString allows any character but still rejects
+            undecodable and control tokens."""
+            if getattr(machine, "is_unconstrained", lambda: False)():
+                return None
+            m = masker.build_mask(machine)
+            full = np.zeros((1, v), bool)
+            full[0, :m.shape[0]] = m
+            return host_tensor(full, self.device)
+
+        out_tokens: list[int] = []
+        out_logprobs: list[TokenLogprob] = []
+        finish = "length"
+
+        def dispatch(ids, first_pos, mask, bucket):
+            """One prefill of ``ids`` padded to ``bucket`` from ``first_pos``
+            that samples the next token under ``mask``; the token (and its
+            logprobs) read back in one copy."""
+            n = len(ids)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = ids
+            sp, sk = resolve_params()
+            _, token, aux = self.core._prefill(
+                self.params, self.state, self._ids(padded), self._full(n),
+                self._full(first_pos), sp, penalties, bias_ids, bias_vals,
+                allowed_mask=mask, return_logprobs=logprobs, sampler_kind=sk,
+            )
+            if aux is None:
+                return int(token.cpu()[0]), None
+            k = aux[1].shape[1]
+            row = torch.cat([token.float(), aux[0], aux[1][0],
+                             aux[2][0].float()]).cpu().numpy()
+            return int(row[0]), (float(row[1]), row[2:2 + k],
+                                 row[2 + k:].astype(np.int64))
+
+        def emit_sampled(tok, aux):
+            if logprobs and aux is not None:
+                chosen, tv, ti = aux
+                out_logprobs.append(TokenLogprob(
+                    tok, chosen,
+                    list(zip(ti.tolist(), np.asarray(tv, np.float64).tolist()))))
+            out_tokens.append(tok)
+
+        if plen > self.core.max_seq_len - 1:
+            raise InferenceError("prompt exceeds engine max_seq_len")
+        # the prompt prefill is the first choice point
+        tok, aux = dispatch(prompt_ids, 0, build_mask(), self._prefill_bucket(plen))
+        cur_len = plen  # tokens whose KV is in the cache
+
+        def extend(pending, mask):
+            """Write the KV of ``pending`` and sample under ``mask``."""
+            nonlocal cur_len
+            out = dispatch(pending, cur_len, mask,
+                           _bucket(len(pending), self.EXTEND_BUCKETS))
+            cur_len += len(pending)
+            return out
+
+        while True:
+            if tok in stop_set:
+                finish = "stop"
+                break
+            tstr = masker.token_strs[tok] if tok < masker.vocab_size else None
+            unconstrained = getattr(machine, "is_unconstrained", lambda: False)()
+            if tstr is None and unconstrained:
+                # an undecodable (partial UTF-8) token in a freeform phase:
+                # emitted without advancing the character machine
+                emit_sampled(tok, aux)
+                if len(out_tokens) >= max_completion_tokens:
+                    break
+                if cur_len + 1 >= self.core.max_seq_len:
+                    break
+                tok, aux = extend([tok], build_mask())
+                continue
+            if tstr is None or not machine.advance(tstr):
+                logger.warning("constrained decoding: token %d (%r) rejected by "
+                               "the machine", tok, tstr)
+                finish = "error: constrained decoding produced invalid token"
+                break
+            emit_sampled(tok, aux)
+            if machine.is_complete:
+                finish = "stop"
+                break
+            if len(out_tokens) >= max_completion_tokens:
+                break
+            if cur_len + 1 >= self.core.max_seq_len:
+                break
+
+            # forced fast path: the machine fixes a run of characters; its
+            # greedy tokenization is emitted here and its KV rides along in
+            # the next extend
+            pending = [tok]
+            forced = forced_run(machine)
+            if forced:
+                budget = min(max_completion_tokens - len(out_tokens),
+                             self.core.max_seq_len - cur_len - len(pending))
+                for fid in masker.encode_longest(forced)[:budget]:
+                    if not machine.advance(masker.token_strs[fid]):
+                        # a token whose multi-character advance the machine
+                        # rejects: drop it and resume at the choice point
+                        break
+                    out_tokens.append(fid)
+                    if logprobs:
+                        out_logprobs.append(TokenLogprob(fid, 0.0, []))
+                    pending.append(fid)
+                    if machine.is_complete:
+                        finish = "stop"
+                        break
+            if finish == "stop":
+                break
+            mask = build_mask()
+            if len(out_tokens) >= max_completion_tokens:
+                break
+            if cur_len + len(pending) >= self.core.max_seq_len:
+                break
+            tok, aux = extend(pending, mask)
+
+        if self.prompt_cache is not None:
+            self.prompt_cache.update(prompt_ids + out_tokens[:cur_len - plen])
+        return self._result(prompt_ids, out_tokens, out_logprobs, finish,
+                            logprobs), masked_text(masker, out_tokens)
+
     def _result(self, prompt_ids, out_tokens, out_logprobs, finish, logprobs):
         return GenerationResult(
             token_ids=out_tokens,
@@ -489,7 +725,38 @@ def _chat_run(
         reasoning=reasoning,
     )
     if st.machine is not None:
-        raise InferenceError("constrained decoding is not ported yet")
+        merged = dict(sampling_kwargs)
+        merged.update(st.generation_kwargs)
+        if st.state_kwargs:
+            merged["state_kwargs"] = st.state_kwargs
+        result, text = engine.generate_constrained(
+            prompt_ids, st.machine, max_completion_tokens, **merged
+        )
+        yield ChatDelta(text=text)
+        reasoning_content, visible = RootStateMachine.split_reasoning(st, text)
+        label, value = RootStateMachine.labeled_output(st, text)
+        content = []
+        finish = result.finish_reason
+        if label == "tool_calls":
+            for c in value:
+                content.append(Content.tool_call_content(c["name"], c["arguments"]))
+            finish = "tool_calls"
+        else:
+            content.append(Content.text_content(visible))
+            if finish.startswith("error"):
+                finish = "stop"
+        return Interaction(
+            role=InteractionRole.ASSISTANT,
+            content=content,
+            metadata={
+                "finish_reason": finish,
+                "prompt_tokens": result.prompt_tokens,
+                "completion_tokens": result.completion_tokens,
+                "logprobs": None,
+                "token_ids": result.token_ids,
+                "reasoning_content": reasoning_content,
+            },
+        )
     stop_strings = [stop] if isinstance(stop, str) else list(stop or [])
     dec = IncrementalDecoder(tok)
     matcher = StopSequenceMatcher(stop_strings)

@@ -26,10 +26,20 @@ each chunk's tokens land in a tensor of its own.
 
 The pool is written in place; inputs go to the card through pinned host
 buffers (a copy from pageable memory would wait for the device), copied
-into the static buffers on the stream, outside any graph. Not
-ported: constrained decoding, image prompts and M-RoPE (requests carrying
-them are refused by ``BatchedInferenceEngine``), and the native
-scheduler's ``_decode_impl`` / ``_sample_first_impl`` (ROADMAP A7).
+into the static buffers on the stream, outside any graph.
+
+Constrained lanes (a sequence carrying a character machine) decode
+speculatively inside full chunks: the host builds each such lane's token
+mask for its next choice point, the step applies it only to the lane's
+first token sampled in the chunk (a per-lane count on the device, reset at
+the chunk's start), the later steps sample unmasked, and the drain accepts
+the longest prefix the machine accepts, rolls the lane back to the host's
+truth past it, and re-arms forced-token runs through the prefill rider or
+a direct prefill. A chunk with a mask runs the steps keyed by ``use_mask``;
+chunks without one keep their own steps and upload no mask. Not ported:
+image prompts and M-RoPE (requests carrying them are refused by
+``BatchedInferenceEngine``), and the native scheduler's ``_decode_impl`` /
+``_sample_first_impl`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import functools
 import itertools
 import logging
 from collections import deque
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -52,6 +62,7 @@ from pie_tpu_torch.cache.paged import (
     PrefixStore,
 )
 from pie_tpu_torch.engine.core import PAD_TOKEN, PenaltyParams
+from pie_tpu_torch.engine.engine import forced_run
 from pie_tpu_torch.engine.graphs import StepGraphs
 from pie_tpu_torch.ops.sampling import (
     SAMPLER_KINDS,
@@ -115,9 +126,18 @@ class Sequence:
     cancelled: bool = False
     on_token: Optional[Callable[["Sequence", int], None]] = None
     on_finish: Optional[Callable[["Sequence"], None]] = None
+    # constrained decoding: the character machine that restricts the
+    # output and the vocabulary masker that turns its state into a token
+    # mask (set by BatchedInferenceEngine.generate_constrained)
+    machine: Any = None
+    masker: Any = None
+    # per-sub-state sampler overrides keyed by machine.active_names(),
+    # resolved each chunk against the request's own sampling parameters
+    state_kwargs: dict = dataclasses.field(default_factory=dict)
     # tokens whose KV still needs writing, starting at pool position
     # pending_base; the LAST pending token is the wake token (its KV is
-    # written during its own decode step)
+    # written during its own decode step). The prompt at admission; a
+    # forced-token run of a constrained lane re-arms it.
     pending: list[int] = dataclasses.field(default_factory=list)
     pending_base: int = 0
     # the prompt's full pages are registered in the PrefixStore (at first wake)
@@ -235,6 +255,13 @@ class PagedEngine:
             bias_vals=torch.zeros((b, MAX_BIAS), dtype=torch.float32, device=dev),
         )
         self._rider = torch.full((2 * rider_width + 2,), -1, dtype=i32, device=dev)
+        # constrained lanes: the chunk's token masks [B, V] (made at the
+        # first masked chunk), which lanes they apply to, and the tokens
+        # each lane has sampled since the chunk began (the mask applies to
+        # the first only)
+        self.allowed: Optional[torch.Tensor] = None
+        self.mask_valid = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.sampled = torch.zeros((b,), dtype=i32, device=dev)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A copy of host array ``a`` on the engine's device, queued without
@@ -252,12 +279,13 @@ class PagedEngine:
                                  context_len, with_logits=False)
 
     def _step(self, params, sampler_kind: str, use_penalties: bool,
-              use_bias: bool, mixed: bool):
+              use_bias: bool, mixed: bool, use_mask: bool = False):
         """One continuous-batching step over the static buffers (a graph's
         body): every live lane advances one token (a mixed step also
         writes the rider slice's K/V), samples, and freezes on a stop token
-        or its length budget; frozen lanes emit PAD. Returns (emitted [B],
-        logits [B, V])."""
+        or its length budget; frozen lanes emit PAD. ``use_mask``: a lane
+        flagged in ``mask_valid`` samples its first token of the chunk
+        under its row of ``allowed``. Returns (emitted [B], logits [B, V])."""
         st, lp, model = self.lanes, self.lane_params, self.model
         pad = torch.full_like(st.last, PAD_TOKEN)
         active = ~st.done
@@ -283,6 +311,11 @@ class PagedEngine:
                                  lp.pen.dry_base, lp.pen.dry_allowed)
         if use_bias:
             logits = apply_logit_bias(logits, lp.bias_ids, lp.bias_vals)
+        if use_mask:
+            first = self.mask_valid & (self.sampled == 0)
+            logits = torch.where(first[:, None] & ~self.allowed,
+                                 torch.full_like(logits, -1e30), logits)
+            self.sampled.add_(active.to(torch.int32))
         tok = sample(logits, lp.sampling, self.key, kind=sampler_kind)
         tok = torch.where(active, tok, st.last)
         emitted = torch.where(active, tok, pad)
@@ -310,14 +343,18 @@ class PagedEngine:
         use_bias: bool,
         rider: Optional[RiderPlan] = None,
         wake: Optional[WakePlan] = None,
+        mask: Optional[tuple] = None,
     ) -> torch.Tensor:
         """``num_steps`` continuous-batching steps on the static lane state
         with no read back to the host: lanes wake at their planned step
         (eager updates of the static buffers before that step), then each
         step runs the rider-free or the mixed step graph, keyed by
-        (sampler kind, penalties on, bias on), as JAX's ``use_rider``
-        picks one of two programs. Returns the chunk's emitted tokens
-        [N, B] int32, a tensor of its own that later chunks leave alone."""
+        (sampler kind, penalties on, bias on, mask on), as JAX's
+        ``use_rider`` picks one of two programs. ``mask``: host arrays
+        (allowed [B, V] bool, valid [B] bool) of the constrained lanes,
+        copied into the static buffers before the first step. Returns the
+        chunk's emitted tokens [N, B] int32, a tensor of its own that later
+        chunks leave alone."""
         st, b = self.lanes, self.num_lanes
         if sampler_kind not in SAMPLER_KINDS:
             raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host")
@@ -331,6 +368,14 @@ class PagedEngine:
             w_tok, w_ctx, w_prod, w_hist = (
                 self.to_device(a) for a in (wake.tokens, wake.ctx, wake.prod, wake.hist))
             woken = set(int(s) for s in wake.step if s >= 0)
+        if mask is not None:
+            allowed, valid = mask
+            if self.allowed is None:
+                self.allowed = torch.ones(allowed.shape, dtype=torch.bool,
+                                          device=self.device)
+            upload(self.allowed, allowed)
+            upload(self.mask_valid, valid)
+            self.sampled.zero_()
         emitted = torch.empty((num_steps, b), dtype=torch.int32, device=self.device)
         for s in range(num_steps):
             self.device_steps += 1
@@ -345,10 +390,11 @@ class PagedEngine:
             if mixed:
                 self._rider.copy_(rider_dev[s])
             key = ("mixed" if mixed else "decode", sampler_kind, use_penalties,
-                   use_bias, id(params))
+                   use_bias, mask is not None, id(params))
             out = self.graphs(
                 key, functools.partial(self._step, params, sampler_kind,
-                                       use_penalties, use_bias, mixed),
+                                       use_penalties, use_bias, mixed,
+                                       mask is not None),
                 samples=sampler_kind != "greedy")
             emitted[s].copy_(out[0])
         return emitted
@@ -441,8 +487,11 @@ class Scheduler:
     # -- one scheduling step (= one device chunk) ------------------------
 
     def _all_decoding(self) -> bool:
+        """Every lane decodes freely: none prefills, none is cancelled and
+        none carries a machine (a constrained lane's chunks are drained
+        before the next is planned)."""
         return bool(self.running) and all(
-            s.status == SeqStatus.DECODING and not s.cancelled
+            s.status == SeqStatus.DECODING and s.machine is None and not s.cancelled
             for s in self.running.values()
         )
 
@@ -453,8 +502,16 @@ class Scheduler:
         While prefill work is pending the chunk is sized to the rider slices
         it needs (a power of two, at most ``decode_steps``); steady decode
         chunks are ``decode_steps`` long. In steady decode (every lane
-        decoding, nothing queued) the next chunk is dispatched on the
-        device-chained lane state before the previous one is drained."""
+        decoding, nothing queued, no constrained lane) the next chunk is
+        dispatched on the device-chained lane state before the previous one
+        is drained.
+
+        Constrained lanes run speculatively inside full chunks: the mask of
+        the lane's choice point applies to its first sampled token only,
+        the rest sample unmasked, and the drain keeps the longest prefix
+        the machine accepts (an unmasked sample conditioned on the
+        machine's acceptance is distributed as a masked one, so greedy
+        streams equal the per-token masked loop's)."""
         if not self.waiting and self._all_decoding():
             self._fill_pipeline()
             if self._inflight:
@@ -470,7 +527,8 @@ class Scheduler:
             if clean:
                 new = [(l, s) for l, s in sorted(self.running.items())
                        if l not in pre_lanes]
-                if new and all(len(s.pending) - 1 == s.prefill_pos for _, s in new):
+                if new and all(s.machine is None and len(s.pending) - 1 == s.prefill_pos
+                               for _, s in new):
                     # fully prefilled new lanes wake at step 0 of a chunk
                     # dispatched on the chained state before the old drains
                     out = self._dispatch_pipelined_wake(new)
@@ -547,12 +605,13 @@ class Scheduler:
                        (st.prod, self.produced)):
             upload(dst, a)
 
-    def _run_chunk(self, n, rider=None, wake=None) -> torch.Tensor:
+    def _run_chunk(self, n, rider=None, wake=None, mask=None) -> torch.Tensor:
         """Dispatch one chunk on the engine's static lane state: chained
         from the previous chunk when ``_chained`` is set, else loaded from
-        the host mirrors. The block tables and (after an admission) the
-        request parameters are copied into their static buffers first, all
-        queued from pinned memory. Returns the chunk's emitted tokens."""
+        the host mirrors. The block tables and (after an admission or a
+        change of a constrained lane's sampling phase) the request
+        parameters are copied into their static buffers first, all queued
+        from pinned memory. Returns the chunk's emitted tokens."""
         e = self.engine
         if not self._chained:
             self._host_state()
@@ -568,6 +627,7 @@ class Scheduler:
             e.params, num_steps=n, sampler_kind=self._sampler_kind(),
             use_penalties=bool(pen_on),
             use_bias=bool((self.bias_ids >= 0).any()), rider=rider, wake=wake,
+            mask=mask,
         )
 
     def _dispatch_steady(self, n: int) -> torch.Tensor:
@@ -655,13 +715,13 @@ class Scheduler:
         return self._emit_chunk(emitted, n)
 
     def _emit_chunk(self, emitted: np.ndarray, n: int) -> list[Sequence]:
-        """Hand a drained chunk's tokens to their sequences, in step order;
-        a cancellation (possibly raised by a callback during this drain)
-        drops the lane's remaining tokens."""
+        """Hand a drained chunk's tokens to their free (machine-less)
+        sequences, in step order; a cancellation (possibly raised by a
+        callback during this drain) drops the lane's remaining tokens."""
         finished: list[Sequence] = []
         for lane in list(self.running.keys()):
             seq = self.running[lane]
-            if seq.status != SeqStatus.DECODING:
+            if seq.status != SeqStatus.DECODING or seq.machine is not None:
                 continue
             for s in range(n):
                 if seq.cancelled:
@@ -681,9 +741,39 @@ class Scheduler:
                     finished.append(seq)
         return finished
 
+    def _chunk_masks(self) -> Optional[tuple]:
+        """The host masks of the constrained decoding lanes' next choice
+        points: (allowed [B, V], valid [B]), or None when no lane carries
+        a machine. Sets each such lane's sampling parameters to its
+        machine's phase (state_kwargs)."""
+        lanes = [(lane, s) for lane, s in self.running.items()
+                 if s.machine is not None and s.status == SeqStatus.DECODING]
+        if not lanes:
+            return None
+        b, v = self.engine.num_lanes, self.engine.model.config.vocab_size
+        allowed = np.ones((b, v), bool)
+        valid = np.zeros((b,), bool)
+        for lane, seq in lanes:
+            machine = seq.machine
+            if seq.state_kwargs and hasattr(machine, "active_names"):
+                phase = self._phase_params(seq)
+                for k, val in zip(("temperature", "top_p", "min_p", "top_k"), phase):
+                    val = self.samp[k].dtype.type(val)
+                    if self.samp[k][lane] != val:
+                        self.samp[k][lane] = val
+                        self._lane_params = None
+            if getattr(machine, "is_unconstrained", lambda: False)():
+                continue  # a freeform phase samples unmasked
+            m = seq.masker.build_mask(machine)
+            allowed[lane] = False
+            allowed[lane, :m.shape[0]] = m
+            valid[lane] = True
+        return allowed, valid
+
     def _dispatch_and_drain(self, plan, n: int) -> list[Sequence]:
         rider, wake = plan
-        emitted = self._run_chunk(n, rider=rider, wake=wake)
+        mask = self._chunk_masks()
+        emitted = self._run_chunk(n, rider=rider, wake=wake, mask=mask)
         st = self.engine.lanes
         # one read of the device for the whole chunk: everything packed into
         # one int32 buffer
@@ -699,7 +789,14 @@ class Scheduler:
         self.histories = hist.reshape(b, h).copy()
         self.done = done.astype(bool)
         self.produced = prod.copy()
-        return self._emit_chunk(em.reshape(n, b), n)
+        em = em.reshape(n, b)
+        finished = []
+        for lane, seq in list(self.running.items()):
+            if seq.machine is not None and seq.status == SeqStatus.DECODING:
+                if self._drain_constrained_lane(lane, seq, em, n,
+                                                mask is not None and bool(mask[1][lane])):
+                    finished.append(seq)
+        return finished + self._emit_chunk(em, n)
 
     # -- planning --------------------------------------------------------
 
@@ -913,6 +1010,138 @@ class Scheduler:
     def _sync_table(self, lane: int, seq: Sequence):
         table = self.manager.block_table(seq.seq_id)
         self.block_tables[lane, :len(table)] = table
+
+    # -- constrained lanes -------------------------------------------------
+
+    def _phase_params(self, seq: Sequence) -> tuple:
+        """The sampling parameters the lane's current machine phase sets
+        (temperature, top_p, min_p, top_k), from its state_kwargs."""
+        kw: dict = {}
+        for name in sorted(seq.machine.active_names()):
+            kw.update(seq.state_kwargs.get(name, {}))
+        return (kw.get("temperature", seq.temperature), kw.get("top_p", seq.top_p),
+                kw.get("min_p", seq.min_p), kw.get("top_k", seq.top_k))
+
+    def _drain_constrained_lane(self, lane: int, seq: Sequence, emitted, n: int,
+                                first_masked: bool) -> bool:
+        """Accept the longest machine-valid prefix of a constrained lane's
+        chunk tokens, then reset the lane's host mirrors to the host's truth
+        (the rejected tail rolled back); the next chunk uploads them into
+        the static lane state. Only the first token was sampled under the
+        mask; a later one the machine rejects ends the prefix, and so does
+        a phase switch that changes the lane's sampling parameters (the
+        tail was sampled under the old phase's). Returns True when the
+        sequence finished."""
+        phase0 = (self._phase_params(seq)
+                  if seq.state_kwargs and hasattr(seq.machine, "active_names")
+                  else None)
+        first = True
+        for s in range(n):
+            if seq.cancelled:
+                self._finish(seq, "cancelled")
+                return True
+            tok = int(emitted[s, lane])
+            if tok == PAD_TOKEN:
+                continue
+            accepted = self._emit_constrained(seq, tok, masked=first and first_masked)
+            first = False
+            if seq.status == SeqStatus.PREFILLING:
+                # re-armed with a forced run: its rider slice or direct
+                # prefill and its wake rebuild the lane; the rest of the
+                # chunk was sampled before the run existed
+                return False
+            if seq.status != SeqStatus.DECODING:
+                return True  # stop, length, complete, error or cancelled
+            if not accepted:
+                break  # speculation rejected: roll the tail back
+            if phase0 is not None and self._phase_params(seq) != phase0:
+                break
+        if seq.cancelled:
+            self._finish(seq, "cancelled")
+            return True
+        self._resync_lane(lane, seq)
+        return False
+
+    def _resync_lane(self, lane: int, seq: Sequence):
+        """Reset a decoding lane's host mirrors from the host's truth: the
+        pool holds every token but the newest, which is the next decode
+        input (as at a wake). KV written past that point is dead: attention
+        reads up to the context length, and real tokens overwrite it."""
+        toks = seq.prompt_ids + seq.output_ids
+        self.context_lens[lane] = len(toks) - 1
+        self.last_tokens[lane] = toks[-1]
+        tail = toks[-HISTORY_LEN:]
+        self.histories[lane] = PAD_TOKEN
+        self.histories[lane, -len(tail):] = tail
+        self.produced[lane] = len(seq.output_ids)
+        self.done[lane] = False
+
+    def _emit_constrained(self, seq: Sequence, tok: int, masked: bool = True) -> bool:
+        """Advance a constrained lane by one sampled token: check it against
+        the machine (on a copy, kept only if it accepts), emit it, then
+        follow the forced-token path: a run of characters the machine fixes
+        is encoded on the host, emitted with no sampling, and its KV rides
+        the next chunk's rider (or a direct prefill) as the lane's new
+        ``pending``. ``masked``: the token was sampled under the lane's
+        mask, so a rejection is an error finish; an unmasked (speculative)
+        token the machine rejects returns False and the caller rolls back.
+        Returns whether the token was accepted."""
+        machine, masker = seq.machine, seq.masker
+        if tok in seq.stop_token_ids:
+            self._emit(seq, tok)
+            return True
+        tstr = masker.token_strs[tok] if tok < masker.vocab_size else None
+        if tstr is None and getattr(machine, "is_unconstrained", lambda: False)():
+            # an undecodable (partial UTF-8) token in a freeform phase:
+            # emitted without advancing the machine
+            self._emit(seq, tok)
+            return True
+        probe = machine.copy() if tstr is not None else None
+        if tstr is None or not probe.advance(tstr):
+            if not masked:
+                return False
+            logger.warning("constrained decoding: token %d (%r) rejected", tok, tstr)
+            self._finish(seq, "error: constrained decoding produced invalid token")
+            return False
+        seq.machine = machine = probe
+        self._emit(seq, tok)
+        if seq.status != SeqStatus.DECODING:
+            return True
+        if machine.is_complete:
+            self._finish(seq, "stop")
+            return True
+
+        forced: list[int] = []
+        chars = forced_run(machine)
+        if chars:
+            # host truth, not the mirror (which holds the chunk's end)
+            ctx_true = len(seq.prompt_ids) + len(seq.output_ids) - 1
+            budget = min(seq.max_new_tokens - len(seq.output_ids),
+                         self.engine.max_pages_per_seq * PAGE_SIZE - ctx_true - 1)
+            for fid in masker.encode_longest(chars)[:max(0, budget)]:
+                if not machine.advance(masker.token_strs[fid]):
+                    break  # keep the machine and the output consistent
+                forced.append(fid)
+                if machine.is_complete:
+                    break
+        if not forced:
+            return True
+        # the sampled token's KV goes at (total tokens - 1) before the run
+        base = len(seq.prompt_ids) + len(seq.output_ids) - 1
+        for fid in forced:
+            self._emit(seq, fid)  # may finish (stop token or length)
+            if seq.status != SeqStatus.DECODING:
+                return True
+        if machine.is_complete:
+            self._finish(seq, "stop")
+            return True
+        # [sampled, *forced] need KV at base..; the last forced token wakes
+        seq.pending = [tok] + forced
+        seq.pending_base = base
+        seq.prefill_pos = 0
+        seq.status = SeqStatus.PREFILLING
+        self.done[seq.lane] = True  # frozen until its wake step
+        return True
 
     def _emit(self, seq: Sequence, tok: int):
         seq.output_ids.append(tok)

@@ -116,8 +116,8 @@ def test_oversized_and_unported_requests_are_refused(engines):
                          temperature=0.0)
     with pytest.raises(InferenceError, match="image"):
         batched.generate([1, 2], pixel_values=torch.zeros(1))
-    with pytest.raises(InferenceError, match="constrained"):
-        batched.generate_constrained([1, 2], machine=None)
+    with pytest.raises(InferenceError, match="empty prompt"):
+        batched.generate_constrained([], machine=None)
     with pytest.raises(InferenceError, match="native"):
         BatchedInferenceEngine(model=batched.model, params=batched.params,
                                scheduler_impl="native", device="cpu")

@@ -5,8 +5,9 @@ lanes, a stop token in the middle of a chunk, a KV-bucket change between
 chunks, chunks read after the next one is queued, logprobs), the paged
 rider-free and mixed steps against the JAX Scheduler's PagedEngine._chunk
 (a rider with a lane waking mid-chunk, a stop token mid-chunk, two
-pipelined chunks), no host read inside any step, and a bounded set of
-graph keys over a long mixed run."""
+pipelined chunks), chunks with a constrained lane (the masked steps)
+against the JAX Scheduler, no host read inside any step, and a bounded set
+of graph keys over a long mixed run."""
 
 import contextlib
 
@@ -245,6 +246,51 @@ def test_paged_steps_match_jax_chunk(models, case):
         assert tseqs[0].finish_reason == "stop" and len(tseqs[0].output_ids) == 6
     if case == "pipelined":
         assert max(depths) == 1  # a chunk in flight between steps
+
+
+# -- masked steps: a chunk with a constrained lane --------------------------------------
+
+SCHEMA = {
+    "type": "object",
+    "properties": {"name": {"enum": ["alpha", "beta"]}, "count": {"type": "integer"}},
+    "required": ["name", "count"],
+    "additionalProperties": False,
+}
+
+
+@pytest.mark.parametrize("decode_steps", [4, 8])
+def test_masked_steps_match_jax_chunk(models, decode_steps):
+    """Chunks that carry a constrained lane run the masked steps (use_mask
+    in the key), rider-free and mixed: a json_schema lane decoding beside
+    prompts that ride mixed steps, greedy, gives the JAX Scheduler's tokens
+    and finish reasons on every lane, with no host read inside any step.
+    The lane's masked greedy choices have top-2 logprob margins of 7.5 and
+    more on this model (the JAX single-stream engine's logprobs), far
+    above the packages' INT4 logit noise."""
+    from pie_tpu.structured.json_machine import JsonMachine as JJson
+    from pie_tpu.structured.token_masks import TokenMasker as JMasker
+    from pie_tpu_torch.structured.json_machine import JsonMachine
+    from pie_tpu_torch.structured.token_masks import TokenMasker
+
+    from test_torch_constrained_engine import _jax_tokenizer, port_tokenizer
+
+    j, t = _schedulers(models, decode_steps=decode_steps)
+    t.engine.graphs = _Strict(t.engine.graphs.device, t.engine.key)
+    jtok, ttok = _jax_tokenizer(), port_tokenizer()
+    kw = dict(max_new_tokens=24, temperature=0.0, stop_token_ids=tuple(ttok.stop_tokens))
+    jseqs = [j.add_request([1, 2, 3], machine=JJson(SCHEMA), masker=JMasker(jtok), **kw)]
+    tseqs = [t.add_request([1, 2, 3], machine=JsonMachine(SCHEMA),
+                           masker=TokenMasker(ttok), **kw)]
+    for p in PROMPTS:
+        jseqs.append(j.add_request(p, max_new_tokens=12, temperature=0.0))
+        tseqs.append(t.add_request(p, max_new_tokens=12, temperature=0.0))
+    t.run_to_completion(max_steps=400)
+    j.run_to_completion(max_steps=400)
+    for js, ts in zip(jseqs, tseqs):
+        assert (ts.output_ids, ts.finish_reason) == (js.output_ids, js.finish_reason)
+    assert len(tseqs[0].output_ids) > 4
+    keys = {(k[0], k[4]) for k in t.engine.graphs.keys}
+    assert {("decode", True), ("mixed", True)} <= keys
 
 
 # -- no host read inside a step ------------------------------------------------------

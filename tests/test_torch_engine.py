@@ -167,10 +167,15 @@ def test_logprobs_match_jax():
 
 
 def test_seeded_sampling_reproducible(engines):
+    """new_state resets the KV cache, so the prompt cache goes with it: each
+    run starts from an empty cache whatever ran on the engine before."""
+    from pie_tpu_torch.cache.prompt_cache import PromptCache
+
     _, te = engines
     runs = []
     for _ in range(2):
         te.state = te.core.new_state(seed=0)
+        te.prompt_cache = PromptCache()
         runs.append(te.generate(PROMPT, max_completion_tokens=8,
                                 temperature=0.9).token_ids)
     assert runs[0] == runs[1]

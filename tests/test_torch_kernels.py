@@ -647,6 +647,51 @@ def test_step_graphs_replay_the_eager_steps(cuda):
         assert _norm_err(got, want) < 1e-3
 
 
+class _PieceTokenizer:
+    """A tokenizer of a few JSON pieces (id -> string): enough for the
+    constrained lanes' masker, with no tokenizer package."""
+
+    PIECES = (list('{}[]":,.-0123456789 ') + ['{"', '"}', '": ', '", "', "true",
+                                               "false", "null"]
+              + list("abcdefghijklmnopqrstuvwxyz") + ["name", "count", "alpha", "beta"])
+    vocab_size = len(PIECES)
+
+    def decode(self, ids):
+        return "".join(self.PIECES[i] for i in ids)
+
+
+def test_masked_step_graphs_replay_the_eager_steps(cuda):
+    """The paged steps with a constrained lane's mask (use_mask in the key),
+    rider-free and mixed, replayed from their graphs: a json_schema lane
+    beside prompts that ride mixed steps gives the tokens of the same steps
+    run eagerly on the card on every lane, logits within 1e-3 normalized."""
+    from pie_tpu_torch.structured.json_machine import JsonMachine
+    from pie_tpu_torch.structured.token_masks import TokenMasker
+
+    schema = {"type": "object",
+              "properties": {"name": {"enum": ["alpha", "beta"]},
+                             "count": {"type": "integer"}},
+              "required": ["name", "count"], "additionalProperties": False}
+    masker = TokenMasker(_PieceTokenizer())
+    scheds = _paged_pair(cuda)
+    taps, streams = [], []
+    for s in scheds:
+        s.engine.graphs = _Tap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+        seqs = [s.add_request([1, 2, 3], max_new_tokens=24, temperature=0.0,
+                              machine=JsonMachine(schema), masker=masker)]
+        seqs += [s.add_request(p, max_new_tokens=12, temperature=0.0)
+                 for p in PAGED_PROMPTS[:3]]
+        s.run_to_completion(max_steps=400)
+        streams.append([(q.output_ids, q.finish_reason) for q in seqs])
+    assert streams[0] == streams[1]
+    keys = {(k[0], k[4]) for k in taps[0].inner.keys}
+    assert {("decode", True), ("mixed", True)} <= keys
+    assert taps[0].inner.replays > 0
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+
 def test_step_graph_samples_anew_at_every_replay(cuda):
     """A graph that samples (temperature 1, the categorical sampler) with
     the engine's generator registered: two replays draw different tokens,

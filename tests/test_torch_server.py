@@ -250,16 +250,44 @@ def test_unported_settings_raise(engine_fixture):
 
 
 def test_constrained_request_is_refused(engine_fixture):
-    """response_format pins the output shape: the port has no constrained
-    decoding yet and answers 400 instead of decoding unconstrained."""
-    async def go(client):
-        resp = await client.post(
-            "/v1/chat/completions",
-            json={"messages": [{"role": "user", "content": "hello"}],
-                  "max_tokens": 4, "temperature": 0.0,
-                  "response_format": {"type": "json_object"}},
-        )
-        return resp.status, await resp.json()
+    """response_format pins the output shape. The port decodes it under the
+    constraint now (no longer refused): over the tokenizer of
+    tests/test_constrained_engine.py, which has the JSON pieces, a
+    json_schema chat answers 200 with content that parses to the schema,
+    and a named tool_choice answers with parsed tool_calls."""
+    from test_torch_constrained_engine import port_tokenizer
 
-    status, body = _call(engine_fixture, go)
-    assert status == 400 and "not ported" in body["error"]["message"]
+    engine = InferenceEngine(model=engine_fixture.model, params=engine_fixture.params,
+                             tokenizer=port_tokenizer(), max_seq_len=128,
+                             kv_dtype=torch.float32, decode_chunk=4, device="cpu")
+    schema = {"type": "object", "properties": {"name": {"enum": ["alpha", "beta"]}},
+              "required": ["name"], "additionalProperties": False}
+    tools = [{"type": "function", "function": {
+        "name": "get_weather", "parameters": {
+            "type": "object", "properties": {"city": {"type": "string"}},
+            "required": ["city"], "additionalProperties": False}}}]
+    msgs = [{"role": "user", "content": "hello"}]
+    quote = engine.tokenizer.encode('"')[0]
+
+    async def go(client):
+        out = []
+        for extra in ({"response_format": {"type": "json_schema", "json_schema": {
+                          "name": "t", "schema": schema}}},
+                      # a bias toward '"' closes the city string early: greedy
+                      # on this random model would fill the budget inside it
+                      {"tools": tools, "logit_bias": {str(quote): 20.0},
+                       "parallel_tool_calls": False,
+                       "tool_choice": {"type": "function",
+                                       "function": {"name": "get_weather"}}}):
+            resp = await client.post("/v1/chat/completions", json=dict(
+                messages=msgs, max_tokens=64, temperature=0.0, **extra))
+            out.append((resp.status, await resp.json()))
+        return out
+
+    (s1, b1), (s2, b2) = _call(engine, go)
+    assert s1 == 200, b1
+    assert json.loads(b1["choices"][0]["message"]["content"])["name"] in ("alpha", "beta")
+    assert s2 == 200, b2
+    call = b2["choices"][0]["message"]["tool_calls"][0]["function"]
+    assert call["name"] == "get_weather"
+    assert "city" in json.loads(call["arguments"])
