@@ -119,11 +119,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    TTFT under load); both with the steady-chunk measurements and graph
    counts of phases 4 and 6.
 
+12. gemma3 (after 10; the 8B engines are freed first): (a) K3 at head_dim
+   256 against its plain version (INT8 and bf16 pages; heads 8 / 4, 16 / 8
+   and 4 / 1; windows 0 and 1,024; contexts 1..4,096; the walk split over
+   blocks and not; per-lane normalized error < 2e-2), and timed per
+   Gemma-3 4B device step at 8 lanes x 2,048 tokens (29 sliding layers
+   clipped to 1,024 tokens, 5 global) beside the plain version, SDPA on
+   gathered dequantized K/V and the bytes bound; (b) a 6-layer full-width
+   4B model (5 sliding + 1 global) and a 2-layer 1B model (1 sliding + 1
+   global, one KV head), card against CPU: the single-stream forward over
+   the DualKVCache past the window, paged_forward and mixed_forward over
+   an INT8 pool (normalized error < 0.03); (c) the 34-layer 4B
+   single-stream engine (random INT4 g64): launches of one counted
+   request (K1 238 per decoded token, K2 238 per prefill), TTFT p50 at 512
+   tokens, best-of-3 decode tok/s, a 2,048-token prompt (two prefill
+   chunks), steady chunks, graphs; (e) one HTTP chat with a system message
+   through create_app (a word-level tokenizer with Gemma's control tokens;
+   the template folds the system text into the user turn); (d) the 4B
+   paged engine (8 lanes, INT8 pages): one counted run (K3 34 per device
+   step), tok/s at 64-token prompts and at 2,048-token contexts, steady
+   chunks; then the 4B graphs against eager steps (phase_graphs, the
+   single stream on a 1,100-token prompt past the window).
+
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
-step), then the kernel summary
-line (K1, its ln pre-pass, K2-K4), the card's name and power limit, and
+step), the 1B model check beside its reading before K2's single rounding
+(after phase 3b), a Gemma-3 summary, then the kernel summary
+line (K1, its ln pre-pass, K2-K4, K3 at D 256), the card's name and power
+limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -329,10 +353,11 @@ def steady_paged(sched, prompt, lanes, chunks=4):
                 profiled_chunk=trace)
 
 
-def phase_graphs(model, params, label):
+def phase_graphs(model, params, label, prompt=tuple(range(1, 65)), max_seq_len=512):
     """Each captured step held against the same step run eagerly on the
     card, on one model: two single-stream engines (one whose steps replay
-    graphs, one whose steps run eagerly) decode the same greedy request,
+    graphs, one whose steps run eagerly) decode the same greedy request
+    (``prompt``; Gemma-3's crosses its sliding window),
     and two schedulers (8 lanes, INT8 pages) the same mix of a direct
     prefill, rider prompts, a wake-only prompt and steady decode. Tokens
     must be equal and every step's logits within 1e-3 normalized; the
@@ -346,12 +371,12 @@ def phase_graphs(model, params, label):
         return float((a - b).abs().max() / b.abs().max())
 
     row = dict(phase="graphs vs eager", geometry=label)
-    engines = [InferenceEngine(model=model, params=params, max_seq_len=512,
+    engines = [InferenceEngine(model=model, params=params, max_seq_len=max_seq_len,
                                decode_chunk=16, prompt_cache=False) for _ in range(2)]
     engines[1].core.graphs = eager_steps(engines[1].core.graphs)
     for e in engines:
         e.core.graphs = Tap(e.core.graphs)
-    outs = [e.generate(list(range(1, 65)), max_completion_tokens=40, temperature=0.0)
+    outs = [e.generate(list(prompt), max_completion_tokens=40, temperature=0.0)
             for e in engines]
     taps = [e.core.graphs for e in engines]
     errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
@@ -2201,6 +2226,437 @@ def phase_paged_engine_1b(snap, card):
     return row
 
 
+# -- phase 12: Gemma-3 ----------------------------------------------------------
+
+# Gemma-3 4B's text model (google/gemma-3-4b-it config.json, text_config):
+# 34 layers, 5:1 sliding (window 1,024) / global, head_dim 256, tied vocab
+G4 = dict(hidden_size=2560, intermediate_size=10240, num_attention_heads=8,
+          num_key_value_heads=4, head_dim=256, sliding_window=1024,
+          sliding_window_pattern=6, rope_theta=1000000.0,
+          rope_scaling={"rope_type": "linear", "factor": 8.0},
+          rope_local_base_freq=10000.0, query_pre_attn_scalar=256,
+          vocab_size=262208, rms_norm_eps=1e-6)
+G4_LAYERS = 34
+# Gemma-3 1B (the JAX package's Gemma3Config defaults): one KV head (MQA)
+G1 = dict(hidden_size=1152, intermediate_size=6912, num_attention_heads=4,
+          num_key_value_heads=1, head_dim=256, sliding_window=512,
+          sliding_window_pattern=6, rope_theta=1000000.0,
+          rope_local_base_freq=10000.0, query_pre_attn_scalar=256,
+          vocab_size=262144, rms_norm_eps=1e-6)
+G_PROJ = 7  # wq, wk, wv, wo, wg, wu, wd: one K1 / K2 launch each per layer
+G_LENS = (1, 63, 64, 65, 700, 1500, 2048, 4096)
+
+
+def gemma_config(geo, layers, **extra):
+    from pie_tpu_torch.models.gemma3 import Gemma3Config
+
+    return Gemma3Config(model_type="gemma3_text", num_hidden_layers=layers,
+                        **dict(geo, **extra))
+
+
+def gemma_k3_timing(quantized):
+    """K3 at head_dim 256 per Gemma-3 4B device step at 8 lanes x 2,048
+    tokens: 29 sliding layers (window 1,024: the walk clipped to its last
+    16 pages) and 5 global ones; device time over rotating layers, the
+    plain version, SDPA on K/V gathered and dequantized beforehand (the
+    window's tokens only on sliding layers; yardstick only) and the bound."""
+    import torch.nn.functional as F
+
+    from pie_tpu_torch.cache.paged import PagedKVPool, gather_kv
+    from pie_tpu_torch.ops import paged_attention as pa
+
+    hq, hkv, dh = G4["num_attention_heads"], G4["num_key_value_heads"], G4["head_dim"]
+    inputs = paged_inputs((2048,) * 8, hq, hkv, dh, quantized, seed=4)
+    q, k, v, ks, vs, tables, ctx = inputs
+    scale = dh ** -0.5
+    pool = PagedKVPool(k, v, ks, vs)
+    dense = []
+    for layer in range(POOL_LAYERS):
+        kd, vd = gather_kv(pool, layer, tables, torch.bfloat16)
+        dense.append((kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()))
+    per = {}
+    for window in (G4["sliding_window"], 0):
+        kern = lambda i: pa.paged_attention_decode(q, k, v, ks, vs, i % POOL_LAYERS,
+                                                   tables, ctx, scale, window)
+        lo = 2048 - window if window else 0
+        lib = lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], dense[i % POOL_LAYERS][0][:, :, lo:],
+            dense[i % POOL_LAYERS][1][:, :, lo:], scale=scale, enable_gqa=True)
+        nbytes, pages = paged_bytes(inputs, window)
+        per[window] = dict(
+            kernel_ms=device_ms(kern), library_ms=device_ms(lib),
+            plain_ms=cuda_ms(lambda i: pa.paged_attention_ref(
+                q, k, v, ks, vs, i % POOL_LAYERS, tables, ctx, scale, window), 3, warmup=1),
+            bytes=nbytes, flops=4 * 8 * (2048 - lo) * hq * dh)
+    n_slide = sum((i + 1) % G4["sliding_window_pattern"] != 0 for i in range(G4_LAYERS))
+    n_glob = G4_LAYERS - n_slide
+    step = {key: n_slide * per[G4["sliding_window"]][key] + n_glob * per[0][key]
+            for key in per[0]}
+    bb, bo = step["bytes"] / HBM_BYTES_PER_S * 1e3, step["flops"] / BF16_FLOP_PER_S * 1e3
+    row = dict(phase="gemma3", part="a: K3 D 256 timing",
+               case=f"8 lanes x 2048 {'int8' if quantized else 'bf16'}, 4B heads 8/4",
+               **pa.launch_plan(q.device, 8, hq, hkv, dh, tables.shape[1], quantized),
+               per_call=per, sliding_layers=n_slide, global_layers=n_glob,
+               launches_per_step=G4_LAYERS, **step,
+               bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations")
+    emit(row)
+    del dense, inputs, q, k, v, ks, vs, pool
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemma_k3_checks():
+    """K3 at head_dim 256 against its plain version: INT8 and bf16 pages,
+    heads (8, 4) (4B), (16, 8) (12B) and (4, 1) (1B, MQA), windows 0 and
+    1,024, contexts 1..4,096, the walk split over blocks and not; the
+    per-lane normalized limit of the D 64 / 128 checks (2e-2)."""
+    from pie_tpu_torch.ops import paged_attention as pa
+
+    worst, rows = 0.0, []
+    for quantized in (True, False):
+        for hq, hkv in ((8, 4), (16, 8), (4, 1)):
+            inputs = paged_inputs(G_LENS, hq, hkv, 256, quantized, seed=hq + hkv)
+            for window in (0, G4["sliding_window"]):
+                for target in (pa.TARGET_BLOCKS, 1):
+                    saved, pa.TARGET_BLOCKS = pa.TARGET_BLOCKS, target
+                    try:
+                        splits = pa.launch_plan(inputs[0].device, len(G_LENS), hq, hkv,
+                                                256, inputs[5].shape[1], quantized)["splits"]
+                        diff, norm = paged_check(inputs, 3, window)
+                    finally:
+                        pa.TARGET_BLOCKS = saved
+                    worst = max(worst, diff)
+                    rows.append(dict(quantized=quantized, hq=hq, hkv=hkv, window=window,
+                                     splits=splits, max_abs_err=diff, norm_err=norm))
+            del inputs
+    if not any(r["splits"] > 1 for r in rows) or not any(r["splits"] == 1 for r in rows):
+        raise AssertionError("K3 D 256 checks did not cover split and unsplit walks")
+    emit(dict(phase="gemma3", part="a: K3 D 256 vs plain", lens=G_LENS, checks=rows,
+              worst_norm_err=max(r["norm_err"] for r in rows)))
+    return worst
+
+
+def gemma_model_check(label, cfg):
+    """One cut Gemma-3 model at full width, card against the CPU path on
+    the same random INT4 g64 weights: the single-stream forward over the
+    DualKVCache (a window-sized chunk, a second chunk past the window, 4
+    decode steps), then over an INT8 paged pool paged_forward (lane 0
+    prefilled past the window, lane 1 shorter, 3 decode steps with a lane
+    frozen) and mixed_forward (lane 2's prompt as a 40-token rider, then
+    an empty one); logits within 0.03 normalized; K1, K2 and K3 ran."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.paged import PagedKVPool
+    from pie_tpu_torch.models.gemma3 import Gemma3Model
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model = Gemma3Model(cfg)
+    gpu_params = model.init_quantized_params(seed=11, device="cuda")
+    params = {"cpu": to_device(gpu_params, "cpu"), "cuda": gpu_params}
+    win, hkv, dh, vocab = (cfg.sliding_window, cfg.num_key_value_heads, cfg.head_dim,
+                           cfg.vocab_size)
+    t = lambda a, d: torch.from_numpy(np.asarray(a, np.int32)).to(d)
+    errs = {}
+
+    def compare(what, run, rows=slice(None)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            with torch.no_grad():
+                out[dev] = run(dev).float().cpu()[rows]
+        err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+        if not (torch.isfinite(out["cuda"]).all() and err < 0.03):
+            raise AssertionError(f"{label} model check, {what}: err {err}")
+        errs[what] = err
+
+    qmc.reset_counts()
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, vocab, (1, win + 80))
+    caches = {d: model.make_cache(1, win + 128, torch.bfloat16, device=d)
+              for d in ("cpu", "cuda")}
+
+    def call(dev, start, n):
+        first = torch.tensor([start], dtype=torch.int32, device=dev)
+        pos = first[:, None] + torch.arange(n, dtype=torch.int32, device=dev)[None]
+        caches[dev] = caches[dev].advance(first, n)
+        logits, caches[dev] = model(params[dev], t(ids[:, start:start + n], dev),
+                                    caches[dev], pos)
+        return logits
+
+    for start, n in [(0, win), (win, 76)] + [(win + 76 + i, 1) for i in range(4)]:
+        compare(f"dual {start}+{n}", lambda d: call(d, start, n))
+
+    maxp = -(-(win + 200) // 64)
+    tables = np.arange(3 * maxp, dtype=np.int32).reshape(3, maxp)[:, ::-1].copy()
+    pools = {d: PagedKVPool.create(cfg.num_hidden_layers, 3 * maxp, hkv, dh,
+                                   torch.bfloat16, True, device=d) for d in ("cpu", "cuda")}
+    prompts = rng.integers(0, vocab, (3, win + 64)).astype(np.int32)
+    for lane, n in ((0, win + 64), (1, 100)):
+        compare(f"paged prefill lane {lane}", lambda d: model.paged_forward(
+            params[d], t(prompts[lane:lane + 1, :n], d), pools[d], t(tables[lane:lane + 1], d),
+            t(np.arange(n)[None], d), t([n], d))[0][0])
+    ctx = np.array([win + 64, 100, 0])
+    tok = np.array([prompts[0, -1], prompts[1, 99], 0])
+    for step in range(3):
+        frozen = np.array([False, step == 1, True])
+        dpos, dctx = np.where(frozen, -1, ctx), np.where(frozen, 1, ctx + 1)
+        compare(f"paged decode {step}", lambda d: model.paged_forward(
+            params[d], t(tok[:, None], d), pools[d], t(tables, d), t(dpos[:, None], d),
+            t(dctx, d))[0][:, 0], torch.from_numpy(~frozen))
+        tok, ctx = rng.integers(0, vocab, 3), np.where(frozen, ctx, ctx + 1)
+    cs = 40
+    rider, rpos = prompts[2, :cs], np.arange(cs)
+    steps = [([tok[0], tok[1], 0], [ctx[0], ctx[1], -1], [ctx[0] + 1, ctx[1] + 1, 1],
+              rider, rpos, 2, cs),
+             ([11, 12, prompts[2, cs]], [ctx[0] + 1, ctx[1] + 1, cs],
+              [ctx[0] + 2, ctx[1] + 2, cs + 1], np.full(cs, -1), np.full(cs, -1), 0, 0)]
+    for i, (dt, dp, dc, pi, pp, lane, pctx) in enumerate(steps):
+        compare(f"mixed {i}", lambda d: model.mixed_forward(
+            params[d], pools[d], t(dt, d), t(dp, d), t(dc, d), t(tables, d), t(pi, d),
+            t(pp, d), t([lane], d), t([pctx], d), pf_any=bool((pi >= 0).any()))[0],
+            torch.from_numpy(np.asarray(dp) >= 0))
+    counts = dict(qmc.launch_counts)
+    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
+        raise AssertionError(f"{label} model check did not run every kernel: {counts}")
+    emit(dict(phase="gemma3", part="b: model vs CPU", geometry=label,
+              layers=cfg.num_hidden_layers, sliding=int(model.is_sliding.sum()),
+              window=win, kv="bf16 dual / int8 paged", norm_err=max(errs.values()),
+              norm_err_per_step=errs, launches=counts))
+    del params, gpu_params, pools, caches
+    torch.cuda.empty_cache()
+    return max(errs.values())
+
+
+def gemma_word_tokenizer():
+    """Offline word-level tokenizer with Gemma's control tokens."""
+    import transformers
+    from tokenizers import Tokenizer as RawTok
+    from tokenizers import models, pre_tokenizers
+
+    from pie_tpu_torch.tokenizer import Tokenizer
+    from pie_tpu_torch.tokenizer.control_tokens import GEMMA
+
+    words = ["hello", "world", "how", "are", "you", "be", "brief", "user", "model",
+             "system", "<unk>"]
+    specials = GEMMA.all_control_tokens
+    raw = RawTok(models.WordLevel({w: i for i, w in enumerate(specials + words)},
+                                  unk_token="<unk>"))
+    raw.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    raw.add_special_tokens(specials)
+    return Tokenizer(transformers.PreTrainedTokenizerFast(
+        tokenizer_object=raw, bos_token="<bos>", eos_token="<eos>", unk_token="<unk>"),
+        GEMMA)
+
+
+def gemma_chat_http(engine):
+    """One chat with a system message over HTTP through create_app: the
+    Gemma template folds the system text into the user turn; 200 and the
+    biased word back."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+
+    from pie_tpu_torch.server.app import create_app
+    from pie_tpu_torch.server.config import Settings
+
+    engine.tokenizer = tok = gemma_word_tokenizer()
+    hello = tok.encode("hello", add_bos=False)[0]
+    chat = [{"role": "system", "text": "be brief"}, {"role": "user", "text": "hello world"}]
+    rendered = tok.decode(tok.apply_chat_template(chat, add_generation_prompt=True))
+    if "system" in rendered or "be brief hello world" not in rendered:
+        raise AssertionError(f"Gemma chat template: {rendered!r}")
+
+    async def ask():
+        runner = web.AppRunner(create_app(engine=engine, settings=Settings(),
+                                          device=engine.device))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        port = site._server.sockets[0].getsockname()[1]
+        try:
+            async with aiohttp.ClientSession() as s:
+                t0 = time.perf_counter()
+                async with s.post(f"http://127.0.0.1:{port}/v1/chat/completions", json=dict(
+                        messages=[{"role": "system", "content": "be brief"},
+                                  {"role": "user", "content": "hello world"}],
+                        max_tokens=8, temperature=0.0,
+                        logit_bias={str(hello): 100.0})) as r:
+                    return r.status, await r.json(), (time.perf_counter() - t0) * 1e3
+        finally:
+            await runner.cleanup()
+
+    status, body, ms = asyncio.run(ask())
+    content = body["choices"][0]["message"]["content"] if status == 200 else None
+    if status != 200 or "hello" not in content:
+        raise AssertionError(f"Gemma HTTP chat: {status} {body}")
+    emit(dict(phase="gemma3", part="e: HTTP chat", status=status, ms=ms, content=content,
+              usage=body["usage"], rendered=rendered))
+    return status
+
+
+def gemma_engine(card):
+    """The 34-layer Gemma-3 4B single-stream engine (random INT4 g64 on the
+    card): one counted request (64-token prompt, 128 decoded tokens: K1 7
+    x 34 per decoded token, K2 7 x 34 per prefill, no K3), TTFT p50 of a
+    512-token prompt, best-of-3 decode tok/s, TTFT of a 2,048-token prompt
+    (two prefill chunks: the bound is the window) and its decode tok/s,
+    steady chunks and the graphs."""
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.models.gemma3 import Gemma3Model
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model = Gemma3Model(gemma_config(G4, G4_LAYERS))
+    params = model.init_quantized_params(seed=0)
+    engine = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                             decode_chunk=128)
+    prompt = list(range(1, 65))
+    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)  # warm up
+    qmc.reset_counts()
+    res = engine.generate([p + 7 for p in prompt], max_completion_tokens=129,
+                          temperature=0.0)
+    torch.cuda.synchronize()
+    launches = dict(qmc.launch_counts)
+    decoded = res.completion_tokens - 1
+    per = G_PROJ * G4_LAYERS
+    if (decoded != 128 or launches["K1"] != per * decoded or launches["K2"] != per
+            or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"Gemma-3 main path launches {launches} for {decoded} tokens")
+
+    def fresh(salt, n=512):
+        return [1 + (i * 37 + salt * 101) % 100000 for i in range(n)]
+
+    def ttft(p, new=2):
+        gen = engine.generate_stream(p, max_completion_tokens=new, temperature=0.0)
+        t0 = time.perf_counter()
+        next(gen)
+        dt = time.perf_counter() - t0
+        n, t1 = 0, time.perf_counter()
+        for _ in gen:
+            n += 1
+        return dt, (n / (time.perf_counter() - t1) if n else None)
+
+    ttft(fresh(99))
+    ttfts = sorted(ttft(fresh(s))[0] for s in range(5))
+    best = max(ttft(prompt, 129)[1] for _ in range(3))
+    ttft(fresh(98, 2048), 2)  # warm up the 1,024-token buckets
+    qmc.reset_counts()
+    long_ttft, long_tok_s = ttft(fresh(97, 2048), 129)
+    long_k2 = qmc.launch_counts["K2"]
+    chunks = -(-2048 // model.prefill_chunk_bound)  # 2: the bound is the window
+    if long_k2 != chunks * per:
+        raise AssertionError(f"2,048-token prompt: {long_k2} K2 launches, "
+                             f"want {chunks} x {per}")
+    steady = steady_single(engine)
+    row = dict(phase="gemma3", part="c: engine", geometry="gemma3-4b int4 g64",
+               layers=G4_LAYERS, ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[x * 1e3 for x in ttfts],
+               decode_tok_s=best, ttft_2048_ms=long_ttft * 1e3,
+               decode_tok_s_after_2048=long_tok_s, k2_per_2048_prompt=long_k2,
+               k1_per_decoded_token=launches["K1"] / decoded, k2_per_prefill=launches["K2"],
+               launches=launches, steady=steady, graphs=engine.core.graphs.stats(),
+               card=card)
+    emit(row)
+    return engine, row
+
+
+def gemma_paged(model, params, card):
+    """The 34-layer 4B paged engine: 8 lanes, INT8 pages, 8-step chunks
+    (bench.py's paged configuration): one counted run of 8 x (64-token
+    prompt, 128 new) (K3 34 per device step), best of 2, steady chunks;
+    then 8 lanes at 2,048-token contexts (sliding layers walk 16 of 32
+    pages) as tok/s."""
+    import gc
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    lanes = 8
+    engine = PagedEngine(model, params, num_lanes=lanes, num_pages=112,
+                         max_pages_per_seq=12, kv_quantized=True)
+    sched = Scheduler(engine, decode_steps=8)
+    prompt = list(range(1, 65))
+    sched.add_request(prompt, max_new_tokens=17, temperature=0.0)  # warm up
+    sched.run_to_completion()
+    best = 0.0
+    for rep in range(2):
+        qmc.reset_counts()
+        steps0 = engine.device_steps
+        seqs = [sched.add_request(prompt, max_new_tokens=128, temperature=0.0)
+                for _ in range(lanes)]
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        best = max(best, sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0))
+        if rep == 0:
+            launches = dict(qmc.launch_counts)
+            steps = engine.device_steps - steps0
+    if not (steps > 0 and launches["K3"] == G4_LAYERS * steps and launches["K1"] > 0
+            and launches["K2"] > 0):
+        raise AssertionError(f"Gemma-3 paged path: {launches} over {steps} steps")
+    steady = steady_paged(sched, prompt, lanes)
+    graph_stats = engine.graphs.stats()
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ctx, new = 2048, 128
+    pages_per_seq = ctx // 64 + 2
+    engine = PagedEngine(model, params, num_lanes=lanes,
+                         num_pages=lanes * pages_per_seq + 8,
+                         max_pages_per_seq=pages_per_seq, kv_quantized=True)
+    sched = Scheduler(engine, decode_steps=8, prefix_cache=False)
+
+    def long_prompt(salt):
+        return [1 + (i * 37 + salt * 101) % 100000 for i in range(ctx - new)]
+
+    sched.add_request(long_prompt(0), max_new_tokens=9, temperature=0.0)
+    sched.run_to_completion()
+    seqs = [sched.add_request(long_prompt(i + 1), max_new_tokens=new, temperature=0.0)
+            for i in range(lanes)]
+    while any(not s.output_ids for s in seqs):
+        sched.step()
+    done0 = sum(len(s.output_ids) for s in seqs)
+    t0 = time.perf_counter()
+    sched.run_to_completion()
+    long_tok_s = (sum(len(s.output_ids) for s in seqs) - done0) / (time.perf_counter() - t0)
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(phase="gemma3", part="d: paged engine", geometry="gemma3-4b int4 g64",
+               layers=G4_LAYERS, lanes=lanes, kv="int8 paged", decode_tok_s=best,
+               ctx2048_tok_s=long_tok_s, device_steps=steps,
+               k3_per_step=launches["K3"] / steps, launches=launches, steady=steady,
+               graphs=graph_stats, card=card)
+    emit(row)
+    return row
+
+
+def phase_gemma3(card):
+    """Phase 12 (module docstring)."""
+    import gc
+
+    k3_err = gemma_k3_checks()
+    k3_rows = {q: gemma_k3_timing(q) for q in (True, False)}
+    checks = {label: gemma_model_check(label, cfg) for label, cfg in (
+        ("gemma3-4b (6 layers: 5 sliding + 1 global)", gemma_config(G4, 6)),
+        ("gemma3-1b (2 layers: 1 sliding + 1 global, Hkv 1)",
+         gemma_config(G1, 2, sliding_window_pattern=2)))}
+    engine, eng = gemma_engine(card)
+    gemma_chat_http(engine)
+    model, params = engine.model, engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = gemma_paged(model, params, card)
+    graphs = phase_graphs(model, params, "gemma3-4b int4 g64",
+                          prompt=[1 + (i * 13) % 50000 for i in range(1100)],
+                          max_seq_len=2048)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k3=k3_rows, k3_err=k3_err, checks=checks, engine=eng, paged=paged,
+                graphs=graphs)
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2236,7 +2692,11 @@ def main() -> int:
     k4_rows = timed("kernels K4", phase_fused_mlp)
     k3_rows, k3_err = timed("kernels K3", phase_paged_kernel)
     timed("model 8B", phase_model)
-    timed("model 1B", phase_model_1b)
+    check_1b = timed("model 1B", phase_model_1b)
+    # K2's INT4 weights with bf16 scales used to round twice; the parent's
+    # reading of this check is in CHANGES.md (PRs 8-9)
+    emit(dict(phase="model 1B check, K2 rounding", norm_err=check_1b,
+              before_single_rounding=0.0271, limit=0.03))
     engine, eng = timed("engine 8B", phase_engine, card)
     timed("requests 8B", phase_requests, engine)
     paged = timed("paged engine 8B", phase_paged_engine, engine.model, engine.params, card)
@@ -2257,6 +2717,7 @@ def main() -> int:
         del model1b
         torch.cuda.empty_cache()
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
+    gemma = timed("gemma3", phase_gemma3, card)
 
     summary = []
     for kname, src, what, per_rows, launches in (
@@ -2318,6 +2779,16 @@ def main() -> int:
         plain_ms=LAYERS * k3["plain_ms"], bound_ms=LAYERS * k3["bound_ms"],
         bound_by=k3["bound_by"], library_ms=LAYERS * k3["library_ms"],
     ))
+    g3 = gemma["k3"][True]  # per 4B device step: one launch per layer
+    summary.append(dict(
+        name="K3 paged_attention (Gemma-3 4B heads 8 / 4, D 256, 8 lanes x 2,048-token "
+             "INT8 pages, 29 layers windowed to 1,024 + 5 full, per device step)",
+        route="cuda", source="pie_tpu_torch/csrc/paged_attention.cu",
+        replaces="pie_tpu/ops/paged_attention.py:510",
+        launches=gemma["paged"]["launches"]["K3"], max_abs_err=gemma["k3_err"],
+        ms=g3["kernel_ms"], kernel_ms=g3["kernel_ms"], plain_ms=g3["plain_ms"],
+        bound_ms=g3["bound_ms"], bound_by=g3["bound_by"], library_ms=g3["library_ms"],
+    ))
     k4 = k4_rows[(4, 1)]  # per decoded token at 1B: one launch per layer
     summary.append(dict(
         name="K4 fused_mlp (1B int4 g64, M = 1, per decoded token)",
@@ -2347,6 +2818,18 @@ def main() -> int:
                   (key, LAYERS1 * k3_rows["1B"][key])
                   for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")),
               decode_tok_s=eng1b["decode_tok_s"], paged_tok_s=paged1b["decode_tok_s"]))
+    emit(dict(phase="summary gemma3", k3_per_device_step_bf16=dict(
+        (key, gemma["k3"][False][key])
+        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")),
+        model_checks=gemma["checks"], decode_tok_s=gemma["engine"]["decode_tok_s"],
+        ttft_p50_ms=gemma["engine"]["ttft_p50_ms"],
+        paged_tok_s=gemma["paged"]["decode_tok_s"],
+        paged_ctx2048_tok_s=gemma["paged"]["ctx2048_tok_s"],
+        k1_per_decoded_token=gemma["engine"]["k1_per_decoded_token"],
+        k2_per_prefill=gemma["engine"]["k2_per_prefill"],
+        k3_per_paged_step=gemma["paged"]["k3_per_step"],
+        graph_pool_bytes=dict(single=gemma["engine"]["graphs"],
+                              paged=gemma["paged"]["graphs"]), card=card))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,16 @@ Unlike the JAX containers the k/v buffers are updated IN PLACE by the model
 forward (no buffer donation exists here). The small metadata tensors stay
 functional: ``advance``/``trim_to`` return a new container that shares the
 k/v buffers, and the decode step of ``engine/core.py`` copies the new
-metadata back into the static buffers it was captured over.
-``trim_capacity`` returns views into the same buffers, so the model's
-in-place writes through a trimmed view land in the full cache.
+metadata back into the static buffers it was captured over
+(``copy_metadata``). ``trim_capacity`` returns views into the same
+buffers, so the model's in-place writes through a trimmed view land in
+the full cache.
+
+``DualKVCache`` is Gemma-3's bounded pair of groups: the sliding layers'
+rotating store of ``min(window, max_len)`` slots and the global layers'
+``max_len`` store. A step's rotating slot is ``position % capacity``,
+computed on the device from the positions, so a captured step reads
+nothing back.
 """
 
 from __future__ import annotations
@@ -182,6 +189,81 @@ class QuantizedKVCache:
     trim_to = KVCache.trim_to
 
 
+@dataclasses.dataclass(frozen=True)
+class DualKVCache:
+    """Two cache groups for a model that interleaves sliding-window and
+    global layers (Gemma-3's 5:1 pattern), as the JAX package's
+    ``DualKVCache``: ``sliding`` holds the sliding layers in a rotating
+    store of ``min(window, max_len)`` slots (window set), ``full`` the
+    global layers at ``max_len``. Both are ``KVCache`` or both
+    ``QuantizedKVCache``. The engine's bookkeeping reads the full group."""
+
+    sliding: object
+    full: object
+
+    @property
+    def window(self):
+        return self.sliding.window
+
+    @property
+    def capacity(self) -> int:
+        return self.full.capacity
+
+    @property
+    def slot_positions(self) -> torch.Tensor:
+        return self.full.slot_positions
+
+    @property
+    def length(self) -> torch.Tensor:
+        return self.full.length
+
+    def advance(self, first_pos, num_tokens: int, valid_lens=None) -> "DualKVCache":
+        return DualKVCache(
+            sliding=self.sliding.advance(first_pos, num_tokens, valid_lens),
+            full=self.full.advance(first_pos, num_tokens, valid_lens),
+        )
+
+    def trim_to(self, length: torch.Tensor) -> "DualKVCache":
+        return DualKVCache(sliding=self.sliding.trim_to(length),
+                           full=self.full.trim_to(length))
+
+
+def cache_groups(cache) -> dict:
+    """The single-group caches of ``cache`` by name: ``{"": cache}``, or a
+    DualKVCache's ``{"sliding.": ..., "full.": ...}``."""
+    if isinstance(cache, DualKVCache):
+        return {"sliding.": cache.sliding, "full.": cache.full}
+    return {"": cache}
+
+
+def cache_kind(cache) -> tuple:
+    """What a cache is made of: its class and its groups' classes."""
+    return (type(cache),) + tuple(type(g) for g in cache_groups(cache).values())
+
+
+def cache_tensors(cache) -> dict:
+    """Every tensor of ``cache`` by name (a group's prefixed)."""
+    return {prefix + f.name: getattr(g, f.name)
+            for prefix, g in cache_groups(cache).items()
+            for f in dataclasses.fields(g)
+            if isinstance(getattr(g, f.name), torch.Tensor)}
+
+
+def copy_metadata(dst, src) -> None:
+    """``src``'s slot positions and lengths into ``dst``'s buffers, in place
+    (every group)."""
+    for d, s in zip(cache_groups(dst).values(), cache_groups(src).values()):
+        d.slot_positions.copy_(s.slot_positions)
+        d.length.copy_(s.length)
+
+
+def reset_metadata(cache) -> None:
+    """Every slot empty, every length 0, in place (every group)."""
+    for g in cache_groups(cache).values():
+        g.slot_positions.fill_(-1)
+        g.length.zero_()
+
+
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per (token, head): x [B, T, H, D] -> (q int8, scale
     f32 [B, T, H, 1])."""
@@ -212,7 +294,11 @@ def maybe_quantize(cache, threshold_tokens: int = 4096):
     """Convert a bf16 cache to INT8 storage once any sequence crosses the
     token threshold. Reads the cache's length back to the host: the engine
     calls it between requests, never inside a decode step (a captured
-    graph); the INT8 cache it returns replaces the engine's static one."""
+    graph); the INT8 cache it returns replaces the engine's static one. A
+    DualKVCache converts both groups."""
+    if isinstance(cache, DualKVCache):
+        return DualKVCache(sliding=maybe_quantize(cache.sliding, threshold_tokens),
+                           full=maybe_quantize(cache.full, threshold_tokens))
     if isinstance(cache, QuantizedKVCache):
         return cache
     if int(cache.length.max()) < threshold_tokens:

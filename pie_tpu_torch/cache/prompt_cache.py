@@ -4,7 +4,8 @@ Port of the JAX package's ``pie_tpu/cache/prompt_cache.py``: track the
 computed token ids, reuse the cache for the common prefix and prefill only
 the suffix (a metadata trim of the fixed-capacity cache), and persist
 caches to safetensors keyed by SHA-256 of the token ids, in the same file
-format (bf16 tensors stored as f32 and listed in the metadata).
+format (bf16 tensors stored as f32 and listed in the metadata; both groups
+of a DualKVCache).
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pie_tpu_torch.cache.kv_cache import KVCache, QuantizedKVCache
+from pie_tpu_torch.cache.kv_cache import DualKVCache, KVCache, QuantizedKVCache
 
 _CACHE_CLASSES = {"KVCache": KVCache, "QuantizedKVCache": QuantizedKVCache}
+_DUAL_GROUPS = ("sliding", "full")
 
 
 def common_prefix_len(a: Sequence[int], b: Sequence[int]) -> int:
@@ -76,21 +78,51 @@ class PromptCache:
         return cache, meta.get("computed_ids", [])
 
 
-def save_cache(cache, path: str | Path, extra_meta: Optional[dict] = None):
-    from safetensors.numpy import save_file
-
-    tensors = {}
-    meta = {"cache_class": type(cache).__name__, "window": cache.window}
-    if extra_meta:
-        meta.update(extra_meta)
+def _collect_tensors(cache, tensors: dict, meta: dict, prefix: str = ""):
     for f in dataclasses.fields(cache):
         v = getattr(cache, f.name)
         if isinstance(v, torch.Tensor):
+            name = prefix + f.name
             if v.dtype == torch.bfloat16:
-                meta.setdefault("bf16_fields", []).append(f.name)
+                meta.setdefault("bf16_fields", []).append(name)
                 v = v.to(torch.float32)
-            tensors[f.name] = np.ascontiguousarray(v.cpu().numpy())
+            tensors[name] = np.ascontiguousarray(v.cpu().numpy())
+
+
+def save_cache(cache, path: str | Path, extra_meta: Optional[dict] = None):
+    """A cache to safetensors in the JAX package's format: a DualKVCache's
+    groups under ``sliding.`` / ``full.`` with their classes and windows in
+    the metadata."""
+    from safetensors.numpy import save_file
+
+    tensors = {}
+    meta = {"cache_class": type(cache).__name__}
+    if extra_meta:
+        meta.update(extra_meta)
+    if isinstance(cache, DualKVCache):
+        for group in _DUAL_GROUPS:
+            sub = getattr(cache, group)
+            meta[group + "_class"] = type(sub).__name__
+            meta[group + "_window"] = sub.window
+            _collect_tensors(sub, tensors, meta, group + ".")
+    else:
+        meta["window"] = cache.window
+        _collect_tensors(cache, tensors, meta)
     save_file(tensors, str(path), metadata={"pie": json.dumps(meta)})
+
+
+def _build_cache(name, data, bf16, window, device, prefix=""):
+    cls = _CACHE_CLASSES.get(name)
+    if cls is None:
+        raise ValueError(f"cache class {name!r} is not ported")
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        if key in data:
+            t = torch.from_numpy(data[key]).to(device)
+            kwargs[f.name] = t.to(torch.bfloat16) if key in bf16 else t
+    kwargs["window"] = window
+    return cls(**kwargs)
 
 
 def load_cache(path: str | Path, device):
@@ -99,15 +131,12 @@ def load_cache(path: str | Path, device):
 
     with safe_open(str(path), framework="np") as f:
         meta = json.loads((f.metadata() or {}).get("pie", "{}"))
-    cls = _CACHE_CLASSES.get(meta.get("cache_class", "KVCache"))
-    if cls is None:
-        raise ValueError(f"cache class {meta.get('cache_class')!r} is not ported")
     data = load_file(str(path))
     bf16 = set(meta.get("bf16_fields", []))
-    kwargs = {}
-    for f in dataclasses.fields(cls):
-        if f.name in data:
-            t = torch.from_numpy(data[f.name]).to(device)
-            kwargs[f.name] = t.to(torch.bfloat16) if f.name in bf16 else t
-    kwargs["window"] = meta.get("window")
-    return cls(**kwargs), meta
+    if meta.get("cache_class") == "DualKVCache":
+        groups = {g: _build_cache(meta.get(g + "_class", "KVCache"), data, bf16,
+                                  meta.get(g + "_window"), device, g + ".")
+                  for g in _DUAL_GROUPS}
+        return DualKVCache(**groups), meta
+    return _build_cache(meta.get("cache_class", "KVCache"), data, bf16,
+                        meta.get("window"), device), meta

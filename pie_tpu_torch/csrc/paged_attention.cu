@@ -57,6 +57,18 @@
 //   operands, so QK's d order within each 16-byte chunk is permuted (q's
 //   registers are loaded in the same order), and PV takes the even and odd
 //   d columns of a chunk as two n8 tiles. bf16 pages feed the mma directly.
+// - Head dim 256 (Gemma-3): a whole page's K and V stage at D 256 is 35 KB
+//   (INT8) or 68 KB (bf16), so four warps' double buffers would not fit the
+//   227 KB a block may have, and the A fragments of q (64 registers) beside
+//   the 128 f32 accumulators of one m16 tile's PV would spill. So at D 256 a
+//   stage holds half a page (32 tokens): the walk goes in half-page units
+//   (unit u is tokens 32u..32u + 31, the same split and mask rules), with
+//   four warps for INT8 pages (149,760 B) and two for bf16 (144,640 B); and
+//   q waits in shared memory (16 padded rows, loaded once per block, in the
+//   INT8 d order), whence each QK k-step reads its A fragment with ldmatrix.
+//   The QK loop runs over k-steps outside and token tiles inside, so each A
+//   fragment is read once per unit. At D 64 / 128 nothing changes: a stage
+//   is a page and q stays in registers.
 // Not done: a TMA page ring, a persistent grid, a cluster (DSMEM) merge of
 // the split partials.
 
@@ -93,12 +105,18 @@ struct Geo {
   static constexpr bool kQ8 = sizeof(T) == 1;
   static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
   static constexpr int kRow = D * (int)sizeof(T) + 16;     // padded shared-memory row
-  static constexpr int kTile = kPage * kRow;
-  static constexpr int kStage = 2 * kTile + 2 * kPage * 4;  // K, V, K and V scales
-  // bf16 pages at D 128 have twice the bytes per stage: two warps
-  static constexpr int kWarps = (!kQ8 && D == 128) ? 2 : 4;
+  // tokens per stage: a page, or half a page at D 256
+  static constexpr int kTok = D == 256 ? kPage / 2 : kPage;
+  static constexpr int kUnits = kPage / kTok;  // stages (walk units) per page
+  static constexpr int kTile = kTok * kRow;
+  static constexpr int kStage = 2 * kTile + 2 * kTok * 4;  // K, V, K and V scales
+  // bf16 pages at D 128 / 256 have twice the bytes per stage: two warps
+  static constexpr int kWarps = (!kQ8 && D >= 128) ? 2 : 4;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kSmem = kWarps * kStages * kStage;
+  // q in shared memory at D 256: 16 rows of D bf16, padded by 16 bytes
+  static constexpr bool kQSmem = D == 256;
+  static constexpr int kQRow = 2 * D + 16;
+  static constexpr int kSmem = kWarps * kStages * kStage + (kQSmem ? 16 * kQRow : 0);
 };
 
 // MT: m16 tiles of query heads (rep <= 16 * MT).
@@ -118,8 +136,11 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
   using G = Geo<T, D>;
   constexpr bool kQ8 = G::kQ8;
   constexpr int kW = G::kWarps;
-  constexpr int KS = D / 16;  // k16 steps of QK
-  constexpr int NO = D / 8;   // n8 tiles of the output
+  constexpr int kTok = G::kTok;
+  constexpr int KS = D / 16;    // k16 steps of QK
+  constexpr int NO = D / 8;     // n8 tiles of the output
+  constexpr int NJ = kTok / 8;  // n8 tiles of a stage's scores
+  constexpr int E = kQ8 ? 4 : 2;  // k16 steps per four 16-byte chunks of a row
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
 
@@ -129,43 +150,59 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
+  // the walk in units of kTok tokens (a page, or half a page at D 256)
   const int ctx = ctx_lens[bi];
   const int lo = window > 0 ? max(ctx - window, 0) : 0;
-  const int p_lo = lo / kPage;
-  const int p_hi = min(ctx > 0 ? (ctx + kPage - 1) / kPage : 0, maxp);
-  const int per = (max(p_hi - p_lo, 0) + splits - 1) / splits;
-  const int pb = p_lo + split * per;
-  const int pe = min(p_hi, pb + per);
+  const int u_lo = lo / kTok;
+  const int u_hi = min(ctx > 0 ? (ctx + kTok - 1) / kTok : 0, maxp * G::kUnits);
+  const int per = (max(u_hi - u_lo, 0) + splits - 1) / splits;
+  const int ub = u_lo + split * per;
+  const int ue = min(u_hi, ub + per);
 
   unsigned char* wbuf = smem + warp * kStages * G::kStage;  // this warp's stages
 
   // q as A fragments: a[0] row g, a[1] row g + 8 (first k pair), a[2], a[3]
   // the second pair. bf16 pages: the k16 step's natural d order. INT8 pages:
-  // d 16c + 4t + {0, 2} then {1, 3}, the order the code pairs come in.
+  // d 16c + 4t + {0, 2} then {1, 3}, the order the code pairs come in. At
+  // D 256 the rows go to shared memory in that order, where ldmatrix gives
+  // each lane the same fragments.
   const __nv_bfloat16* qb = q + ((size_t)bi * hq + (size_t)h * rep) * D;
-  uint32_t qa[MT][KS][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 16 * mt + g + 8 * half;
-#pragma unroll
-      for (int c = 0; c < KS; ++c) {
-        uint32_t x = 0, y = 0;
-        if (r < rep) {
-          if constexpr (kQ8) {
-            const uint2 v = *reinterpret_cast<const uint2*>(qb + r * D + 16 * c + 4 * t);
-            x = prmt(v.x, v.y, 0x5410u);
-            y = prmt(v.x, v.y, 0x7632u);
-          } else {
-            x = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 2 * t);
-            y = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 8 + 2 * t);
-          }
-        }
-        qa[mt][c][half] = x;
-        qa[mt][c][2 + half] = y;
-      }
+  const unsigned char* qsm = smem + kW * kStages * G::kStage;
+  uint32_t qa[MT][G::kQSmem ? 1 : KS][4];
+  if constexpr (G::kQSmem) {
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + kW * kStages * G::kStage);
+    for (int idx = tid; idx < 16 * D; idx += G::kThreads) {
+      const int r = idx / D, col = idx % D, x = col & 15;
+      int d = col;
+      if constexpr (kQ8)
+        d = (col & ~15) + (x < 8 ? 4 * (x >> 1) + 2 * (x & 1) : 4 * ((x - 8) >> 1) + 1 + 2 * (x & 1));
+      qs[r * (G::kQRow / 2) + col] = r < rep ? qb[r * D + d] : __float2bfloat16_rn(0.f);
     }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+#pragma unroll
+        for (int c = 0; c < KS; ++c) {
+          uint32_t x = 0, y = 0;
+          if (r < rep) {
+            if constexpr (kQ8) {
+              const uint2 v = *reinterpret_cast<const uint2*>(qb + r * D + 16 * c + 4 * t);
+              x = prmt(v.x, v.y, 0x5410u);
+              y = prmt(v.x, v.y, 0x7632u);
+            } else {
+              x = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 2 * t);
+              y = *reinterpret_cast<const uint32_t*>(qb + r * D + 16 * c + 8 + 2 * t);
+            }
+          }
+          qa[mt][c][half] = x;
+          qa[mt][c][2 + half] = y;
+        }
+      }
+  }
 
   float m[MT][2], l[MT][2], o[MT][NO][4];
 #pragma unroll
@@ -176,57 +213,78 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
     for (int n = 0; n < NO; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
   }
 
-  auto issue = [&](int p, int stage) {
-    const int tb = tables[(size_t)bi * maxp + p];
+  // unit u: tokens kTok * u .. + kTok - 1, of page u / kUnits
+  auto issue = [&](int u, int stage) {
+    const int tb = tables[(size_t)bi * maxp + u / G::kUnits];
     const size_t tile = ((size_t)layer * ptot + (tb < 0 ? 0 : tb)) * hkv + h;
+    const size_t tok0 = tile * kPage + (size_t)(u % G::kUnits) * kTok;
     const unsigned char* gk =
-        reinterpret_cast<const unsigned char*>(pool_k) + tile * kPage * D * sizeof(T);
+        reinterpret_cast<const unsigned char*>(pool_k) + tok0 * D * sizeof(T);
     const unsigned char* gv =
-        reinterpret_cast<const unsigned char*>(pool_v) + tile * kPage * D * sizeof(T);
+        reinterpret_cast<const unsigned char*>(pool_v) + tok0 * D * sizeof(T);
     unsigned char* sk = wbuf + stage * G::kStage;
     unsigned char* sv = sk + G::kTile;
 #pragma unroll 4
-    for (int c = lane; c < kPage * G::kChunks; c += 32) {
+    for (int c = lane; c < kTok * G::kChunks; c += 32) {
       const int off = (c / G::kChunks) * G::kRow + (c % G::kChunks) * 16;
       cp_async16(sk + off, gk + (size_t)c * 16);
       cp_async16(sv + off, gv + (size_t)c * 16);
     }
-    if constexpr (kQ8) {  // 64 K scales, 64 V scales: 16 chunks each
-      const float* gs = (lane < 16 ? k_scale : v_scale) + tile * kPage;
-      cp_async16(sv + G::kTile + (lane >> 4) * kPage * 4 + (lane & 15) * 16,
-                 gs + (lane & 15) * 4);
+    if constexpr (kQ8) {  // kTok K scales, kTok V scales: kTok / 4 chunks each
+      constexpr int n = kTok / 4;
+      if (lane < 2 * n) {
+        const float* gs = (lane < n ? k_scale : v_scale) + tok0;
+        cp_async16(sv + G::kTile + (lane / n) * kTok * 4 + (lane % n) * 16, gs + (lane % n) * 4);
+      }
     }
   };
 
-  // one commit group per page slot (empty past the last page), so page i
+  // one commit group per unit slot (empty past the last unit), so unit i
   // has landed once all but the newest kStages - 1 groups have
-  const int first = pb + warp;
-  const int mine = first < pe ? (pe - first + kW - 1) / kW : 0;
+  const int first = ub + warp;
+  const int mine = first < ue ? (ue - first + kW - 1) / kW : 0;
 #pragma unroll
   for (int k = 0; k < kStages - 1; ++k) {
     if (k < mine) issue(first + k * kW, k);
     cp_async_commit();
   }
   for (int i = 0; i < mine; ++i) {
-    const int p = first + i * kW;
-    if (i + kStages - 1 < mine)  // into the stage of page i - 1, released below
-      issue(p + (kStages - 1) * kW, (i + kStages - 1) % kStages);
+    const int u = first + i * kW;
+    if (i + kStages - 1 < mine)  // into the stage of unit i - 1, released below
+      issue(u + (kStages - 1) * kW, (i + kStages - 1) % kStages);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncwarp();
     const unsigned char* sk = wbuf + (i % kStages) * G::kStage;
     const uint32_t ka = smem_u32(sk), va = ka + G::kTile;
     const float* sks = reinterpret_cast<const float*>(sk + 2 * G::kTile);
-    const float* svs = sks + kPage;
+    const float* svs = sks + kTok;
 
-    // scores: tile j holds tokens 8j..8j+7; this lane's are 8j + 2t, +1
-    float s[MT][8][4];
+    // scores: tile j holds tokens 8j..8j+7; this lane's are 8j + 2t, +1.
+    // The k16 steps of four chunks outside (their A fragments fetched once),
+    // the token tiles inside.
+    float s[MT][NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
-      for (int cq = 0; cq < G::kChunks / 4; ++cq) {
+    for (int cq = 0; cq < G::kChunks / 4; ++cq) {
+      uint32_t af[MT][E][4];  // A fragments of k16 steps E cq .. E cq + E - 1
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (G::kQSmem) {
+            ldmatrix_x4(af[mt][e], smem_u32(qsm) + (lane & 15) * G::kQRow +
+                                       (2 * (E * cq + e) + (lane >> 4)) * 16);
+          } else {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) af[mt][e][r] = qa[mt][E * cq + e][r];
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
         uint32_t b[4];  // chunks 4cq..4cq+3 of tokens 8j..8j+7
         ldmatrix_x4(b, ka + (8 * j + (lane & 7)) * G::kRow + (4 * cq + (lane >> 3)) * 16);
         if constexpr (kQ8) {  // a 16-byte chunk is one k16 step
@@ -234,23 +292,23 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
           for (int e = 0; e < 4; ++e) {
             const uint32_t b0 = s8_pair_02(b[e]), b1 = s8_pair_13(b[e]);
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) mma_16816(s[mt][j], qa[mt][4 * cq + e], b0, b1);
+            for (int mt = 0; mt < MT; ++mt) mma_16816(s[mt][j], af[mt][e], b0, b1);
           }
         } else {  // two chunks per k16 step
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
-              mma_16816(s[mt][j], qa[mt][2 * cq + e], b[2 * e], b[2 * e + 1]);
+              mma_16816(s[mt][j], af[mt][e], b[2 * e], b[2 * e + 1]);
         }
       }
     }
 
     // scale, mask, online softmax per row (the quad of a row shares m)
-    const int base = p * kPage;
-    const bool full = base >= lo && base + kPage <= ctx;
+    const int base = u * kTok;
+    const bool full = base >= lo && base + kTok <= ctx;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int tok = 8 * j + 2 * t;
       float f0 = scale, f1 = scale;
       if constexpr (kQ8) {
@@ -274,14 +332,14 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
       for (int half = 0; half < 2; ++half) {
         float mx = m[mt][half];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * half], s[mt][j][2 * half + 1]));
+        for (int j = 0; j < NJ; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * half], s[mt][j][2 * half + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float alpha = ex2(m[mt][half] - mx);
         m[mt][half] = mx;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const float e0 = ex2(s[mt][j][2 * half] - mx), e1 = ex2(s[mt][j][2 * half + 1] - mx);
           s[mt][j][2 * half] = e0;
           s[mt][j][2 * half + 1] = e1;
@@ -297,7 +355,7 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
 
     // PV: step ks takes tokens 16ks..16ks+15, A from score tiles 2ks, 2ks+1
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < kTok / 16; ++ks) {
       uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -350,7 +408,7 @@ __global__ void __launch_bounds__(Geo<T, D>::kThreads) paged_attention_kernel(
         }
       }
     }
-    __syncwarp();  // this stage is free for page i + kStages
+    __syncwarp();  // this stage is free for unit i + kStages
   }
   cp_async_wait<0>();  // the empty groups: nothing is in flight below
 
@@ -542,6 +600,9 @@ extern "C" int pie_paged_attention(const void* q, const void* pool_k,
 #define PIE_K3_ARGS                                                              \
   rep, q, pool_k, pool_v, k_scale, v_scale, tables, ctx_lens, out, ws, counters, \
       B, hq, hkv, ptot, maxp, layer, window, scale, splits, st
+  if (d == 256)
+    return quantized ? (int)dispatch<int8_t, 256>(PIE_K3_ARGS)
+                     : (int)dispatch<__nv_bfloat16, 256>(PIE_K3_ARGS);
   if (d == 128)
     return quantized ? (int)dispatch<int8_t, 128>(PIE_K3_ARGS)
                      : (int)dispatch<__nv_bfloat16, 128>(PIE_K3_ARGS);
@@ -555,6 +616,9 @@ extern "C" int pie_paged_attention(const void* q, const void* pool_k,
 // geo[3] = {warps per block, cp.async stages per warp, blocks resident per
 // SM} of the kernel pie_paged_attention launches for these arguments.
 extern "C" int pie_paged_attention_geometry(int d, int quantized, int rep, int* geo) {
+  if (d == 256)
+    return quantized ? (int)dispatch_geometry<int8_t, 256>(rep, geo)
+                     : (int)dispatch_geometry<__nv_bfloat16, 256>(rep, geo);
   if (d == 128)
     return quantized ? (int)dispatch_geometry<int8_t, 128>(rep, geo)
                      : (int)dispatch_geometry<__nv_bfloat16, 128>(rep, geo);

@@ -6,12 +6,14 @@
 // followed by one deep MXU dot per 512-row tile).
 //
 // Computes y = x @ W with W[k, n] = q*s + b dequantized to bf16, f32
-// accumulation on the tensor cores and a bf16 output. Weights are not bit
-// exact against the plain version (neither is the JAX prefill branch, which
-// scales codes by bf16 16s and adds the bias through a separate dot): INT4
-// with bf16 scales rounds twice, bf16(bf16(q*s) + b); INT8 and f32 scales
-// round once, bf16(fma(1 + q/2^bits, 2^bits*s, b - 2^bits*s)) in f32, K1's
-// arithmetic. Both stay far inside the 0.025 normalized tolerance.
+// accumulation on the tensor cores and a bf16 output. Every weight rounds
+// once, as the plain version's bf16(q*s + b) does: bf16(fma(1 + q/2^bits,
+// 2^bits*s, b - 2^bits*s)) in f32, K1's arithmetic. With bf16 scales the
+// product and b - 2^bits*s are exact in f32, so the weights equal the plain
+// version's bit for bit (tests/test_torch_k2_numerics.py); with f32 scales
+// (a tied head) q*s itself may round in the plain version. The JAX prefill
+// branch rounds once too (codes times bf16 16s, the bias through a
+// separate f32 dot).
 //
 // Bound on the H100: operations from M ~ 300 up (2*M*K*N over 989 TFLOP/s
 // bf16 against one read of the packed weights), bytes below that.
@@ -34,13 +36,14 @@
 //    setmaxnreg moves registers from the producer warpgroup to the
 //    consumers' 128 accumulators and two fragment sets.
 // 3. Expensive dequantization -> a thread needs codes 2t, 2t+1 of its
-//    features' words (t = lane % 4), byte t of each: prmt puts byte t of w
-//    and of w >> 4 in the two halves, lop3 ors the low nibbles into the
-//    mantissa of bf16 128.0, one bf16x2 fma gives bf16(q*s) exactly
-//    ((128+q)*s - 128*s rounds once), one adds b. The weights go from
-//    shared memory to registers with no B tile written or read back, and
-//    each is dequantized once per 256 tokens (once per 128 with a B tile in
-//    shared memory). A step's scale and bias are prepared once per thread.
+//    features' words (t = lane % 4), byte t of each: the two codes are or'ed
+//    into the mantissa of f32 1.0 (1 + q/2^bits, exact), one f32 fma each
+//    with the step's 2^bits*s and b - 2^bits*s, one bf16x2 pack. (An
+//    earlier bf16x2-fma form rounded INT4 weights twice, bf16(bf16(q*s) +
+//    b).) The weights go from shared memory to registers with no B tile
+//    written or read back, and each is dequantized once per 256 tokens
+//    (once per 128 with a B tile in shared memory). A step's scale and bias
+//    are prepared once per thread.
 // 4. Grid under-fills the card at small M -> split-K: where the output
 //    tiles fill at most half of the SMs, blockIdx.z takes a range of K steps
 //    (on group boundaries), writes f32 partials to a workspace, and the last
@@ -102,13 +105,11 @@ static_assert(BT * CP * 4 <= raw_stages(8, true, 32) * raw_bytes(8, true, 32),
               "epilogue tile must fit in the ring");
 
 using pie::bf16_pair;
-using pie::bf16x2_fma;
 using pie::encode_2d;
 using pie::mbar_arrive;
 using pie::mbar_expect_tx;
 using pie::mbar_init;
 using pie::mbar_wait;
-using pie::prmt;
 using pie::smem_u32;
 using pie::tma_load_2d;
 
@@ -177,12 +178,6 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// bf16x2 (v, v) of a bf16 value
-__device__ __forceinline__ uint32_t bf16_dup(__nv_bfloat16 v) {
-  const uint32_t h = __bfloat16_as_ushort(v);
-  return h | h << 16;
-}
-
 template <bool F32S>
 __device__ __forceinline__ float affine(const unsigned char* row, int n) {
   return F32S ? reinterpret_cast<const float*>(row)[n]
@@ -200,64 +195,33 @@ __device__ __forceinline__ void build_frags(const unsigned char* raw, uint32_t (
   const unsigned char* srows = raw + kOffW + words_bytes(BITS);
   const unsigned char* brows = srows + sb_rows(g) * BF * ES;
   const int row1 = g == 32 ? BF * ES : 0;  // chunks 4-7's scale row
-  if constexpr (BITS == 4 && !F32S) {
-    uint32_t s2[2][2], m2[2][2], b2[2][2];  // [group][feature]
+  constexpr float P = (float)(1 << BITS);
+  float sp[2][2], be[2][2];
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+  for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int f = f0 + 8 * h;
-        const __nv_bfloat16 sv = reinterpret_cast<const __nv_bfloat16*>(srows + q * row1)[f];
-        s2[q][h] = bf16_dup(sv);
-        m2[q][h] = bf16_dup(__float2bfloat16_rn(-128.f * __bfloat162float(sv)));
-        b2[q][h] = bf16_dup(reinterpret_cast<const __nv_bfloat16*>(brows + q * row1)[f]);
+    for (int h = 0; h < 2; ++h) {
+      const int f = f0 + 8 * h;
+      sp[q][h] = affine<F32S>(srows + q * row1, f) * P;
+      be[q][h] = affine<F32S>(brows + q * row1, f) - sp[q][h];
+    }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = 2 * kk + (r >> 1), h = r & 1, q = c >> 2;
+      float lo, hi;
+      if constexpr (BITS == 4) {
+        const uint32_t w = W[c * BF + f0 + 8 * h] >> (8 * t);  // codes 2t, 2t+1 at bits 0-7
+        lo = __uint_as_float(((w & 0xFu) << 19) | 0x3F800000u);
+        hi = __uint_as_float(((w & 0xF0u) << 15) | 0x3F800000u);
+      } else {  // word row 2c + t/2 holds rows 8c + 4(t/2) .. +3; ours are bytes 2(t%2), +1
+        const uint32_t w = W[(2 * c + (t >> 1)) * BF + f0 + 8 * h] >> (16 * (t & 1));
+        lo = __uint_as_float(((w & 0xFFu) << 15) | 0x3F800000u);
+        hi = __uint_as_float(((w & 0xFF00u) << 7) | 0x3F800000u);
       }
-    uint32_t w[8][2];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) w[c][h] = W[c * BF + f0 + 8 * h];
-    const uint32_t sel = 0x0400u + 0x0101u * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = 2 * kk + (r >> 1), h = r & 1, q = c >> 2;
-        const uint32_t p = prmt(w[c][h], w[c][h] >> 4, sel);
-        uint32_t v;
-        asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(v) : "r"(p), "r"(0x000F000Fu),
-            "r"(0x43004300u));
-        a[kk][r] = bf16x2_fma(bf16x2_fma(v, s2[q][h], m2[q][h]), 0x3F803F80u, b2[q][h]);
-      }
-  } else {
-    constexpr float P = (float)(1 << BITS);
-    float sp[2][2], be[2][2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int f = f0 + 8 * h;
-        sp[q][h] = affine<F32S>(srows + q * row1, f) * P;
-        be[q][h] = affine<F32S>(brows + q * row1, f) - sp[q][h];
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = 2 * kk + (r >> 1), h = r & 1, q = c >> 2;
-        float lo, hi;
-        if constexpr (BITS == 4) {
-          const uint32_t w = W[c * BF + f0 + 8 * h] >> (8 * t);  // codes 2t, 2t+1 at bits 0-7
-          lo = __uint_as_float(((w & 0xFu) << 19) | 0x3F800000u);
-          hi = __uint_as_float(((w & 0xF0u) << 15) | 0x3F800000u);
-        } else {  // word row 2c + t/2 holds rows 8c + 4(t/2) .. +3; ours are bytes 2(t%2), +1
-          const uint32_t w = W[(2 * c + (t >> 1)) * BF + f0 + 8 * h] >> (16 * (t & 1));
-          lo = __uint_as_float(((w & 0xFFu) << 15) | 0x3F800000u);
-          hi = __uint_as_float(((w & 0xFF00u) << 7) | 0x3F800000u);
-        }
-        a[kk][r] = bf16_pair(fmaf(lo, sp[q][h], be[q][h]), fmaf(hi, sp[q][h], be[q][h]));
-      }
-  }
+      a[kk][r] = bf16_pair(fmaf(lo, sp[q][h], be[q][h]), fmaf(hi, sp[q][h], be[q][h]));
+    }
 }
 
 template <int BITS, bool F32S>

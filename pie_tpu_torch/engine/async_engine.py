@@ -12,7 +12,7 @@ thread touches CUDA: it runs every device program, so the step graphs are
 captured there (a request thread only queues and reads host objects, and
 ``capture_error_mode="thread_local"`` would let it touch CUDA anyway). Not
 ported yet, and refused with ``InferenceError``: the native scheduler
-(``scheduler_impl="native"``, ROADMAP A7) and image inputs (A9).
+(``scheduler_impl="native"``, ROADMAP A7) and image inputs (A9c).
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ class BatchedInferenceEngine:
         if not prompt_ids:
             raise InferenceError("empty prompt")
         if pixel_values is not None:
-            raise InferenceError("image inputs are not ported yet")
+            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
         self.start()
         out_q: queue.Queue = queue.Queue()
         seq = Sequence(

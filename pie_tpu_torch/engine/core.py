@@ -15,7 +15,9 @@ parameters, penalties and stop tokens are tensors, as in the JAX package.
 
 The step covers the contiguous KV cache in bf16 (the single-stream
 default) and in INT8, whose one-token writes take ``scatter_drop``'s path
-without a host read. ``maybe_quantize`` reads the cache's length on the
+without a host read, and a model's own cache (``model.make_cache``:
+Gemma-3's DualKVCache, whose rotating slot the step computes on the
+device). ``maybe_quantize`` reads the cache's length on the
 host: it runs between requests, never inside a step, and the INT8 cache it
 makes replaces the static one through ``set_cache`` (the graphs over the
 old one go). The prefill stays eager.
@@ -29,7 +31,13 @@ from typing import Optional
 
 import torch
 
-from pie_tpu_torch.cache.kv_cache import KVCache, QuantizedKVCache, make_kv_cache
+from pie_tpu_torch.cache.kv_cache import (
+    cache_kind,
+    cache_tensors,
+    copy_metadata,
+    make_kv_cache,
+    reset_metadata,
+)
 from pie_tpu_torch.engine.graphs import StepGraphs
 from pie_tpu_torch.ops.sampling import (
     SAMPLER_KINDS,
@@ -147,6 +155,7 @@ class EngineCore:
         #: the decode step's graphs (jax.jit's cache of compiled programs)
         self.graphs = StepGraphs(self.device, self._gen)
         self._state: Optional[DecodeState] = None
+        self._made_kind: Optional[tuple] = None  # what new_state builds
         # (bias width, stop width) -> static chunk inputs
         self._inputs: dict = {}
 
@@ -157,22 +166,27 @@ class EngineCore:
         and ``_decode`` take and return this very state."""
         self._gen.manual_seed(seed)
         st = self._state
-        kind = QuantizedKVCache if self.kv_quantized else KVCache
-        if st is not None and type(st.cache) is kind:
-            st.cache.slot_positions.fill_(-1)
-            st.cache.length.zero_()
+        if st is not None and cache_kind(st.cache) == self._made_kind:
+            reset_metadata(st.cache)
             st.last_token.zero_()
             st.lengths.zero_()
             st.history.fill_(PAD_TOKEN)
             st.done.fill_(True)
             return st
         cfg = self.model.config
-        cache = make_kv_cache(
-            cfg.num_hidden_layers, self.batch_size, self.max_seq_len,
-            cfg.num_key_value_heads, cfg.resolved_head_dim,
-            dtype=self.kv_dtype, quantized=self.kv_quantized,
-            device=self.device,
-        )
+        if hasattr(self.model, "make_cache"):
+            # the model's own layout (Gemma-3's bounded sliding/global groups)
+            cache = self.model.make_cache(
+                self.batch_size, self.max_seq_len, dtype=self.kv_dtype,
+                quantized=self.kv_quantized, device=self.device)
+        else:
+            cache = make_kv_cache(
+                cfg.num_hidden_layers, self.batch_size, self.max_seq_len,
+                cfg.num_key_value_heads, cfg.resolved_head_dim,
+                dtype=self.kv_dtype, quantized=self.kv_quantized,
+                device=self.device,
+            )
+        self._made_kind = cache_kind(cache)
         b, dev = self.batch_size, self.device
         if st is not None:  # the INT8 cache goes: so do its graphs
             self.graphs = StepGraphs(self.device, self._gen)
@@ -190,18 +204,16 @@ class EngineCore:
     def set_cache(self, cache) -> DecodeState:
         """Put ``cache`` (a prompt-cache load, an INT8 conversion) in the
         static state: copied in place when it matches the static cache in
-        kind, shapes and dtypes, so the graphs stay valid; else it becomes
-        the static cache and the graphs over the old one go."""
+        kind, shapes and dtypes (every group of a DualKVCache), so the
+        graphs stay valid; else it becomes the static cache and the graphs
+        over the old one go."""
         st = self._adopt(self._state)
-        old = st.cache
-        tensors = [f.name for f in dataclasses.fields(old)
-                   if isinstance(getattr(old, f.name), torch.Tensor)]
-        if type(cache) is type(old) and all(
-                getattr(cache, n).shape == getattr(old, n).shape
-                and getattr(cache, n).dtype == getattr(old, n).dtype
-                for n in tensors):
-            for n in tensors:
-                getattr(old, n).copy_(getattr(cache, n))
+        old, new = cache_tensors(st.cache), cache_tensors(cache)
+        if cache_kind(cache) == cache_kind(st.cache) and all(
+                new[n].shape == t.shape and new[n].dtype == t.dtype
+                for n, t in old.items()):
+            for n, t in old.items():
+                t.copy_(new[n])
         else:
             self._state = st = dataclasses.replace(st, cache=cache)
             self.graphs = StepGraphs(self.device, self._gen)
@@ -319,8 +331,7 @@ class EngineCore:
         proc = self._process_logits(last_logits, hist, penalties, bias_ids,
                                     bias_vals, allowed_mask)
         token = sample(proc, sampling, st.key, kind=sampler_kind)
-        st.cache.slot_positions.copy_(cache.slot_positions)
-        st.cache.length.copy_(cache.length)
+        copy_metadata(st.cache, cache)
         st.last_token.copy_(token)
         st.lengths.copy_(first_pos + prompt_lens)
         st.history.copy_(self._push_history(
@@ -356,9 +367,8 @@ class EngineCore:
         history = self._push_history(st.history, token, active)
         done = st.done | hit_stop
         # carry the state into the static buffers (k / v were written in
-        # place through the bucket's view)
-        cache.slot_positions.copy_(adv.slot_positions)
-        full.length.copy_(adv.length)
+        # place through the bucket's view, which shares the full length)
+        copy_metadata(cache, adv)
         st.last_token.copy_(token)
         st.lengths.copy_(lengths)
         st.history.copy_(history)

@@ -6,10 +6,12 @@ bounded lookahead of queued chunks, stop tokens, max tokens, logprobs,
 logit bias and penalties, the prompt cache, and the INT8 KV threshold;
 constrained decoding (``generate_constrained``: one masked, bucketed
 prefill per choice point, forced runs encoded on the host); the chat API
-(``_chat_run`` / ``_chat``, structured requests included) and loading a
-checkpoint (``model_path``: ``models/loader.py`` and the snapshot's
-tokenizer). Not ported yet: image inputs, which raise ``InferenceError``
-rather than decode something else.
+(``_chat_run`` / ``_chat``, structured requests included); prompts split
+into head chunks for a model that bounds its prefill chunk (Gemma-3:
+``_prefill_head_chunks``); loading a checkpoint (``model_path``:
+``models/loader.py`` and the snapshot's tokenizer). Not ported yet: image
+inputs (ROADMAP A9c), which raise ``InferenceError`` rather than decode
+something else.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from pie_tpu_torch.cache.kv_cache import cache_kind, cache_tensors
 from pie_tpu_torch.engine.core import PAD_TOKEN, EngineCore, PenaltyParams
 from pie_tpu_torch.ops.sampling import SamplingParams, sampler_kind_for
 from pie_tpu_torch.utils.device import host_tensor, resolve_device
@@ -230,7 +233,7 @@ class InferenceEngine:
         """Yield tokens one at a time; the GenerationResult is the
         generator's return value (StopIteration.value)."""
         if pixel_values is not None:
-            raise InferenceError("image inputs are not ported yet")
+            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
         result = yield from self._run(
             list(prompt_ids), max_completion_tokens, list(stop_token_ids),
             logprobs, kwargs,
@@ -265,8 +268,10 @@ class InferenceEngine:
         prompt_ids = list(prompt_ids)
         if len(prompt_ids) > self.core.max_seq_len:
             raise InferenceError("prompt exceeds engine max_seq_len")
-        first_pos = self.prompt_cache.reuse_prefix(prompt_ids)
-        suffix = prompt_ids[first_pos:]
+        first_pos = self._reuse_prefix(prompt_ids)
+        suffix, first_pos = self._prefill_head_chunks(
+            prompt_ids[first_pos:], first_pos, self._sampling({}),
+            self._penalties({}), *self._empty_bias, "greedy")
         slen = len(suffix)
         ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
         ids[0, :slen] = suffix
@@ -279,20 +284,53 @@ class InferenceEngine:
         self.prompt_cache.update(prompt_ids)
         return self.prompt_cache.save_prompt(prompt_ids, state.cache)
 
+    def _reuse_prefix(self, prompt_ids) -> int:
+        """The prompt cache's reusable prefix, or 0 where the cache's
+        rotating sliding store (Gemma-3's DualKVCache) has evicted a token
+        that the next query's window needs: the store keeps the last
+        ``capacity`` positions written, so a sequence written past the
+        window and past the prefix has lost the window before the prefix's
+        end. (The JAX engine reuses such a prefix all the same; ROADMAP C.)
+        Reads the store's last position on the host, between requests."""
+        first_pos = self.prompt_cache.reuse_prefix(prompt_ids)
+        sliding = getattr(self.state.cache, "sliding", None)
+        if sliding is not None and first_pos > 0:
+            last = int(sliding.slot_positions.max())
+            if last > max(sliding.capacity - 1, first_pos):
+                return 0
+        return first_pos
+
+    def _prefill_head_chunks(self, suffix, first_pos, sampling, penalties,
+                             bias_ids, bias_vals, skind):
+        """Split a long prompt into sequential prefill chunks when the model
+        bounds how many tokens one forward may write (Gemma-3's rotating
+        sliding-window store: a longer chunk would evict KV its own earlier
+        queries need; ``prefill_chunk_bound``). Runs every chunk but the
+        tail, whose sampling the caller owns, each at the largest prefill
+        bucket within the bound (the bound itself when no bucket fits), and
+        returns the tail and its first position."""
+        bound = getattr(self.model, "prefill_chunk_bound", None)
+        if bound is None or len(suffix) <= bound:
+            return suffix, first_pos
+        csize = max((b for b in PREFILL_BUCKETS if b <= bound), default=bound)
+        off = 0
+        while len(suffix) - off > csize:
+            self.state, _, _ = self.core._prefill(
+                self.params, self.state,
+                self._ids(np.asarray([suffix[off:off + csize]], np.int32)),
+                self._full(csize), self._full(first_pos + off), sampling,
+                penalties, bias_ids, bias_vals, sampler_kind=skind,
+            )
+            off += csize
+        return suffix[off:], first_pos + off
+
     def _cache_compatible(self, loaded) -> bool:
         """A disk hit is keyed by token ids only; a file from another model
         or geometry must fall back to recomputation."""
-        cur = self.state.cache
-        if type(loaded) is not type(cur):
-            return False
-        for f in dataclasses.fields(cur):
-            a, b = getattr(cur, f.name), getattr(loaded, f.name)
-            if isinstance(a, torch.Tensor):
-                if not isinstance(b, torch.Tensor):
-                    return False
-                if a.shape != b.shape or a.dtype != b.dtype:
-                    return False
-        return True
+        cur, new = cache_tensors(self.state.cache), cache_tensors(loaded)
+        return cache_kind(loaded) == cache_kind(self.state.cache) and all(
+            n in new and new[n].shape == t.shape and new[n].dtype == t.dtype
+            for n, t in cur.items())
 
     # ------------------------------------------------------------------
 
@@ -311,7 +349,7 @@ class InferenceEngine:
         # prompt-cache prefix reuse: prefill only the un-cached suffix
         first_pos = 0
         if self.prompt_cache is not None:
-            first_pos = self.prompt_cache.reuse_prefix(prompt_ids)
+            first_pos = self._reuse_prefix(prompt_ids)
             if first_pos == 0 and self.prompt_cache.cache_dir:
                 try:
                     hit = self.prompt_cache.load_prompt(prompt_ids, self.device)
@@ -325,11 +363,7 @@ class InferenceEngine:
                     cache, computed = hit
                     self.state = self.core.set_cache(cache)
                     self.prompt_cache.update(computed)
-                    first_pos = self.prompt_cache.reuse_prefix(prompt_ids)
-        suffix = prompt_ids[first_pos:]
-        slen = len(suffix)
-        ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
-        ids[0, :slen] = suffix
+                    first_pos = self._reuse_prefix(prompt_ids)
         sampling = self._sampling(kw)
         penalties = self._penalties(kw)
         bias_ids, bias_vals = self._bias(kw)
@@ -340,6 +374,12 @@ class InferenceEngine:
             kw.get("temperature", 1.0), kw.get("top_p", 1.0),
             kw.get("min_p", 0.0), kw.get("top_k", -1),
         )
+        suffix, first_pos = self._prefill_head_chunks(
+            prompt_ids[first_pos:], first_pos, sampling, penalties, bias_ids,
+            bias_vals, skind)
+        slen = len(suffix)
+        ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
+        ids[0, :slen] = suffix
         stop = np.full((_pow2_width(len(stop_token_ids)),), PAD_TOKEN, np.int32)
         stop[:len(stop_token_ids)] = list(stop_token_ids)
         stop = self._ids(stop)
@@ -481,8 +521,8 @@ class InferenceEngine:
         advance, with one device program per choice point.
 
         - The prompt prefill is the first choice point: one bucketed
-          ``_prefill`` that samples under the mask (the port's models bound
-          no prefill chunk, so no head chunks run before it).
+          ``_prefill`` that samples under the mask, after the head chunks
+          of a model that bounds its prefill chunk (Gemma-3).
         - Every later choice point is one bucketed extend
           (``EXTEND_BUCKETS``) that writes the KV of the pending run and
           samples the next token under the mask.
@@ -582,7 +622,10 @@ class InferenceEngine:
         if plen > self.core.max_seq_len - 1:
             raise InferenceError("prompt exceeds engine max_seq_len")
         # the prompt prefill is the first choice point
-        tok, aux = dispatch(prompt_ids, 0, build_mask(), self._prefill_bucket(plen))
+        head, head_pos = self._prefill_head_chunks(
+            prompt_ids, 0, sampling, penalties, bias_ids, bias_vals, skind)
+        tok, aux = dispatch(head, head_pos, build_mask(),
+                            self._prefill_bucket(len(head)))
         cur_len = plen  # tokens whose KV is in the cache
 
         def extend(pending, mask):
@@ -708,7 +751,7 @@ def _chat_run(
     for it in interactions:
         images = it.get("images") if isinstance(it, dict) else it.images
         if images:
-            raise InferenceError("image inputs are not ported yet")
+            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
 
     prompt_ids = tok.apply_chat_template(
         interactions, add_generation_prompt=True, tools=tools,

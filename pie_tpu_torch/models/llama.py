@@ -452,7 +452,7 @@ class LlamaModel:
         f32, cache).
         """
         if inputs_embeds is not None:
-            raise NotImplementedError("image inputs are not ported yet")
+            raise NotImplementedError("image inputs are not ported yet (ROADMAP A9c)")
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -534,18 +534,6 @@ class LlamaModel:
 
     # -- paged-pool forwards (continuous-batching path) ----------------------
 
-    def _gathered_attn(self, pool, layer, tables, q, mask, scale):
-        """Masked dense attention of q [B, T, Hq, dh] over the pages that
-        ``tables`` [B, maxP] names, gathered from the pool (INT8 pages stay
-        int8; their scales fold into the dots)."""
-        k = gather_pages(pool.k, layer, tables)
-        v = gather_pages(pool.v, layer, tables)
-        if pool.quantized:
-            ks = gather_pages(pool.k_scale, layer, tables)[..., None]
-            vs = gather_pages(pool.v_scale, layer, tables)[..., None]
-            return sdpa_quantized(q, k, ks, v, vs, mask, scale)
-        return sdpa(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
-
     def paged_forward(
         self,
         params: dict,
@@ -605,7 +593,7 @@ class LlamaModel:
                     pool.v_scale, i, block_tables, context_lens, scale,
                 )[:, None]
             else:
-                attn = self._gathered_attn(pool, i, block_tables, q, mask, scale)
+                attn = gathered_attention(pool, i, block_tables, q, mask, scale)
             h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps,
                                 use_fused_mlp)
         if not with_logits:
@@ -692,8 +680,8 @@ class LlamaModel:
                 pool.v_scale, i, block_tables, dec_ctx, scale,
             )
             if pf_any:
-                attn_pf = self._gathered_attn(pool, i, pf_table, q[:, b:],
-                                              pf_mask, scale)[0]
+                attn_pf = gathered_attention(pool, i, pf_table, q[:, b:],
+                                             pf_mask, scale)[0]
             else:
                 attn_pf = torch.zeros((cs, hq, dh), dtype=q.dtype, device=dev)
             attn = torch.cat([attn_dec, attn_pf])[None]  # [1, M, Hq, dh]
@@ -702,6 +690,20 @@ class LlamaModel:
             h = h2 + self._mlp(p, x, layer=i)
         h = rms_norm(h[:, :b], params["norm"], eps)  # lanes only
         return self.unembed(params, h)[0].to(torch.float32), pool
+
+
+def gathered_attention(pool, layer: int, tables: torch.Tensor, q: torch.Tensor,
+                       mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Masked dense attention of q [B, T, Hq, dh] over the pages that
+    ``tables`` [B, maxP] names, gathered from layer ``layer`` of the pool
+    (INT8 pages stay int8; their scales fold into the dots)."""
+    k = gather_pages(pool.k, layer, tables)
+    v = gather_pages(pool.v, layer, tables)
+    if pool.quantized:
+        ks = gather_pages(pool.k_scale, layer, tables)[..., None]
+        vs = gather_pages(pool.v_scale, layer, tables)[..., None]
+        return sdpa_quantized(q, k, ks, v, vs, mask, scale)
+    return sdpa(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
 
 
 def _paged_kv_positions(block_tables: torch.Tensor,

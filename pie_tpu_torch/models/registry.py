@@ -33,7 +33,7 @@ def register_model(model_type: str) -> Callable:
 
 
 # families the JAX package serves that the port does not yet
-_NOT_PORTED = {"gemma3", "qwen2_vl", "qwen2_5_vl"}
+_NOT_PORTED = {"qwen2_vl", "qwen2_5_vl"}
 
 
 def get_model_class(model_type: str):
@@ -41,7 +41,7 @@ def get_model_class(model_type: str):
     if canonical in _NOT_PORTED:
         raise ValueError(
             f"model architecture {model_type!r} is not ported yet "
-            "(ROADMAP A9: Gemma-3 and Qwen2-VL)"
+            "(ROADMAP A9b: Qwen2-VL)"
         )
     # Import the module to trigger registration.
     try:

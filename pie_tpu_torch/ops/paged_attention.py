@@ -8,7 +8,10 @@ fetch). On the card the layer is a pointer offset, ``layer * P + page``,
 so the two are one kernel over the full ``[L, P + 1, Hkv, PAGE, D]`` pool
 and the port never slices a layer out. The TPU's ``fold`` and its lane
 constraints (``decode_kernel_supported``) have no counterpart: K3 takes
-head dims 64 and 128 and any ``Hq / Hkv`` up to 16 (32 at D = 64).
+head dims 64, 128 and 256 and any ``Hq / Hkv`` up to 16 (32 at D = 64),
+INT8 pages at Hkv = 1 included (Gemma-3 1B's MQA, which the JAX package
+sends to XLA: its Mosaic scale view needs Hkv x 64 to be a multiple of
+128).
 
 One query per sequence attends over the 64-token pages its block table
 names (-1 pads read page 0), with an online softmax in f32:
@@ -29,8 +32,9 @@ tensor to it and a CUDA tensor to K3 (or raises).
 
 K3 runs QK and PV on the tensor cores (``mma.sync``, the probabilities
 rounded for PV as two bf16 terms), each warp of a block walking its own
-pages over a ``cp.async`` double buffer; ``csrc/paged_attention.cu`` says
-how. ``launch_plan`` gives its geometry for a call.
+pages over a ``cp.async`` double buffer (half-page stages and q in shared
+memory at D = 256); ``csrc/paged_attention.cu`` says how. ``launch_plan``
+gives its geometry for a call.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from pie_tpu_torch.ops.attention import NEG_INF
 #: K3 splits each lane's page walk until the grid is one wave of this many
 #: SMs times K3's resident blocks per SM (132: the SMs of an H100 SXM)
 TARGET_BLOCKS = 132
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: query heads per kv head that one m16 tile of K3's mma holds (two tiles,
 #: 32 heads, at D = 64)
 MAX_GROUP = 16
@@ -138,7 +142,7 @@ def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
     b, hq, d = q.shape
     nl, ptot, hkv, page, _ = pool_k.shape
     if (d not in HEAD_DIMS or page != PAGE_SIZE or hq % hkv
-            or hq // hkv > MAX_GROUP * 128 // d):
+            or hq // hkv > (2 * MAX_GROUP if d == 64 else MAX_GROUP)):
         raise ValueError(
             f"K3 takes head_dim {HEAD_DIMS}, {PAGE_SIZE}-token pages, Hkv | Hq "
             f"and Hq / Hkv <= {MAX_GROUP} (32 at D = 64); got D={d}, page={page}, "

@@ -51,6 +51,7 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.models.loader",
     "pie_tpu_torch.models.gguf",
     "pie_tpu_torch.server.app",
+    "pie_tpu_torch.models.gemma3",
 ])
 def test_batching_modules_import_no_jax(module):
     """Each module of the continuous-batching path, and of the checkpoint

@@ -10,8 +10,9 @@ emulation repeats:
 - scores: the unscaled bf16 q times the exact K (INT8 codes or bf16
   values) on the tensor cores, f32 products and sums; then times
   ``scale * k_scale[token]`` in f32; masked to NEG_INF;
-- an online softmax per warp, over the pages the block deals to its warps
-  in turn (warp w takes pages pb + w, pb + w + W, ...), in f32;
+- an online softmax per warp, over the stages the block deals to its warps
+  in turn (warp w takes units ub + w, ub + w + W, ...), in f32; a unit is
+  a page, or half a page at D 256, where K3's stages hold 32 tokens;
 - PV on the tensor cores: the probabilities times ``v_scale[token]`` in
   f32, then rounded for the bf16 mma: as two bf16 terms ``hi = bf16(p)``
   and ``lo = bf16(p - hi)`` (K3's choice), or as one (``single``, the
@@ -21,11 +22,11 @@ emulation repeats:
 
 Measured here (the worst of all cases, printed by
 ``python -m tests.test_torch_k3_numerics``): with hi/lo P the emulation
-lands at most 2.9e-3 from the f32 references in the op-level normalized
-error (limit 2e-2, so 6.8x inside it), all of it the output's bf16
-rounding: before that rounding it is 6.6e-6 from the plain version. With a
-single bf16 P it lands at 5.0e-3, and 2.8e-3 before the output's
-rounding. K3 takes hi/lo.
+lands at most 2.9e-3 from the f32 references at D 64 / 128 and 3.7e-3 at
+D 256 in the op-level normalized error (limit 2e-2, so 5.4x inside it),
+all of it the output's bf16 rounding: before that rounding it is 6.6e-6
+from the plain version. With a single bf16 P it lands at 5.5e-3, and
+3.0e-3 before the output's rounding. K3 takes hi/lo.
 """
 
 import numpy as np
@@ -55,9 +56,15 @@ def _two_torch_threads():
 
 
 def k3_warps(d, quantized):
-    """Warps per block of K3 (``warps_for`` in paged_attention.cu): two for
-    bf16 pages at D 128, whose double buffer is twice the bytes, else four."""
-    return 2 if (not quantized and d == 128) else 4
+    """Warps per block of K3 (``Geo`` in paged_attention.cu): two for bf16
+    pages at D 128 and 256, whose double buffers are twice the bytes, else
+    four."""
+    return 2 if (not quantized and d >= 128) else 4
+
+
+def k3_tokens(d):
+    """Tokens per stage of K3 (``Geo::kTok``): half a page at D 256."""
+    return PAGE // 2 if d == 256 else PAGE
 
 
 def make_inputs(d, quantized, hq, seed=0):
@@ -100,7 +107,7 @@ def _merge(parts):
 
 
 def k3_emulate(q, pool_k, pool_v, k_scale, v_scale, layer, tables, ctx, scale,
-               window, splits, warps, p_round="hilo", round_out=True):
+               window, splits, warps, p_round="hilo", round_out=True, tokens=PAGE):
     """K3's arithmetic in f32 torch ops (module docstring); [B, Hq, D] bf16
     (f32 with ``round_out=False``: the value K3 rounds to bf16)."""
     b, hq, d = q.shape
@@ -112,34 +119,36 @@ def k3_emulate(q, pool_k, pool_v, k_scale, v_scale, layer, tables, ctx, scale,
     for bi in range(b):
         n = int(ctx[bi])
         lo = max(n - window, 0) if window > 0 else 0
-        p_lo, p_hi = lo // PAGE, min(-(-n // PAGE), tables.shape[1])
-        per = -(-max(p_hi - p_lo, 0) // splits)
+        units = PAGE // tokens  # stages per page
+        u_lo, u_hi = lo // tokens, min(-(-n // tokens), tables.shape[1] * units)
+        per = -(-max(u_hi - u_lo, 0) // splits)
         split_parts = []
         for split in range(splits):
-            pb = p_lo + split * per
-            pe = min(p_hi, pb + per)
+            ub = u_lo + split * per
+            ue = min(u_hi, ub + per)
             warp_parts = []
             for w in range(warps):
                 m = neg.expand(hkv, rep).clone()
                 l = torch.zeros((hkv, rep))
                 acc = torch.zeros((hkv, rep, d))
-                for pg in range(pb + w, pe, warps):
-                    t = max(int(tables[bi, pg]), 0)
-                    kt = pool_k[layer, t].float()  # [Hkv, 64, D], exact
-                    vt = pool_v[layer, t].float()
+                for u in range(ub + w, ue, warps):
+                    t = max(int(tables[bi, u // units]), 0)
+                    sl = slice((u % units) * tokens, (u % units + 1) * tokens)
+                    kt = pool_k[layer, t, :, sl].float()  # [Hkv, tokens, D], exact
+                    vt = pool_v[layer, t, :, sl].float()
                     s = torch.einsum("hrd,htd->hrt", qf[bi], kt)
                     if k_scale is not None:
-                        s = s * (scale * k_scale[layer, t])[:, None, :]
+                        s = s * (scale * k_scale[layer, t, :, sl])[:, None, :]
                     else:
                         s = s * scale
-                    pos = pg * PAGE + torch.arange(PAGE)
+                    pos = u * tokens + torch.arange(tokens)
                     s = torch.where((pos >= lo) & (pos < n), s, neg)
                     m_new = torch.maximum(m, s.amax(-1))
                     alpha = torch.exp(m - m_new)
                     p = torch.exp(s - m_new[..., None])
                     l = l * alpha + p.sum(-1)
                     if v_scale is not None:
-                        p = p * v_scale[layer, t][:, None, :]
+                        p = p * v_scale[layer, t, :, sl][:, None, :]
                     hi = p.bfloat16().float()
                     pv = torch.einsum("hrt,htd->hrd", hi, vt)
                     if p_round == "hilo":
@@ -183,8 +192,8 @@ def _norm_err(got, want):
 
 
 CASES = [(d, quantized, window, rep)
-         for d in (64, 128) for quantized in (False, True) for window in (0, 100)
-         for rep in ((1, 4, 16, 32) if d == 64 else (1, 4, 16))]
+         for d in (64, 128, 256) for quantized in (False, True) for window in (0, 100)
+         for rep in {64: (1, 4, 16, 32), 128: (1, 4, 16), 256: (1, 2, 4, 16)}[d]]
 
 
 def errors(d, quantized, window, rep, splits):
@@ -195,12 +204,12 @@ def errors(d, quantized, window, rep, splits):
     q, k, v, ks, vs, tables, ctx = make_inputs(d, quantized, rep * HKV, seed=rep + d)
     scale = d ** -0.5
     args = (q, k, v, ks, vs, 1, tables, ctx, scale, window)
-    warps = k3_warps(d, quantized)
-    hilo = k3_emulate(*args, splits=splits, warps=warps)
-    single = k3_emulate(*args, splits=splits, warps=warps, p_round="single")
+    geo = dict(splits=splits, warps=k3_warps(d, quantized), tokens=k3_tokens(d))
+    hilo = k3_emulate(*args, **geo)
+    single = k3_emulate(*args, **geo, p_round="single")
     plain = tpa.paged_attention_ref(q.float(), *args[1:])
     jax_out = _jax_xla(*args)
-    unrounded = [k3_emulate(*args, splits=splits, warps=warps, p_round=r, round_out=False)
+    unrounded = [k3_emulate(*args, **geo, p_round=r, round_out=False)
                  for r in ("hilo", "single")]
     return (_norm_err(hilo, jax_out), _norm_err(hilo, plain), _norm_err(single, plain),
             _norm_err(plain, jax_out), *(_norm_err(u, plain) for u in unrounded))
@@ -210,8 +219,9 @@ def errors(d, quantized, window, rep, splits):
 @pytest.mark.parametrize("d,quantized,window,rep", CASES)
 def test_k3_arithmetic_matches_the_references(d, quantized, window, rep, splits):
     """The emulated K3 (hi/lo P) within the op-level 2e-2 of the JAX
-    package's XLA attention and of the port's plain version, at D 64/128,
-    INT8 and bf16 pools, windows 0 and 100, rep 1-16 (32 at D 64), ragged
+    package's XLA attention and of the port's plain version, at D 64/128
+    and D 256 (half-page stages), INT8 and bf16 pools, windows 0 and 100,
+    rep 1-16 (32 at D 64; 1, 2, 4, 16 at D 256, Gemma-3's groups), ragged
     lengths with -1 pads, the walk split over 1 or 3 blocks of K3's warps;
     the two references agree to f32 rounding."""
     to_jax, to_plain, _, refs, _, _ = errors(d, quantized, window, rep, splits)
@@ -219,7 +229,8 @@ def test_k3_arithmetic_matches_the_references(d, quantized, window, rep, splits)
     assert refs < 1e-5
 
 
-@pytest.mark.parametrize("d,quantized", [(64, True), (128, True), (128, False)])
+@pytest.mark.parametrize("d,quantized", [(64, True), (128, True), (128, False),
+                                         (256, True), (256, False)])
 def test_hi_lo_probabilities_are_nearer_than_one_bf16(d, quantized):
     """Why K3 rounds P as hi + lo: before the output's bf16 rounding the
     two-term P is at f32 rounding from the plain version, one bf16 P is

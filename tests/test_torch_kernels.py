@@ -199,6 +199,25 @@ def test_k2_matches_plain_across_rows(cuda, m, bits, group_size):
         assert torch.equal(qmc.quant_gemm(x, qt, layer=layer), got)
 
 
+@pytest.mark.parametrize("m", [64, 512])
+def test_k2_int4_rounds_once(cuda, m):
+    """K2's INT4 weights with bf16 scales round once, as its INT8 path and
+    the plain version do (tests/test_torch_k2_numerics.py emulates it): on
+    the same weights both bit widths land within one output rounding of
+    their plain version (2^-8 of the largest output, plus f32 sum order),
+    at the Gemma-3 4B down projection's K."""
+    k, n = 10240, 640
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.02).bfloat16()
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    errs = {}
+    for bits in (4, 8):
+        qt = tq.quantize(w, 64, bits)
+        assert qt.scales.dtype == torch.bfloat16
+        errs[bits] = _norm_err(qmc.quant_gemm(x, qt), qmc.quant_matmul_ref(x, qt))
+    assert errs[4] < 4e-3 and errs[8] < 4e-3, errs
+
+
 @pytest.mark.parametrize("m", [40, 512])
 def test_k2_tied_head_width(cuda, m):
     """The 1B tied head: K 2048, N 128,256 (vocab), f32 scales."""
@@ -267,6 +286,9 @@ LENS = (1, 63, 64, 65, 130, 200, 7, 1000)  # 1,000: 16 pages, several per warp a
 K3_HEADS = [(d, hq, hkv) for d in (64, 128)
             for hq, hkv in ((8, 2), (4, 4), (16, 2), (32, 8), (32, 1))
             if hq // hkv <= (32 if d == 64 else 16)]
+# head_dim 256 (half-page stages, q in shared memory): Gemma-3 4B (8 / 4),
+# 12B (16 / 8) and 1B (4 / 1, MQA), and a group of 16
+K3_HEADS += [(256, hq, hkv) for hq, hkv in ((8, 4), (16, 8), (4, 1), (16, 1))]
 
 
 @pytest.mark.parametrize("d,hq,hkv", K3_HEADS)
@@ -277,7 +299,8 @@ def test_paged_attention_matches_plain(cuda, monkeypatch, d, quantized, window,
                                        split, hq, hkv):
     """K3 against paged_attention_ref: ragged lengths, shuffled tables with
     -1 pads, sliding windows, layer 1 of 2, the page walk split across
-    blocks or not, head groups of 1 to 32 (the Llama-3 heads 32 / 8);
+    blocks or not, head groups of 1 to 32 (the Llama-3 heads 32 / 8; the
+    Gemma-3 heads at D 256);
     bf16 output within 2e-2 of the f32 plain version."""
     if not split:
         monkeypatch.setattr(pa, "TARGET_BLOCKS", 1)
@@ -587,10 +610,23 @@ class _Tap:
         return getattr(self.inner, name)
 
 
-def _single_pair(dev):
+def _gemma_graph_model(dev):
+    """Two layers (one sliding, window 64; one global) at the Gemma-3 1B
+    widths (head_dim 256, one KV head) with a small vocabulary and random
+    INT4 g64 weights."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+
+    model = Gemma3Model(Gemma3Config(
+        hidden_size=1152, intermediate_size=6912, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=1, head_dim=256,
+        vocab_size=1024, sliding_window=64, sliding_window_pattern=2))
+    return model, model.init_quantized_params(seed=0, device=dev)
+
+
+def _single_pair(dev, make=_graph_model):
     from pie_tpu_torch.engine import InferenceEngine
 
-    model, params = _graph_model(dev)
+    model, params = make(dev)
     engines = [InferenceEngine(model=model, params=params, max_seq_len=512,
                                decode_chunk=16, prompt_cache=False, device=dev)
                for _ in range(2)]
@@ -598,10 +634,10 @@ def _single_pair(dev):
     return engines
 
 
-def _paged_pair(dev):
+def _paged_pair(dev, make=_graph_model):
     from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
 
-    model, params = _graph_model(dev)
+    model, params = make(dev)
     scheds = [Scheduler(PagedEngine(model, params, num_lanes=4, num_pages=64,
                                     max_pages_per_seq=8, prefill_chunk=64,
                                     rider_width=44, kv_quantized=True, device=dev),
@@ -643,6 +679,42 @@ def test_step_graphs_replay_the_eager_steps(cuda):
     assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
     assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed"}
     assert taps[0].inner.replays > 0
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+
+def test_gemma3_step_graphs_replay_the_eager_steps(cuda):
+    """Gemma-3's captured steps: the single-stream decode step over the
+    DualKVCache (rotating sliding slots computed on the card) past the
+    window, and the paged rider-free and mixed steps (K3 at D 256, windowed
+    on the sliding layer), give the tokens of the same steps run eagerly,
+    logits within 1e-3 normalized; K3 runs once per layer per paged step."""
+    engines = _single_pair(cuda, _gemma_graph_model)
+    taps = []
+    for e in engines:
+        e.core.graphs = _Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    prompt = list(range(3, 103))  # past the window of 64: two prefill chunks
+    outs = [e.generate(prompt, max_completion_tokens=40, temperature=0.0)
+            for e in engines]
+    assert outs[0].token_ids == outs[1].token_ids and len(outs[0].token_ids) == 40
+    assert taps[0].inner.replays > 0
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+    scheds = _paged_pair(cuda, _gemma_graph_model)
+    taps, streams = [], []
+    for s in scheds:
+        s.engine.graphs = _Tap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+        qmc.reset_counts()
+        steps0 = s.engine.device_steps
+        seqs = [s.add_request(p, max_new_tokens=12, temperature=0.0) for p in PAGED_PROMPTS]
+        s.run_to_completion(max_steps=200)
+        assert qmc.launch_counts["K3"] == 2 * (s.engine.device_steps - steps0) > 0
+        streams.append([q.output_ids for q in seqs])
+    assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
+    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed"}
     for got, want in zip(taps[0].logits, taps[1].logits):
         assert _norm_err(got, want) < 1e-3
 

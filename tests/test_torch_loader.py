@@ -168,10 +168,130 @@ def test_bf16_snapshot_loads_exactly(tmp_path):
 
 
 def test_other_families_name_the_roadmap(tmp_path):
-    for model_type in ("gemma3", "qwen2_vl"):
-        (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
-        with pytest.raises(ValueError, match="A9"):
+    """Qwen2-VL (A9b) and a Gemma-3 config with a vision tower (A9c) are
+    refused before any weight is read, each naming its ROADMAP item."""
+    configs = {
+        "A9b": {"model_type": "qwen2_vl"},
+        "A9c": {"model_type": "gemma3", "text_config": {"hidden_size": 64},
+                "vision_config": {"hidden_size": 32}},
+    }
+    for item, cfg in configs.items():
+        (tmp_path / "config.json").write_text(json.dumps(cfg))
+        with pytest.raises(ValueError, match=item):
             loader.load_model(tmp_path, device="cpu")
+
+
+def test_gemma3_text_resolves():
+    from pie_tpu_torch.models.gemma3 import Gemma3Model
+    from pie_tpu_torch.models.registry import get_model_class
+
+    assert get_model_class("gemma3_text") is Gemma3Model
+    assert get_model_class("gemma3") is Gemma3Model
+    model = loader.build_model({"model_type": "gemma3_text", "hidden_size": 64,
+                                "sliding_window": 8})
+    assert isinstance(model, Gemma3Model) and model.config.sliding_window == 8
+
+
+GEMMA_TINY = dict(
+    hidden_size=64, intermediate_size=128, num_hidden_layers=7,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=256,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, rope_local_base_freq=10000.0,
+    sliding_window=8, sliding_window_pattern=6, query_pre_attn_scalar=16,
+    max_position_embeddings=128,
+    rope_scaling={"rope_type": "linear", "factor": 8.0},
+)
+
+
+def gemma_snapshot(path, quant=None):
+    """A tiny HF Gemma3ForCausalLM saved in bf16 (a ``gemma3_text``
+    snapshot), with a word-level tokenizer carrying Gemma's control tokens."""
+    from tokenizers import Tokenizer as RawTok
+    from tokenizers import models, pre_tokenizers
+
+    from pie_tpu_torch.tokenizer.control_tokens import GEMMA
+
+    torch.manual_seed(0)
+    hf = transformers.Gemma3ForCausalLM(transformers.Gemma3TextConfig(**GEMMA_TINY))
+    with torch.no_grad():
+        hf.model.embed_tokens.weight.mul_(10.0)
+    save_snapshot(path, hf.eval(), quant=quant, dtype=torch.bfloat16)
+    words = ["hello", "world", "how", "are", "you", "be", "brief", "user", "model",
+             "system", "<unk>"]
+    specials = GEMMA.all_control_tokens
+    raw = RawTok(models.WordLevel({w: i for i, w in enumerate(specials + words)},
+                                  unk_token="<unk>"))
+    raw.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    raw.add_special_tokens(specials)
+    transformers.PreTrainedTokenizerFast(
+        tokenizer_object=raw, bos_token="<bos>", eos_token="<eos>", unk_token="<unk>",
+    ).save_pretrained(path)
+    return hf.float(), path
+
+
+def test_gemma3_text_snapshot_matches_hf(tmp_path):
+    """load_model serves a bf16 gemma3_text snapshot (HF names, the VLM
+    prefixes aside): its logits match HF's on the same weights past the
+    sliding window; with a quantization block every projection is INT4
+    g64 on load, as the port's quantizer makes it from the dense weights."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Model
+
+    hf, snap = gemma_snapshot(tmp_path / "snap")
+    model, params = loader.load_model(snap, dtype=torch.float32, device="cpu")
+    assert isinstance(model, Gemma3Model)
+    ids = np.random.default_rng(0).integers(0, 256, (1, 12))
+    with torch.no_grad():
+        want = hf(torch.tensor(ids)).logits.numpy()
+        cache = make_kv_cache(7, 1, 16, 2, 16, torch.float32, device="cpu")
+        first = torch.zeros(1, dtype=torch.int32)
+        got, _ = model(params, torch.tensor(ids), cache.advance(first, 12),
+                       torch.arange(12, dtype=torch.int32)[None])
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-3, rtol=3e-3)
+
+    _, qsnap = gemma_snapshot(tmp_path / "q", quant=QUANT)
+    _, qparams = loader.load_model(qsnap, device="cpu")
+    want_q = model.quantize_params(
+        loader.load_model(snap, device="cpu")[1], 64, 4)
+    for name in Gemma3Model.LINEAR_KEYS:
+        got_q = qparams["layers"][name]
+        assert isinstance(got_q, QuantizedTensor) and got_q.bits == 4
+        for f in ("packed", "scales", "biases"):
+            assert torch.equal(getattr(got_q, f), getattr(want_q["layers"][name], f))
+
+
+def test_gemma3_chat_from_model_path(tmp_path):
+    """create_app on a gemma3_text snapshot (what ``MODEL_PATH=... python -m
+    pie_tpu_torch.server`` builds): the tokenizer is Gemma's, a chat with a
+    system message renders with the Gemma template (the system text folded
+    into the user turn) and answers 200."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from pie_tpu_torch.server.app import ENGINE_KEY, create_app
+    from pie_tpu_torch.server.config import Settings
+    from pie_tpu_torch.tokenizer.control_tokens import GEMMA
+
+    _, snap = gemma_snapshot(tmp_path / "snap")
+    app = create_app(settings=Settings(model_path=str(snap), max_seq_len=64),
+                     device="cpu")
+    tok = app[ENGINE_KEY].tokenizer
+    assert tok.control_tokens == GEMMA
+    chat = [{"role": "system", "text": "be brief"}, {"role": "user", "text": "hello"}]
+    text = tok.decode(tok.apply_chat_template(chat, add_generation_prompt=True))
+    assert "be brief" in text and "system" not in text
+    assert text.startswith("<bos> <start_of_turn> user be brief hello <end_of_turn>")
+    assert text.endswith("<start_of_turn> model")  # words: decoded with spaces
+
+    async def run():
+        async with TestClient(TestServer(app)) as client:
+            resp = await client.post("/v1/chat/completions", json={
+                "messages": [{"role": "system", "content": "be brief"},
+                             {"role": "user", "content": "hello world"}],
+                "max_tokens": 4, "temperature": 0.0})
+            return resp.status, await resp.json()
+
+    status, body = asyncio.run(run())
+    assert status == 200, body
+    assert body["usage"]["prompt_tokens"] == len(tok.apply_chat_template(
+        chat[:1] + [{"role": "user", "text": "hello world"}], add_generation_prompt=True))
 
 
 def test_load_model_defaults_to_cuda(tmp_path):
