@@ -51,12 +51,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    InferenceEngine, whose decode steps replay CUDA graphs
    (pie_tpu_torch/engine/graphs.py): one counted request (64-token
    prompt, 128 decoded tokens: K1 runs 129 times per decoded token, its ln
-   pre-pass 65 times, K2 129 times per prefill), TTFT p50 of a 512-token
-   prompt, best-of-3 greedy decode tok/s; steady 16-step chunks: un-
+   pre-pass 65 times, K2 129 times per prefill, counted under graph
+   replay), TTFT p50 of a 512-token prompt beside one 512-token prefill's
+   device time (CUDA events) and the host's time to queue it (the
+   prefills replay CUDA graphs too), best-of-3 greedy decode tok/s;
+   steady 16-step chunks: un-
    profiled wall ms per step, ms per step from CUDA events, aten calls per
    step and the idle share over a profiled chunk, one chunk queued under
    sync debug mode "error"; the graphs captured, their capture seconds
-   and their pool's bytes.
+   and replays by kind (prefill, decode) and their pool's bytes.
 5. requests: three requests over HTTP on localhost through the port's
    create_app (chat, chat SSE, completions with a logit_bias) on the 8B
    engine with an offline word-level tokenizer.
@@ -66,14 +69,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    64-token prompts x 128 new tokens (identical greedy streams; K3 runs
    32 times per device step), aggregate decode tok/s best of 2, the
    device idle share over one steady chunk, TTFT p50 of 3 distinct
-   512-token prompts admitted under 7 busy lanes, TTFT of a prefix-cache
-   hit, and 8 lanes at 2,048-token contexts (34 pages per sequence, no
+   512-token prompts admitted under 7 busy lanes (aten calls of one
+   profiled admission; its direct prefill replays a graph), TTFT of a
+   prefix-cache hit, and 8 lanes at 2,048-token contexts (34 pages per
+   sequence, no
    prefix cache) as tok/s; steady 8-step chunks measured as in phase 4
    (one dispatched under sync debug mode "error") and the graphs' counts.
-6b. graphs vs eager 8B (and 10b, 1B): each captured step (single-stream
-   decode, paged rider-free and mixed) against the same step run eagerly
-   on the card by a twin engine: equal greedy tokens, every step's logits
-   within 1e-3 normalized.
+6b. graphs vs eager 8B (and 10b, 1B; 12, Gemma-3 4B): each captured
+   prefill (single-stream prompts, replayed by a second prompt of the same
+   buckets; masked extends at buckets 8 and 64; paged direct prefills)
+   and step (single-stream decode, paged rider-free and mixed) against the
+   same prefill or step run eagerly on the card by a twin engine: equal
+   greedy tokens, every prefill's and step's logits within 1e-3
+   normalized, the direct prefills' pools byte-equal.
 7. batched requests: create_app over a BatchedInferenceEngine on the 8B
    weights answers 4 concurrent chats and one n=2 chat over HTTP.
 3b. (run after 3) model 1B: a 2-layer model at the full Llama-3.2-1B widths
@@ -90,14 +98,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    BATCHING=1 KV_QUANTIZED=1 NUM_LANES=8: 4 concurrent chats and one n=2
    chat; on each server a json_schema chat (phase 11d). Every request
    returns 200; startup and request times printed,
-   the first request (which captures the step graphs) beside a second.
+   the first request (which captures the prefill and step graphs) beside a
+   second, on both servers.
 11. constrained (run after 7, on the 8B engines; random weights, so logit
    biases toward '"', '}', ',' and ':' and against whitespace make the
    greedy JSON close soon, inside masks that keep every token valid):
    (a) engine.chat with a json_schema, a json_object, a named tool call and
-   a reasoning request, each parsed and checked; host ms per mask build;
-   one masked extend per bucket (8-256 tokens: eager ms, 129 K1 or K2
-   launches); a greedy request after them equal to a fresh engine's.
+   a reasoning request, each parsed and checked; ms per choice point of
+   each chat; host ms per mask build; one masked extend per bucket (8-256
+   tokens: ms of a replayed prefill graph, 129 K1 or K2 launches); a
+   greedy request after them equal to a fresh engine's.
    (b) a json_schema chat and a named tool_choice chat over HTTP through
    create_app (200, parsed content / tool_calls). (c) the paged 8-lane
    INT8 engine with a json_schema lane and a tool-call lane beside 6 free
@@ -111,8 +121,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 9: a json_schema chat on each 1B server, parsed and checked.
 10. 1B engines from the snapshot, in process: InferenceEngine(model_path=)
    (load time, quantized bytes, K4 16, K1 17 and its pre-pass 17 per
-   decoded token, TTFT
-   p50 at 512 tokens, best-of-3 decode tok/s, idle share) and
+   decoded token, TTFT p50 at 512 tokens beside one prefill's device and
+   enqueue time, best-of-3 decode tok/s, idle share) and
    BatchedInferenceEngine(model_path=, kv_quantized=True, num_lanes=8)
    through its scheduler in bench.py's paged configuration (aggregate
    tok/s best of 2, K4 16 per decode device step and none in mixed steps,
@@ -133,7 +143,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    single-stream engine (random INT4 g64): launches of one counted
    request (K1 238 per decoded token, K2 238 per prefill), TTFT p50 at 512
    tokens, best-of-3 decode tok/s, a 2,048-token prompt (two prefill
-   chunks), steady chunks, graphs; (e) one HTTP chat with a system message
+   chunks), one prefill's device and enqueue time at 512 and 2,048
+   tokens, steady chunks, graphs; (e) one HTTP chat with a system message
    through create_app (a word-level tokenizer with Gemma's control tokens;
    the template folds the system text into the user turn); (d) the 4B
    paged engine (8 lanes, INT8 pages): one counted run (K3 34 per device
@@ -145,7 +156,9 @@ Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
 step), the 1B model check beside its reading before K2's single rounding
-(after phase 3b), a Gemma-3 summary, then the kernel summary
+(after phase 3b), a Gemma-3 summary, a prefill summary (TTFT beside one
+prefill's device and enqueue time, the prefill graphs' captures, capture
+seconds and the pool per geometry), then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256), the card's name and power
 limit, and
 as the last line
@@ -251,14 +264,16 @@ def eager_steps(graphs):
 
 
 class Tap:
-    """A step runner that keeps a copy of every step's logits."""
+    """A step runner that keeps a copy of every step's logits (a paged
+    direct prefill returns none)."""
 
     def __init__(self, inner):
         self.inner, self.logits = inner, []
 
     def __call__(self, key, fn, samples=False):
         out = self.inner(key, fn, samples)
-        self.logits.append(out[1].float().clone())
+        if len(out) > 1:
+            self.logits.append(out[1].float().clone())
         return out
 
     def __getattr__(self, name):
@@ -285,6 +300,48 @@ def event_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def prefill_times(engine, prompt, reps=5):
+    """One prefill of ``prompt`` from position 0 as the engine runs it (head
+    chunks, then the tail's bucket), its graphs captured already: the
+    median over ``reps`` of the host ms to queue it (uploads and replays,
+    no read back) and of the ms between CUDA events recorded around it on
+    an idle card (the device's time for the prefill, the host's where it
+    is the slower side), and one profiled prefill (its top kernels, aten
+    calls). TTFT's host clock adds the token's read back and the request's
+    own host work. The prompt cache forgets the overwritten KV."""
+    import numpy as np
+
+    sampling, pen = engine._sampling({"temperature": 0.0}), engine._penalties({})
+
+    def run():
+        tail, first = engine._prefill_head_chunks(list(prompt), 0, sampling, pen,
+                                                  *engine._empty_bias, "greedy")
+        ids = np.zeros((1, engine._prefill_bucket(len(tail))), np.int32)
+        ids[0, :len(tail)] = tail
+        engine.state, _, _ = engine.core._prefill(
+            engine.params, engine.state, ids, engine._one(len(tail)), engine._one(first),
+            sampling, pen, *engine._empty_bias, sampler_kind="greedy")
+
+    run()
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    trace = profiled(run)
+    if engine.prompt_cache is not None:
+        engine.prompt_cache.update([])
+    return dict(prefill_enqueue_ms=sorted(host)[reps // 2],
+                prefill_event_ms=sorted(dev)[reps // 2], tokens=len(prompt),
+                profiled=trace)
 
 
 def steady_single(engine, steps=16, chunks=4):
@@ -353,15 +410,74 @@ def steady_paged(sched, prompt, lanes, chunks=4):
                 profiled_chunk=trace)
 
 
+def masked_prefills(engine, first, seed=0):
+    """Masked prefills on the engine's own state, as a constrained request's
+    extends: 5 and 3 tokens (bucket 8), then 40 and 20 (bucket 64), from
+    ``first`` on, each under a random mask; the tokens they sample."""
+    import numpy as np
+
+    v = engine.model.config.vocab_size
+    rng = np.random.default_rng(seed)
+    args = (engine._sampling({"temperature": 0.0}), engine._penalties({}),
+            *engine._empty_bias)
+    tokens = []
+    for n, bucket in ((5, 8), (3, 8), (40, 64), (20, 64)):
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :n] = rng.integers(1, min(v, 100000), n)
+        engine.state, tok, _ = engine.core._prefill(
+            engine.params, engine.state, ids, engine._one(n), engine._one(first),
+            *args, allowed_mask=rng.uniform(size=(1, v)) < 0.5, sampler_kind="greedy")
+        tokens.append(int(tok[0]))
+        first += n
+    return tokens
+
+
+def paged_prefill_pools(model, params):
+    """Two direct prefill chunks of one bucket (128: 100 tokens from
+    position 0, then 70 from position 40 on another block table) on a
+    paged engine whose prefill replays its graph and on a twin that runs it
+    eagerly (8 lanes, 112 INT8 pages); whether the two pools are byte-equal
+    after each chunk."""
+    import numpy as np
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine
+
+    engines = [PagedEngine(model, params, num_lanes=8, num_pages=112,
+                           max_pages_per_seq=12, kv_quantized=True) for _ in range(2)]
+    engines[1].graphs = eager_steps(engines[1].graphs)
+    equal = []
+    for table, first, n in (([3, 7], 0, 100), ([12, 0, 5], 40, 70)):
+        ids = np.zeros((1, 128), np.int32)
+        pos = np.full((1, 128), -1, np.int32)
+        ids[0, :n] = [1 + (i * 31 + first) % (model.config.vocab_size - 1)
+                      for i in range(n)]
+        pos[0, :n] = first + np.arange(n)
+        bt = np.full((1, 12), -1, np.int32)
+        bt[0, :len(table)] = table
+        for e in engines:
+            e._prefill(e.params, ids, pos, bt, np.array([first + n], np.int32))
+        pools = [[t for t in (e.pool.k, e.pool.v, e.pool.k_scale, e.pool.v_scale)
+                  if t is not None] for e in engines]
+        equal.append(all(torch.equal(a, b) for a, b in zip(*pools)))
+    replays = engines[0].graphs.replays
+    del engines
+    return equal, replays
+
+
 def phase_graphs(model, params, label, prompt=tuple(range(1, 65)), max_seq_len=512):
     """Each captured step held against the same step run eagerly on the
-    card, on one model: two single-stream engines (one whose steps replay
-    graphs, one whose steps run eagerly) decode the same greedy request
-    (``prompt``; Gemma-3's crosses its sliding window),
-    and two schedulers (8 lanes, INT8 pages) the same mix of a direct
-    prefill, rider prompts, a wake-only prompt and steady decode. Tokens
-    must be equal and every step's logits within 1e-3 normalized; the
-    graphs must have replayed the single-stream step and both paged steps."""
+    card, on one model: two single-stream engines (one whose prefills and
+    steps replay graphs, one whose prefills and steps run eagerly) decode
+    the same two greedy requests (``prompt``, Gemma-3's past its sliding
+    window, then another prompt three tokens shorter, whose prefills replay
+    the first's graphs) and run the same masked prefills (constrained
+    extends at buckets 8 and 64, each bucket twice); two schedulers (8
+    lanes, INT8 pages) the same mix of a direct prefill, rider prompts, a
+    wake-only prompt and steady decode; and two direct prefills of one
+    bucket on a paged engine and its eager twin. Tokens must be equal,
+    every prefill's and step's logits within 1e-3 normalized, the direct
+    prefills' pools byte-equal; the graphs must have replayed the prefills,
+    the single-stream step and both paged steps."""
     import gc
 
     from pie_tpu_torch.engine import InferenceEngine
@@ -376,16 +492,20 @@ def phase_graphs(model, params, label, prompt=tuple(range(1, 65)), max_seq_len=5
     engines[1].core.graphs = eager_steps(engines[1].core.graphs)
     for e in engines:
         e.core.graphs = Tap(e.core.graphs)
-    outs = [e.generate(list(prompt), max_completion_tokens=40, temperature=0.0)
-            for e in engines]
+    second = [1 + (t * 7) % (model.config.vocab_size - 1) for t in prompt[3:]]
+    outs = [[e.generate(p, max_completion_tokens=40, temperature=0.0).token_ids
+             for p in (list(prompt), second)] for e in engines]
+    masked = [masked_prefills(e, len(prompt) + 50) for e in engines]
     taps = [e.core.graphs for e in engines]
     errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
-    row["single"] = dict(tokens_equal=outs[0].token_ids == outs[1].token_ids,
-                         steps=len(errs), max_norm_err=max(errs),
-                         graphs=taps[0].inner.stats())
-    if not (row["single"]["tokens_equal"] and max(errs) < 1e-3
-            and taps[0].inner.replays > 0):
-        raise AssertionError(f"single-stream graphs against eager steps: {row}")
+    stats = taps[0].inner.stats()
+    pre = stats["by_kind"].get("prefill", {})
+    row["single"] = dict(tokens_equal=outs[0] == outs[1], masked_equal=masked[0] == masked[1],
+                         steps=len(errs), max_norm_err=max(errs), graphs=stats)
+    if not (outs[0] == outs[1] and masked[0] == masked[1] and max(errs) < 1e-3
+            and len(taps[0].logits) == len(taps[1].logits)
+            and pre.get("replays", 0) >= 3 and stats["by_kind"]["decode"]["replays"] > 0):
+        raise AssertionError(f"single-stream graphs against eager prefills and steps: {row}")
     del engines, taps
     scheds = [Scheduler(PagedEngine(model, params, num_lanes=8, num_pages=112,
                                     max_pages_per_seq=12, kv_quantized=True),
@@ -402,11 +522,13 @@ def phase_graphs(model, params, label, prompt=tuple(range(1, 65)), max_seq_len=5
     taps = [sc.engine.graphs for sc in scheds]
     errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
     kinds = sorted({k[0] for k in taps[0].inner.keys})
+    pools_equal, pool_replays = paged_prefill_pools(model, params)
     row["paged"] = dict(tokens_equal=streams[0] == streams[1], steps=len(errs),
                         max_norm_err=max(errs), steps_run=kinds,
-                        graphs=taps[0].inner.stats())
+                        prefill_pools_equal=pools_equal, graphs=taps[0].inner.stats())
     if not (row["paged"]["tokens_equal"] and max(errs) < 1e-3
-            and kinds == ["decode", "mixed"] and taps[0].inner.replays > 0):
+            and kinds == ["decode", "mixed", "prefill"] and taps[0].inner.replays > 0
+            and all(pools_equal) and pool_replays == 1):
         raise AssertionError(f"paged graphs against eager steps: {row}")
     emit(row)
     del scheds, taps
@@ -1135,6 +1257,7 @@ def phase_engine(card):
         for _ in gen:
             pass
     ttfts.sort()
+    prefill = prefill_times(engine, fresh_prompt(7))
 
     best = 0.0
     for _ in range(3):
@@ -1167,6 +1290,7 @@ def phase_engine(card):
     steady = steady_single(engine)
     row = dict(phase="engine", geometry="llama3-8b int4 g64", layers=LAYERS,
                ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
+               prefill_512=prefill,
                decode_tok_s=best, wall_ms_per_token=1e3 / best,
                k1_per_decoded_token=launches["K1"] / decoded,
                k2_per_prefill=launches["K2"], launches=launches, trace=trace,
@@ -1430,6 +1554,7 @@ def phase_paged_engine(model, params, card):
                ttft_under_load_p50_ms=ttfts[1] * 1e3,
                ttft_under_load_ms=[t * 1e3 for t in ttfts],
                ttft_prefix_hit_ms=ttft_cached * 1e3, ctx2048_tok_s=long_tok_s,
+               aten_calls_per_admission=ttft_trace["aten_calls"],
                device_steps=steps, k3_per_step=launches["K3"] / steps,
                launches=launches, steady=steady, ttft_trial=ttft_trace,
                graphs=graph_stats, card=card)
@@ -1601,12 +1726,13 @@ def constrained_single(engine, tok):
             chats[name] = dict(ms=ms, text=inter.text if name != "tool_call"
                                else inter.tool_calls, finish=inter.finish_reason,
                                tokens=inter.metadata["completion_tokens"],
-                               choice_points=len(dispatches) - n0)
+                               choice_points=len(dispatches) - n0,
+                               ms_per_choice_point=ms / max(1, len(dispatches) - n0))
     finally:
         masker.build_mask, engine.core._prefill = real_build, real_prefill
 
-    # one masked extend per bucket: host wall ms (the extend is eager) and
-    # the kernels it launches
+    # one masked extend per bucket: host wall ms (a replayed prefill graph)
+    # and the kernels it launches
     core, dev = engine.core, engine.device
     mask = torch.zeros((1, VOCAB), dtype=torch.bool, device=dev)
     mask[0, :masker.vocab_size] = True
@@ -1616,7 +1742,7 @@ def constrained_single(engine, tok):
     for bucket in engine.EXTEND_BUCKETS:
         ids = torch.randint(1, 100, (1, bucket), dtype=torch.int32, device=dev)
         call = lambda: core._prefill(  # noqa: E731
-            engine.params, engine.state, ids, engine._full(bucket), engine._full(64),
+            engine.params, engine.state, ids, engine._one(bucket), engine._one(64),
             *args, allowed_mask=mask, sampler_kind="greedy")[1].cpu()
         call()
         qmc.reset_counts()
@@ -1787,7 +1913,8 @@ def constrained_batched(model, params, tok, bias):
     streams = [[(q.output_ids, q.finish_reason) for q in r["seqs"]] for r in runs]
     taps = [sc.engine.graphs for sc in scheds]
     errs = [norm_err(a, b) for a, b in zip(taps[0].logits, taps[1].logits)]
-    masked_keys = sorted({k[0] for k in taps[0].inner.keys if k[4]})
+    masked_keys = sorted({k[0] for k in taps[0].inner.keys
+                          if k[0] != "prefill" and k[4]})
     if not (streams[0] == streams[1] and max(errs) < 1e-3
             and masked_keys == ["decode", "mixed"] and taps[0].inner.replays > 0):
         raise AssertionError(f"masked graphs against eager steps: tokens equal "
@@ -1829,7 +1956,7 @@ def constrained_batched(model, params, tok, bias):
         chunk_ms[name] = sorted(event_ms(run) for _ in range(3))[1]
     sc.run_to_completion()
     stats = e.graphs.stats()
-    masked_graphs = sum(1 for k in e.graphs.keys if k[4])
+    masked_graphs = sum(1 for k in e.graphs.keys if k[0] != "prefill" and k[4])
     del scheds, sc, e, taps
     gc.collect()
     torch.cuda.empty_cache()
@@ -2024,8 +2151,8 @@ def phase_serve(snap):
         return secs * 1e3, text
 
     def single(url):
-        # the first request captures the decode-step graphs; the second
-        # replays them
+        # the first request captures the prefill and decode-step graphs;
+        # the second replays them
         ms_chat, text = ok(*http("POST", f"{url}/v1/chat/completions", chat), "chat")
         content = json.loads(text)["choices"][0]["message"]["content"]
         ms_again, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "chat again")
@@ -2042,7 +2169,10 @@ def phase_serve(snap):
                     completion_ms=ms_cmp, content=content, **json_schema(url))
 
     def batched(url):
+        # the first request captures the prefill and step graphs; the
+        # second replays them
         ms_first, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "first chat")
+        ms_second, _ = ok(*http("POST", f"{url}/v1/chat/completions", chat), "second chat")
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             many = list(pool.map(lambda _: ok(*http(
@@ -2054,7 +2184,8 @@ def phase_serve(snap):
         two = [c["message"]["content"] for c in json.loads(text)["choices"]]
         if len(set(texts)) != 1 or "hello" not in texts[0] or two != texts[:1] * 2:
             raise AssertionError(f"batched replies differ: {texts}, n=2 {two}")
-        return dict(first_chat_ms=ms_first, concurrent_ms=[ms for ms, _ in many],
+        return dict(first_chat_ms=ms_first, second_chat_ms=ms_second,
+                    concurrent_ms=[ms for ms, _ in many],
                     concurrent_wall_ms=wall, n2_ms=ms_n2, content=texts[0],
                     **json_schema(url))
 
@@ -2115,6 +2246,7 @@ def phase_engine_1b(snap, card):
         for _ in gen:
             pass
     ttfts.sort()
+    prefill = prefill_times(engine, fresh_prompt(7))
     best = 0.0
     for _ in range(3):
         gen = engine.generate_stream(prompt, max_completion_tokens=129, temperature=0.0)
@@ -2129,6 +2261,7 @@ def phase_engine_1b(snap, card):
     row = dict(phase="engine", geometry="llama3.2-1b int4 g64 (snapshot)",
                layers=LAYERS1, load_s=load_s, quantized_weight_bytes=wbytes,
                ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[t * 1e3 for t in ttfts],
+               prefill_512=prefill,
                decode_tok_s=best, wall_ms_per_token=1e3 / best,
                k4_per_decoded_token=launches["K4"] / decoded,
                k1_per_decoded_token=launches["K1"] / decoded,
@@ -2542,6 +2675,7 @@ def gemma_engine(card):
     qmc.reset_counts()
     long_ttft, long_tok_s = ttft(fresh(97, 2048), 129)
     long_k2 = qmc.launch_counts["K2"]
+    prefills = {n: prefill_times(engine, fresh(6, n)) for n in (512, 2048)}
     chunks = -(-2048 // model.prefill_chunk_bound)  # 2: the bound is the window
     if long_k2 != chunks * per:
         raise AssertionError(f"2,048-token prompt: {long_k2} K2 launches, "
@@ -2550,6 +2684,7 @@ def gemma_engine(card):
     row = dict(phase="gemma3", part="c: engine", geometry="gemma3-4b int4 g64",
                layers=G4_LAYERS, ttft_p50_ms=ttfts[2] * 1e3, ttft_ms=[x * 1e3 for x in ttfts],
                decode_tok_s=best, ttft_2048_ms=long_ttft * 1e3,
+               prefill_512=prefills[512], prefill_2048=prefills[2048],
                decode_tok_s_after_2048=long_tok_s, k2_per_2048_prompt=long_k2,
                k1_per_decoded_token=launches["K1"] / decoded, k2_per_prefill=launches["K2"],
                launches=launches, steady=steady, graphs=engine.core.graphs.stats(),
@@ -2830,6 +2965,16 @@ def main() -> int:
         k3_per_paged_step=gemma["paged"]["k3_per_step"],
         graph_pool_bytes=dict(single=gemma["engine"]["graphs"],
                               paged=gemma["paged"]["graphs"]), card=card))
+    emit(dict(phase="summary prefill graphs", card=card, geometries={
+        label: dict(ttft_p50_ms=row["ttft_p50_ms"],
+                    **{k: row[k] for k in ("prefill_512", "prefill_2048") if k in row},
+                    prefill_graphs=row["graphs"]["by_kind"].get("prefill"),
+                    pool_bytes=row["graphs"]["pool_bytes"])
+        for label, row in (("llama3-8b", eng), ("llama3.2-1b", eng1b),
+                           ("gemma3-4b", gemma["engine"]))},
+        ttft_under_load_p50_ms=dict(llama3_8b=paged["ttft_under_load_p50_ms"],
+                                    llama32_1b=paged1b["ttft_under_load_p50_ms"]),
+        aten_calls_per_8b_admission=paged["aten_calls_per_admission"]))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

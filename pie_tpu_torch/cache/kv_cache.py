@@ -7,8 +7,8 @@ and ``length [B]``; a window makes the slots rotate (``slot = pos % S``).
 Unlike the JAX containers the k/v buffers are updated IN PLACE by the model
 forward (no buffer donation exists here). The small metadata tensors stay
 functional: ``advance``/``trim_to`` return a new container that shares the
-k/v buffers, and the decode step of ``engine/core.py`` copies the new
-metadata back into the static buffers it was captured over
+k/v buffers, and the prefill and decode steps of ``engine/core.py`` copy
+the new metadata back into the static buffers they were captured over
 (``copy_metadata``). ``trim_capacity`` returns views into the same
 buffers, so the model's in-place writes through a trimmed view land in
 the full cache.
@@ -16,7 +16,8 @@ the full cache.
 ``DualKVCache`` is Gemma-3's bounded pair of groups: the sliding layers'
 rotating store of ``min(window, max_len)`` slots and the global layers'
 ``max_len`` store. A step's rotating slot is ``position % capacity``,
-computed on the device from the positions, so a captured step reads
+computed on the device from the positions, and writes that JAX drops are
+rewritten on the device (``scatter_drop``), so a captured step reads
 nothing back.
 """
 
@@ -33,18 +34,38 @@ def scatter_drop(target: torch.Tensor, slots: torch.Tensor,
     """``target[b, slots[b, t]] = values[b, t]`` in place along dim 1,
     dropping out-of-range slots (JAX ``.at[...].set(mode="drop")``).
     Used by the rotating and INT8 caches, not by the contiguous bf16 cache.
-    With one write per row (a decode step) no two writes meet, so a dropped
-    one writes back the value already there and nothing is read back to
-    the host; with more, the boolean mask makes indexing read a count back
-    (the eager prefill)."""
-    ok = (slots >= 0) & (slots < target.shape[1])
-    rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
-    if slots.shape[1] == 1:
-        at = torch.clamp(slots, 0, target.shape[1] - 1).long()
-        keep = ok.reshape(ok.shape + (1,) * (values.dim() - 2))
-        target[rows, at] = torch.where(keep, values.to(target.dtype), target[rows, at])
+
+    Nothing is read back to the host at any T, so a captured prefill or
+    decode step can run it: a dropped write is not filtered out but
+    rewritten. With one write per row (a decode step) it writes back the
+    value already at its clamped slot. With more, it becomes a copy of its
+    row's last kept write (same slot, same value), or, in a row that keeps
+    none, slot 0's own value written back. A dropped write therefore never
+    changes what a kept one leaves behind, whatever order the writes land
+    in; two kept writes to one slot (a chunk longer than a rotating store)
+    race as in JAX, the last one winning where writes land in order."""
+    s, t = target.shape[1], slots.shape[1]
+    slots = slots.long()
+    ok = (slots >= 0) & (slots < s)
+    rows = torch.arange(slots.shape[0], device=slots.device)
+    tail = (1,) * (values.dim() - 2)
+    if t == 1:  # four launches: a decode step runs it per layer
+        at = slots.clamp(0, s - 1)
+        target[rows[:, None], at] = torch.where(
+            ok.reshape(ok.shape + tail), values.to(target.dtype),
+            target[rows[:, None], at])
         return
-    target[rows.expand_as(slots)[ok], slots[ok]] = values[ok]
+    last = torch.where(ok, torch.arange(t, device=slots.device)[None, :],
+                       torch.full_like(slots, -1)).amax(dim=1)
+    kept = last >= 0  # the row keeps a write
+    last = last.clamp(min=0)
+    anchor_slot = torch.where(kept, slots[rows, last], torch.zeros_like(last))
+    anchor_val = torch.where(kept.reshape(kept.shape + tail),
+                             values[rows, last].to(target.dtype), target[rows, 0])
+    at = torch.where(ok, slots, anchor_slot[:, None])
+    vals = torch.where(ok.reshape(ok.shape + tail), values.to(target.dtype),
+                       anchor_val[:, None])
+    target[rows[:, None], at] = vals
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,26 +1,35 @@
 """EngineCore: prefill and chunked decode for one model + batch geometry.
 
-Port of the JAX package's ``pie_tpu/engine/core.py``. The compiled
-``lax.scan`` over decode steps becomes ``num_steps`` runs of one decode
-step through ``StepGraphs`` (``engine/graphs.py``): on the card a CUDA
-graph per static key (KV bucket, sampler kind, logprobs, penalties on,
-bias on), captured at the key's first use and replayed after; on the CPU
-the same step function, called directly. The step reads and writes the
-core's one ``DecodeState``, whose tensors are static buffers
-(``new_state`` resets them in place); a chunk's sampling, penalty, bias
-and stop inputs are copied into static buffers before its first step.
-PyTorch queues a chunk's device work without waiting for it, and the host
-reads the chunk's tokens once, when it drains it. Per-sequence sampling
-parameters, penalties and stop tokens are tensors, as in the JAX package.
+Port of the JAX package's ``pie_tpu/engine/core.py``. Its two ``jax.jit``
+programs become steps run through ``StepGraphs`` (``engine/graphs.py``):
+on the card a CUDA graph per static key, captured at the key's first use
+and replayed after; on the CPU the same step function, called directly.
 
-The step covers the contiguous KV cache in bf16 (the single-stream
-default) and in INT8, whose one-token writes take ``scatter_drop``'s path
-without a host read, and a model's own cache (``model.make_cache``:
-Gemma-3's DualKVCache, whose rotating slot the step computes on the
-device). ``maybe_quantize`` reads the cache's length on the
-host: it runs between requests, never inside a step, and the INT8 cache it
-makes replaces the static one through ``set_cache`` (the graphs over the
-old one go). The prefill stays eager.
+- The prefill (``_prefill``): one graph per (prompt bucket, sampler kind,
+  logprobs, bias width, mask on). The prompt's ids, lengths and first
+  positions (the prompt cache's offset) and the constrained mask are
+  copied into static buffers, so one graph serves every prompt length,
+  offset and mask of its bucket.
+- The compiled ``lax.scan`` over decode steps becomes ``num_steps`` runs
+  of one decode step, one graph per (KV bucket, sampler kind, logprobs,
+  penalties on, bias on).
+
+Both steps read and write the core's one ``DecodeState``, whose tensors
+are static buffers (``new_state`` resets them in place); a chunk's
+sampling, penalty, bias and stop inputs are copied into static buffers
+before its first step. PyTorch queues the device work without waiting for
+it, and the host reads a prefill's token, or a chunk's tokens once, when
+it drains them. Per-sequence sampling parameters, penalties and stop
+tokens are tensors, as in the JAX package.
+
+The steps cover the contiguous KV cache in bf16 (the single-stream
+default) and in INT8, whose writes take ``scatter_drop``'s path without a
+host read at any chunk length, and a model's own cache
+(``model.make_cache``: Gemma-3's DualKVCache, whose rotating slot the step
+computes on the device). ``maybe_quantize`` reads the cache's length on
+the host: it runs between requests, never inside a step, and the INT8
+cache it makes replaces the static one through ``set_cache`` (the graphs
+over the old one go, the prefill graphs with them).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from pie_tpu_torch.ops.sampling import (
     sample,
     top_logprobs,
 )
-from pie_tpu_torch.utils.device import resolve_device
+from pie_tpu_torch.utils.device import resolve_device, upload
 
 PAD_TOKEN = -1
 
@@ -158,6 +167,12 @@ class EngineCore:
         self._made_kind: Optional[tuple] = None  # what new_state builds
         # (bias width, stop width) -> static chunk inputs
         self._inputs: dict = {}
+        # prompt bucket -> static prefill inputs; the static [B, V] mask
+        self._prefill_in: dict = {}
+        self._allowed: Optional[torch.Tensor] = None
+        # a prefill checks no stop ids: its inputs' stop width is 0
+        self._no_stop = torch.full((0,), PAD_TOKEN, dtype=torch.int32,
+                                   device=self.device)
 
     def new_state(self, seed: int = 0) -> DecodeState:
         """The core's decode state, reset, with its generator seeded. The
@@ -283,6 +298,29 @@ class EngineCore:
         tv, ti = top_logprobs(lp, self.logprobs_k)
         return chosen, tv, ti
 
+    def _prefill_buffers(self, bucket: int) -> tuple:
+        """The static prefill inputs of this bucket: ids [B, bucket],
+        prompt lengths [B] and first positions [B] (the prompt cache's
+        offset, a device value as JAX traces it), made at first use."""
+        bufs = self._prefill_in.get(bucket)
+        if bufs is None:
+            b, dev = self.batch_size, self.device
+            bufs = self._prefill_in[bucket] = (
+                torch.zeros((b, bucket), dtype=torch.int32, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+        return bufs
+
+    def _mask_buffer(self, allowed_mask) -> torch.Tensor:
+        """The static [B, V] allowed-token mask holding ``allowed_mask``
+        (a host array, uploaded from pinned memory, or a tensor), made at
+        the first masked prefill."""
+        if self._allowed is None:
+            self._allowed = torch.ones(tuple(allowed_mask.shape), dtype=torch.bool,
+                                       device=self.device)
+        upload(self._allowed, allowed_mask)
+        return self._allowed
+
     @torch.no_grad()
     def _prefill(
         self,
@@ -300,9 +338,45 @@ class EngineCore:
         sampler_kind: str = "auto",
     ):
         """Run the prompt through the model, sample the first new token.
-        Eager on every device; writes the result into the static state.
-        Returns (state, token, aux) with ``token`` a tensor of its own."""
+
+        The prompt's ids, lengths and first positions (host arrays or
+        tensors) and the mask are copied into static buffers, then the
+        prefill step runs through ``self.graphs`` keyed by (bucket, sampler
+        kind, logprobs, bias width, mask on, params), as ``jax.jit`` keys
+        the JAX prefill by its static arguments and shapes: on the card a
+        CUDA graph per key, on the CPU the step itself. sampler_kind is
+        resolved on the host ("auto" is refused). The step writes the
+        result into the static state. Returns (state, token, aux), the
+        token and the logprobs aux (chosen, top values, top ids) tensors of
+        their own."""
+        if sampler_kind not in SAMPLER_KINDS:
+            raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host "
+                             f"(one of {sorted(SAMPLER_KINDS)})")
         st = self._adopt(state)
+        bucket = input_ids.shape[1]
+        bufs = self._prefill_buffers(bucket)
+        for buf, src in zip(bufs, (input_ids, prompt_lens, first_pos)):
+            upload(buf, src)
+        mask = None if allowed_mask is None else self._mask_buffer(allowed_mask)
+        inp = self._step_inputs(sampling, penalties, bias_ids, bias_vals,
+                                self._no_stop)
+        key = ("prefill", bucket, sampler_kind, return_logprobs, bias_ids.shape[1],
+               mask is not None, id(params))
+        step = functools.partial(self._prefill_step, params, st, inp, bufs, mask,
+                                 sampler_kind, return_logprobs)
+        res = self.graphs(key, step, samples=sampler_kind != "greedy")
+        token = res[0].clone()
+        aux = tuple(r.clone() for r in res[2:]) if return_logprobs else None
+        return st, token, aux
+
+    def _prefill_step(self, params, st: DecodeState, inp: _StepInputs, bufs,
+                      allowed_mask, sampler_kind: str, return_logprobs: bool):
+        """The prefill over the static state and buffers (a graph's body):
+        the prompt's KV written in place, the first token sampled from the
+        last real prompt position's processed logits. Penalties always
+        apply, as in the JAX prefill. Returns (token [B], processed logits
+        [B, V]) plus (chosen, top values, top ids) with logprobs."""
+        input_ids, prompt_lens, first_pos = bufs
         b, t = input_ids.shape
         dev = input_ids.device
         positions = first_pos[:, None] + torch.arange(t, dtype=torch.int32,
@@ -328,17 +402,19 @@ class EngineCore:
             torch.full_like(hist_idx, PAD_TOKEN),
         ).to(torch.int32)
 
-        proc = self._process_logits(last_logits, hist, penalties, bias_ids,
-                                    bias_vals, allowed_mask)
-        token = sample(proc, sampling, st.key, kind=sampler_kind)
+        proc = self._process_logits(last_logits, hist, inp.penalties, inp.bias_ids,
+                                    inp.bias_vals, allowed_mask)
+        token = sample(proc, inp.sampling, st.key, kind=sampler_kind)
         copy_metadata(st.cache, cache)
         st.last_token.copy_(token)
         st.lengths.copy_(first_pos + prompt_lens)
         st.history.copy_(self._push_history(
             hist, token, torch.ones((b,), dtype=torch.bool, device=dev)))
         st.done.fill_(False)
-        aux = self._logprobs(proc, token) if return_logprobs else None
-        return st, token, aux
+        out = (token, proc)
+        if return_logprobs:
+            out += self._logprobs(proc, token)
+        return out
 
     def _decode_step(self, params, st: DecodeState, inp: _StepInputs,
                      bucket: int, sampler_kind: str, return_logprobs: bool,

@@ -9,7 +9,10 @@ prefill per choice point, forced runs encoded on the host); the chat API
 (``_chat_run`` / ``_chat``, structured requests included); prompts split
 into head chunks for a model that bounds its prefill chunk (Gemma-3:
 ``_prefill_head_chunks``); loading a checkpoint (``model_path``:
-``models/loader.py`` and the snapshot's tokenizer). Not ported yet: image
+``models/loader.py`` and the snapshot's tokenizer). Every prefill (the
+prompt, its head chunks, ``cache_prompt``, each constrained extend) runs
+through the core's prefill step, a captured CUDA graph per bucket on the
+card (``EngineCore._prefill``). Not ported yet: image
 inputs (ROADMAP A9c), which raise ``InferenceError`` rather than decode
 something else.
 """
@@ -174,8 +177,11 @@ class InferenceEngine:
     def _ids(self, a) -> torch.Tensor:
         return host_tensor(np.asarray(a, np.int32), self.device)
 
-    def _full(self, v: int) -> torch.Tensor:
-        return torch.full((1,), v, dtype=torch.int32, device=self.device)
+    @staticmethod
+    def _one(v: int) -> np.ndarray:
+        """A prefill's [1] length or first position, uploaded by the core
+        into its static buffer."""
+        return np.full((1,), v, np.int32)
 
     def _sampling(self, kw: dict[str, Any]) -> SamplingParams:
         return SamplingParams.make(
@@ -276,8 +282,8 @@ class InferenceEngine:
         ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
         ids[0, :slen] = suffix
         state, _, _ = self.core._prefill(
-            self.params, self.state, self._ids(ids), self._full(slen),
-            self._full(first_pos), self._sampling({}), self._penalties({}),
+            self.params, self.state, ids, self._one(slen),
+            self._one(first_pos), self._sampling({}), self._penalties({}),
             *self._empty_bias, sampler_kind="greedy",
         )
         self.state = state
@@ -317,8 +323,8 @@ class InferenceEngine:
         while len(suffix) - off > csize:
             self.state, _, _ = self.core._prefill(
                 self.params, self.state,
-                self._ids(np.asarray([suffix[off:off + csize]], np.int32)),
-                self._full(csize), self._full(first_pos + off), sampling,
+                np.asarray([suffix[off:off + csize]], np.int32),
+                self._one(csize), self._one(first_pos + off), sampling,
                 penalties, bias_ids, bias_vals, sampler_kind=skind,
             )
             off += csize
@@ -391,8 +397,8 @@ class InferenceEngine:
         use_bias = bool(kw.get("logit_bias"))
 
         state, token, aux = self.core._prefill(
-            self.params, self.state, self._ids(ids), self._full(slen),
-            self._full(first_pos), sampling, penalties, bias_ids, bias_vals,
+            self.params, self.state, ids, self._one(slen),
+            self._one(first_pos), sampling, penalties, bias_ids, bias_vals,
             return_logprobs=logprobs, sampler_kind=skind,
         )
 
@@ -575,16 +581,17 @@ class InferenceEngine:
             return self._sampling(kw), host_kind(kw)
 
         def build_mask():
-            """The [1, V] mask on the device, or None while a freeform
-            sub-state accepts any token. ANY_CHAR alone is not enough: a
-            JSON FreeString allows any character but still rejects
-            undecodable and control tokens."""
+            """The [1, V] mask as a host array (the core uploads it into
+            its static mask buffer), or None while a freeform sub-state
+            accepts any token. ANY_CHAR alone is not enough: a JSON
+            FreeString allows any character but still rejects undecodable
+            and control tokens."""
             if getattr(machine, "is_unconstrained", lambda: False)():
                 return None
             m = masker.build_mask(machine)
             full = np.zeros((1, v), bool)
             full[0, :m.shape[0]] = m
-            return host_tensor(full, self.device)
+            return full
 
         out_tokens: list[int] = []
         out_logprobs: list[TokenLogprob] = []
@@ -599,8 +606,8 @@ class InferenceEngine:
             padded[0, :n] = ids
             sp, sk = resolve_params()
             _, token, aux = self.core._prefill(
-                self.params, self.state, self._ids(padded), self._full(n),
-                self._full(first_pos), sp, penalties, bias_ids, bias_vals,
+                self.params, self.state, padded, self._one(n),
+                self._one(first_pos), sp, penalties, bias_ids, bias_vals,
                 allowed_mask=mask, return_logprobs=logprobs, sampler_kind=sk,
             )
             if aux is None:

@@ -1,9 +1,11 @@
 """Compiled step programs: the port's counterpart of ``jax.jit``.
 
-The JAX package compiles each decode step into one device program
-(``EngineCore._decode`` and ``PagedEngine._chunk`` are ``jax.jit`` over a
-``lax.scan``), with the step's static arguments (sampler kind, logprobs,
-penalties, bias, rider, KV bucket) in the compile key. Here a step is a
+The JAX package compiles each prefill and each decode step into one device
+program (``EngineCore._prefill`` and ``PagedEngine._prefill`` are
+``jax.jit``, ``EngineCore._decode`` and ``PagedEngine._chunk`` ``jax.jit``
+over a ``lax.scan``), with the step's static arguments (sampler kind,
+logprobs, penalties, bias, mask, rider, prompt or KV bucket) in the
+compile key. Here a step is a
 Python function over static device buffers: it reads its inputs from
 buffers whose addresses never change and writes its carried state back
 into them in place. ``StepGraphs`` runs such a function:
@@ -17,7 +19,11 @@ into them in place. ``StepGraphs`` runs such a function:
   replays the graph. A capture that fails raises: nothing falls back to
   eager on the card.
 
-All graphs share one memory pool. A graph that samples has the engine's
+All graphs share one memory pool. A graph captured later can place its
+outputs in blocks that an earlier graph uses for its intermediates, so a
+replay's outputs are valid only until the next replay of ANY graph of the
+runner: every caller copies them into tensors of its own first (the
+prefills and both decode paths do). A graph that samples has the engine's
 ``torch.Generator`` registered with it, so every replay draws new numbers
 (without that each replay would repeat the Philox offset it captured).
 Captures use ``capture_error_mode="thread_local"``: a thread other than
@@ -25,8 +31,10 @@ the capturing one (a server's request thread) may touch CUDA meanwhile.
 
 Launch counts (``quant_matmul_cuda.launch_counts``): a capture launches
 nothing, so the counts it added are taken back and kept as the graph's
-delta, which every replay adds again. K1 per token, K3 per step and K4 per
-step read as they do for eager steps.
+delta, which every replay adds again. K1 per token, K2 per prefill, K3 per
+step and K4 per step read as they do for eager steps. ``stats()`` splits
+graphs, captures, capture seconds and replays by step kind (a key's first
+element: "prefill", "decode", "mixed").
 
 A step returns a tuple of tensors. A replay returns the graph's own output
 tensors, which the next replay of the key overwrites: the caller copies
@@ -68,6 +76,8 @@ class StepGraphs:
         self.captures = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        #: the same counts by step kind
+        self.by_kind: dict = {}
 
     def __call__(self, key: Hashable, fn: Callable[[], tuple],
                  samples: bool = False) -> tuple:
@@ -83,7 +93,13 @@ class StepGraphs:
         for name, n in hit.counts.items():
             qmc.launch_counts[name] += n
         self.replays += 1
+        self._kind(key)["replays"] += 1
         return hit.outputs
+
+    def _kind(self, key) -> dict:
+        kind = key[0] if isinstance(key, tuple) and key else key
+        return self.by_kind.setdefault(str(kind), dict(
+            graphs=0, captures=0, capture_seconds=0.0, replays=0))
 
     def _warm_up_and_capture(self, key, fn, samples):
         t0 = time.perf_counter()
@@ -120,8 +136,13 @@ class StepGraphs:
             counts = {k: qmc.launch_counts[k] - before[k] for k in before}
             qmc.launch_counts.update(before)  # a capture launches nothing
         self._graphs[key] = _Captured(graph, tuple(outputs), counts)
+        secs = time.perf_counter() - t0
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        self.capture_seconds += secs
+        kind = self._kind(key)
+        kind["graphs"] += 1
+        kind["captures"] += 1
+        kind["capture_seconds"] += secs
         return out
 
     def pool_bytes(self) -> int:
@@ -137,4 +158,5 @@ class StepGraphs:
         """What chip_smoke.py prints beside an engine's speed."""
         return dict(graphs=len(self._graphs), captures=self.captures,
                     capture_seconds=self.capture_seconds, replays=self.replays,
-                    pool_bytes=self.pool_bytes(), keys=len(self.keys))
+                    pool_bytes=self.pool_bytes(), keys=len(self.keys),
+                    by_kind={k: dict(v) for k, v in sorted(self.by_kind.items())})

@@ -17,8 +17,10 @@ static buffers (lane state, block tables, request parameters, the step's
 rider slice) run through ``StepGraphs`` (``engine/graphs.py``): on the card
 a CUDA graph per (step, sampler kind, penalties on, bias on), captured at
 its first use and replayed after; on the CPU the same function, called
-directly. Long prompt bodies prefill through dedicated programs
-(``PagedEngine._prefill``, eager) before the chunk. In steady decode the
+directly. Long prompt bodies prefill through dedicated programs before the
+chunk (``PagedEngine._prefill``: a graph per chunk bucket over static ids,
+positions, block table and context length, queued behind the chunk in
+flight). In steady decode the
 next chunk is dispatched on the previous chunk's device state before that
 chunk's tokens are read (pipelining): nothing inside a chunk reads the
 device, so PyTorch queues chunk k+1 while the host drains chunk k, and
@@ -195,8 +197,9 @@ class WakePlan:
 
 class PagedEngine:
     """The device side of the scheduler: the pool, the parameters, the
-    static lane buffers and the device programs (direct prefill, and the
-    rider-free and mixed steps a chunk runs through ``StepGraphs``)."""
+    static lane buffers and the device programs (the direct prefill, and
+    the rider-free and mixed steps of a chunk), all run through
+    ``StepGraphs``."""
 
     def __init__(
         self,
@@ -262,6 +265,12 @@ class PagedEngine:
         self.allowed: Optional[torch.Tensor] = None
         self.mask_valid = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.sampled = torch.zeros((b,), dtype=i32, device=dev)
+        # the direct prefill's static inputs: ids and positions per chunk
+        # bucket (made at first use), one block table and context length
+        self._prefill_in: dict = {}
+        self._prefill_table = torch.full((1, max_pages_per_seq), -1, dtype=i32,
+                                         device=dev)
+        self._prefill_ctx = torch.zeros((1,), dtype=i32, device=dev)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A copy of host array ``a`` on the engine's device, queued without
@@ -274,9 +283,28 @@ class PagedEngine:
     def _prefill(self, params, ids, positions, block_table, context_len):
         """One prefill chunk of ONE sequence: writes its K/V into the pool;
         no logits (the prompt's final token is its lane's first decode
-        input). ids, positions [1, T]; block_table [1, maxP]. Eager."""
+        input). ids, positions [1, T]; block_table [1, maxP]; context_len
+        [1] (host arrays, or tensors). They are copied into static buffers
+        (ids and positions per chunk bucket T), then the chunk runs through
+        ``self.graphs`` keyed by (T, params): a CUDA graph per bucket on
+        the card, as ``jax.jit`` compiles one program per chunk shape."""
+        t = ids.shape[1]
+        bufs = self._prefill_in.get(t)
+        if bufs is None:
+            bufs = self._prefill_in[t] = (
+                torch.zeros((1, t), dtype=torch.int32, device=self.device),
+                torch.full((1, t), -1, dtype=torch.int32, device=self.device),
+                self._prefill_table, self._prefill_ctx)
+        for buf, src in zip(bufs, (ids, positions, block_table, context_len)):
+            upload(buf, src)
+        self.graphs(("prefill", t, id(params)),
+                    functools.partial(self._prefill_step, params, *bufs))
+
+    def _prefill_step(self, params, ids, positions, block_table, context_len):
+        """The direct prefill over its static buffers (a graph's body)."""
         self.model.paged_forward(params, ids, self.pool, block_table, positions,
                                  context_len, with_logits=False)
+        return ()
 
     def _step(self, params, sampler_kind: str, use_penalties: bool,
               use_bias: bool, mixed: bool, use_mask: bool = False):
@@ -830,10 +858,8 @@ class Scheduler:
                 pos[0, :c] = seq.pending_base + np.arange(
                     seq.prefill_pos, seq.prefill_pos + c)
                 e._prefill(
-                    e.params, e.to_device(ids), e.to_device(pos),
-                    e.to_device(self.block_tables[lane:lane + 1]),
-                    e.to_device(np.full(
-                        (1,), seq.pending_base + seq.prefill_pos + c, np.int32)),
+                    e.params, ids, pos, self.block_tables[lane:lane + 1],
+                    np.full((1,), seq.pending_base + seq.prefill_pos + c, np.int32),
                 )
                 seq.prefill_pos += c
                 self.context_lens[lane] = seq.pending_base + seq.prefill_pos

@@ -147,6 +147,11 @@ class Gemma3Model:
         self.inv_freq_np = {"global": inv_g.astype(np.float32),
                             "local": make_inv_freq(dh, config.rope_local_base_freq)}
         self._inv_freq: dict = {}
+        # sqrt(hidden) rounded to each table dtype, made here: a captured
+        # step reads no tensor on the host
+        self._embed_scale = {
+            dt: float(torch.tensor(config.hidden_size ** 0.5, dtype=dt))
+            for dt in (torch.float32, torch.bfloat16, torch.float16)}
         pat = config.sliding_window_pattern
         self.is_sliding = np.array(
             [(i + 1) % pat != 0 for i in range(config.num_hidden_layers)], dtype=bool)
@@ -300,8 +305,7 @@ class Gemma3Model:
         """The embedding rows times sqrt(hidden), the scale rounded to the
         table's dtype first, as JAX does."""
         e = params["embed"]
-        scale = float(torch.tensor(self.config.hidden_size ** 0.5, dtype=e.dtype))
-        return e[input_ids] * scale
+        return e[input_ids] * self._embed_scale[e.dtype]
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """Logits against the embedding table in h's dtype: f32 products and

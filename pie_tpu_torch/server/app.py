@@ -77,8 +77,9 @@ def _gen_kwargs(req) -> dict[str, Any]:
 
 async def _run_blocking(app, fn, *args, **kwargs):
     # the single-stream engine runs one call at a time under the lock, in
-    # a worker thread: its decode-step captures (engine/graphs.py) happen
-    # there while no other thread drives the engine
+    # a worker thread: its prefill and decode-step captures
+    # (engine/graphs.py) happen there while no other thread drives the
+    # engine
     async with app[LOCK_KEY]:
         return await asyncio.get_event_loop().run_in_executor(
             None, lambda: fn(*args, **kwargs)
@@ -178,6 +179,9 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
 
     loop = asyncio.get_event_loop()
     queue: asyncio.Queue = asyncio.Queue()
+    # set when the response ends early (the client went away): the
+    # producer closes the generation at its next token
+    abandoned = threading.Event()
 
     def producer():
         try:
@@ -190,6 +194,9 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
                 reasoning=bool(req.reasoning), **kw,
             )
             while True:
+                if abandoned.is_set():
+                    gen.close()
+                    return
                 try:
                     delta = next(gen)
                     loop.call_soon_threadsafe(queue.put_nowait, ("delta", delta))
@@ -202,25 +209,32 @@ async def handle_chat(request: web.Request) -> web.StreamResponse:
     async with app[LOCK_KEY]:
         fut = loop.run_in_executor(None, producer)
         inter = None
-        while True:
-            kind, payload = await queue.get()
-            if kind == "delta":
-                if payload.text:
-                    await send(
-                        S.ChatCompletionChunk(
-                            id=chat_id, model=req.model,
-                            choices=[S.ChunkChoice(
-                                delta=S.ChunkDelta(content=payload.text)
-                            )],
-                        ).model_dump(exclude_none=True)
-                    )
-            elif kind == "done":
-                inter = payload
-                break
-            else:
-                await send({"error": {"message": str(payload)}})
-                break
-        await fut
+        try:
+            while True:
+                kind, payload = await queue.get()
+                if kind == "delta":
+                    if payload.text:
+                        await send(
+                            S.ChatCompletionChunk(
+                                id=chat_id, model=req.model,
+                                choices=[S.ChunkChoice(
+                                    delta=S.ChunkDelta(content=payload.text)
+                                )],
+                            ).model_dump(exclude_none=True)
+                        )
+                elif kind == "done":
+                    inter = payload
+                    break
+                else:
+                    await send({"error": {"message": str(payload)}})
+                    break
+        finally:
+            # the lock is held until the engine is idle: a write that fails
+            # (the client went away) must not let the next request drive
+            # the engine, and capture its graphs, while this generation
+            # still replays them in the producer's thread
+            abandoned.set()
+            await fut
 
     if inter is not None:
         final = S.ChatCompletionChunk(

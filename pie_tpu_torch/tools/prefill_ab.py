@@ -1,7 +1,9 @@
-"""A/B of K2 (the prefill dequant-GEMM) and time to first token between
-checkouts of this repository, on one CUDA card.
+"""A/B of K2 (the prefill dequant-GEMM), time to first token and the
+constrained choice point between checkouts of this repository, on one CUDA
+card.
 
-    python3 pie_tpu_torch/tools/prefill_ab.py --root A --root B --root B --root A
+    python3 pie_tpu_torch/tools/prefill_ab.py --root A --root B --root B --root A \
+        [--parts k2 ttft choice gemma]
 
 Each ``--root`` is a checkout whose ``pie_tpu_torch`` is imported, in a
 fresh process per root and in the order given (parent, change, change,
@@ -14,12 +16,21 @@ parent takes the card's drift out of the comparison). For each root:
   cases ``chip_smoke.py`` times: the 8B wqkv and wo at M = 33, 64, 128,
   129 and 2048, wo INT8 g64 and INT4 g32 / g128 at M = 512, the wqkv with
   the rope epilogue at M = 40 and 256 (8B, dh 128) and M = 40 (1B, dh 64);
-- TTFT p50 of five distinct 512-token prompts through ``InferenceEngine``
-  on the full 8B and 1B geometries with random INT4 g64 weights from a
-  seed (the 1B tied head quantized from the f32 embedding, as the loader
-  does), and K2's launches in one such prefill.
+- ``ttft``: TTFT p50 of five distinct 512-token prompts through
+  ``InferenceEngine`` on the full 8B and 1B geometries with random INT4
+  g64 weights from a seed (the 1B tied head quantized from the f32
+  embedding, as the loader does), and K2's launches in one such prefill;
+- ``choice``: on the same 8B engine, host wall ms (median of 5, each
+  ending in the sampled token's read back) of one masked prefill at the
+  constrained extends' buckets 8, 64 and 256, as ``generate_constrained``
+  runs one per choice point;
+- ``gemma``: TTFT p50 of five distinct 512-token prompts and of three
+  2,048-token prompts (two prefill chunks) through ``InferenceEngine`` on
+  the 34-layer Gemma-3 4B geometry with random INT4 g64 weights, and its
+  decode tok/s (128 greedy tokens after a 64-token prompt, best of 3).
 
-Prints one JSON line per root with the card's name and power limit.
+Every part runs by default. Prints one JSON line per root with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import sys
 import time
 
 ROTATE = 8
+PARTS = ("k2", "ttft", "choice", "gemma")
 # name, K, N, launches per 512-token prefill, f32 scales
 PREFILL_8B = [("wqkv", 4096, 6144, 32, False), ("wo", 4096, 4096, 32, False),
               ("wgu", 4096, 28672, 32, False), ("wd", 14336, 4096, 32, False),
@@ -98,16 +110,13 @@ def device_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
-def measure(root: str) -> dict:
-    """Everything for one checkout, in this process."""
+def measure(root: str, parts=PARTS) -> dict:
+    """The parts asked for, for one checkout, in this process."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
-    from pie_tpu_torch.engine import InferenceEngine
-    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
-    from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
 
     if not qmc.__file__.startswith(root):
         raise RuntimeError(f"imported {qmc.__file__}, not the checkout at {root}")
@@ -115,6 +124,21 @@ def measure(root: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     out = {"root": root}
+    if "k2" in parts:
+        measure_k2(out, gen)
+    if {"ttft", "choice"} & set(parts):
+        measure_llama(out, parts)
+    if "gemma" in parts:
+        measure_gemma(out)
+    return out
+
+
+def measure_k2(out: dict, gen) -> None:
+    import torch
+
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
+
     for label, shapes in (("8B", PREFILL_8B), ("1B", PREFILL_1B)):
         total = 0.0
         for name, k, n, per, f32 in shapes:
@@ -140,8 +164,60 @@ def measure(root: str) -> dict:
         del qt, x
     torch.cuda.empty_cache()
 
-    def prompt(salt):
-        return [1 + (i * 37 + salt * 101) % 100000 for i in range(512)]
+
+def prompt(salt, n=512):
+    return [1 + (i * 37 + salt * 101) % 100000 for i in range(n)]
+
+
+def ttft_ms(engine, prompts) -> list:
+    """Host ms from each request to its first streamed token."""
+    out = []
+    for p in prompts:
+        stream = engine.generate_stream(p, max_completion_tokens=2, temperature=0.0)
+        t0 = time.perf_counter()
+        next(stream)
+        out.append((time.perf_counter() - t0) * 1e3)
+        for _ in stream:
+            pass
+    return out
+
+
+def choice_point_ms(engine, bucket: int) -> float:
+    """Median host ms of one masked prefill of ``bucket`` tokens from
+    position 64, the sampled token read back (device tensors in, which
+    every checkout's ``EngineCore._prefill`` takes)."""
+    import torch
+
+    dev = engine.device
+    v = engine.model.config.vocab_size
+    ids = torch.randint(1, 100, (1, bucket), dtype=torch.int32, device=dev)
+    one = lambda n: torch.full((1,), n, dtype=torch.int32, device=dev)  # noqa: E731
+    mask = torch.zeros((1, v), dtype=torch.bool, device=dev)
+    mask[0, :v // 2] = True
+    args = (engine._sampling({"temperature": 0.0}), engine._penalties({}),
+            *engine._empty_bias)
+
+    def call():
+        return engine.core._prefill(engine.params, engine.state, ids, one(bucket),
+                                    one(64), *args, allowed_mask=mask,
+                                    sampler_kind="greedy")[1].cpu()
+
+    call()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[2]
+
+
+def measure_llama(out: dict, parts) -> None:
+    import torch
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
     for label, cfg, make in (
         ("8B", LlamaConfig(model_type="llama", hidden_size=4096, intermediate_size=14336,
@@ -155,37 +231,70 @@ def measure(root: str) -> dict:
                            tie_word_embeddings=True),
          lambda m: m.quantize_params(m.init_params(seed=3, device="cuda"), 64, 4)),
     ):
+        if label == "1B" and "ttft" not in parts:
+            continue
         model = LlamaModel(cfg)
         engine = InferenceEngine(model=model, params=make(model), max_seq_len=1024,
-                                 decode_chunk=128)
-        engine.generate(prompt(99), max_completion_tokens=1, temperature=0.0)
-        qmc.reset_counts()
-        engine.generate(prompt(98), max_completion_tokens=1, temperature=0.0)
-        torch.cuda.synchronize()
-        out[f"k2 launches per {label} prefill"] = qmc.launch_counts["K2"]
-        ttfts = []
-        for salt in range(5):
-            stream = engine.generate_stream(prompt(salt), max_completion_tokens=2,
-                                            temperature=0.0)
-            t0 = time.perf_counter()
-            next(stream)
-            ttfts.append((time.perf_counter() - t0) * 1e3)
-            for _ in stream:
-                pass
-        out[f"ttft {label} p50 ms"] = sorted(ttfts)[2]
-        out[f"ttft {label} ms"] = ttfts
+                                 decode_chunk=128, prompt_cache=False)
+        if "ttft" in parts:
+            engine.generate(prompt(99), max_completion_tokens=1, temperature=0.0)
+            qmc.reset_counts()
+            engine.generate(prompt(98), max_completion_tokens=1, temperature=0.0)
+            torch.cuda.synchronize()
+            out[f"k2 launches per {label} prefill"] = qmc.launch_counts["K2"]
+            ttfts = ttft_ms(engine, [prompt(salt) for salt in range(5)])
+            out[f"ttft {label} p50 ms"] = sorted(ttfts)[2]
+            out[f"ttft {label} ms"] = ttfts
+        if label == "8B" and "choice" in parts:
+            for bucket in (8, 64, 256):
+                out[f"choice point 8B bucket {bucket} ms"] = choice_point_ms(engine, bucket)
         del engine, model
         torch.cuda.empty_cache()
-    return out
+
+
+def measure_gemma(out: dict) -> None:
+    import torch
+
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+
+    # google/gemma-3-4b-it text_config, as chip_smoke.py's G4
+    model = Gemma3Model(Gemma3Config(
+        model_type="gemma3_text", hidden_size=2560, intermediate_size=10240, num_hidden_layers=34,
+        num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        sliding_window=1024, sliding_window_pattern=6, rope_theta=1000000.0,
+        rope_scaling={"rope_type": "linear", "factor": 8.0},
+        rope_local_base_freq=10000.0, query_pre_attn_scalar=256, vocab_size=262208,
+        rms_norm_eps=1e-6))
+    engine = InferenceEngine(model=model, params=model.init_quantized_params(seed=0),
+                             max_seq_len=4096, decode_chunk=128, prompt_cache=False)
+    for n, salts in ((512, range(5)), (2048, range(3))):
+        ttft_ms(engine, [prompt(90, n)])  # the buckets' first use
+        ttfts = ttft_ms(engine, [prompt(s, n) for s in salts])
+        out[f"ttft gemma3-4b {n} p50 ms"] = sorted(ttfts)[len(ttfts) // 2]
+        out[f"ttft gemma3-4b {n} ms"] = ttfts
+    best = 0.0
+    for _ in range(3):
+        stream = engine.generate_stream(list(range(1, 65)), max_completion_tokens=129,
+                                        temperature=0.0)
+        next(stream)
+        n, t0 = 0, time.perf_counter()
+        for _ in stream:
+            n += 1
+        best = max(best, n / (time.perf_counter() - t0))
+    out["decode gemma3-4b tok/s"] = best
+    del engine, model
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", action="append", required=True)
     ap.add_argument("--one", action="store_true", help="measure the one --root here")
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS))
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(measure(args.root[0])), flush=True)
+        print(json.dumps(measure(args.root[0], args.parts)), flush=True)
         return 0
     import torch
 
@@ -196,8 +305,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     for root in args.root:
-        res = subprocess.run([sys.executable, __file__, "--one", "--root", root],
-                             capture_output=True, text=True)
+        res = subprocess.run([sys.executable, __file__, "--one", "--root", root,
+                              "--parts", *args.parts], capture_output=True, text=True)
         if res.returncode:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
             return res.returncode

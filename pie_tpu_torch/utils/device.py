@@ -31,7 +31,9 @@ def host_tensor(a, device: torch.device) -> torch.Tensor:
 def upload(dst: torch.Tensor, a) -> torch.Tensor:
     """Copy host array ``a`` into the device tensor ``dst`` in place, queued
     as ``host_tensor`` is (``dst`` keeps its address: a captured step may
-    read it)."""
+    read it). A tensor ``a`` is copied as it is, on the stream."""
+    if isinstance(a, torch.Tensor):
+        return dst.copy_(a.reshape(dst.shape))
     t = torch.from_numpy(np.array(a)).reshape(dst.shape)
     if dst.device.type == "cuda":
         t = t.pin_memory()

@@ -135,7 +135,8 @@ def test_decode_steps_match_jax_core(models, case):
         lane0 = touts[1][0][:, 0]
         assert lane0[3] == stop[0] and (lane0[4:] == PAD).all()
         assert (touts[1][0][:, 1] != PAD).all()
-    assert len(tc.graphs.keys) == len({k[1] for k in tc.graphs.keys})
+    decode = {k for k in tc.graphs.keys if k[0] == "decode"}
+    assert len(decode) == len({k[1] for k in decode})
 
 
 def test_decode_step_logprobs_match_jax():
@@ -198,7 +199,7 @@ def test_decode_graph_key_fixes_its_buffers(models):
     want, _ = run(None, (free[1][2],))
     got, keys = run(_Replaying, (free[1][2],))
     assert want[1][2] == free[1][2] and want[1][-1] == PAD
-    assert got == want and len(keys) == 2
+    assert got == want and len([k for k in keys if k[0] == "decode"]) == 2
 
 
 # -- the paged rider-free and mixed steps ----------------------------------------------
@@ -370,9 +371,12 @@ def test_steps_read_nothing_back(models):
 def test_graph_keys_stay_bounded(models):
     """Over a long mixed run (requests of every sampler kind, with and
     without penalties and bias, riders and steady decode, contexts that
-    cross KV buckets) each engine holds at most one key per (step, bucket,
-    sampler kind, logprobs, penalties, bias), and no more than those
-    settings make."""
+    cross KV buckets, prompts of every bucket up to 512 tokens, direct
+    prefills) each engine holds at most one decode key per (step, bucket,
+    sampler kind, logprobs, penalties, bias) and one prefill key per
+    (prompt bucket, sampler kind, logprobs, bias width, mask), and no more
+    than those settings make: the paged direct prefill one per chunk
+    bucket."""
     _, _, tm, tp = models
     rng = np.random.default_rng(0)
     settings = [dict(temperature=0.0), dict(temperature=0.9),
@@ -386,9 +390,17 @@ def test_graph_keys_stay_bounded(models):
         eng.generate(rng.integers(0, 512, plen).tolist(), max_completion_tokens=9,
                      logprobs=bool(i % 2), **settings[i % len(settings)])
     keys = eng.core.graphs.keys
-    project = {(k[1], k[2], k[3], k[4], k[5]) for k in keys}
-    assert len(keys) == len(project) <= 3 * 3 * 2 * 2 * 2  # buckets 256 / 512
-    assert {k[1] for k in keys} == {256, 512}
+    assert {k[0] for k in keys} == {"decode", "prefill"}
+    decode = {k for k in keys if k[0] == "decode"}
+    project = {(k[1], k[2], k[3], k[4], k[5]) for k in decode}
+    assert len(decode) == len(project) <= 3 * 3 * 2 * 2 * 2  # buckets 256 / 512
+    assert {k[1] for k in decode} == {256, 512}
+    prefill = keys - decode
+    project = {(k[1], k[2], k[3], k[4], k[5]) for k in prefill}
+    # prompt buckets 16-512, 3 sampler kinds, logprobs, bias widths 0 / 8, no mask
+    assert len(prefill) == len(project) <= 6 * 3 * 2 * 2
+    assert {k[1] for k in prefill} <= {16, 32, 64, 128, 256, 512}
+    assert {k[4] for k in prefill} == {0, 8} and not any(k[5] for k in prefill)
 
     sched = Scheduler(PagedEngine(tm, tp, num_lanes=4, num_pages=64, max_pages_per_seq=8,
                                   prefill_chunk=16, rider_width=8,
@@ -404,6 +416,8 @@ def test_graph_keys_stay_bounded(models):
                 sched.step()
     sched.run_to_completion(max_steps=2000)
     keys = sched.engine.graphs.keys
-    project = {k[:4] for k in keys}
-    assert len(keys) == len(project) <= 2 * 3 * 2 * 2
-    assert {k[0] for k in keys} == {"decode", "mixed"}
+    assert {k[0] for k in keys} == {"decode", "mixed", "prefill"}
+    steps = {k for k in keys if k[0] != "prefill"}
+    project = {k[:4] for k in steps}
+    assert len(steps) == len(project) <= 2 * 3 * 2 * 2
+    assert keys - steps == {("prefill", 16, id(tp))}  # prefill_chunk 16

@@ -596,14 +596,16 @@ def _eager(graphs):
 
 
 class _Tap:
-    """A step runner that keeps a copy of every step's logits."""
+    """A step runner that keeps a copy of every step's logits (a paged
+    direct prefill returns none)."""
 
     def __init__(self, inner):
         self.inner, self.logits = inner, []
 
     def __call__(self, key, fn, samples=False):
         out = self.inner(key, fn, samples)
-        self.logits.append(out[1].float().clone())
+        if len(out) > 1:
+            self.logits.append(out[1].float().clone())
         return out
 
     def __getattr__(self, name):
@@ -650,10 +652,11 @@ PAGED_PROMPTS = (list(range(1, 101)), [5, 6, 7], list(range(40, 60)), [9])
 
 
 def test_step_graphs_replay_the_eager_steps(cuda):
-    """The single-stream decode step and the paged rider-free and mixed
-    steps, replayed from their graphs, give the greedy tokens of the same
-    steps run eagerly on the card, logits within 1e-3 normalized; every
-    key but the first call of each replays."""
+    """The single-stream prefill and decode step and the paged direct
+    prefill and rider-free and mixed steps, replayed from their graphs,
+    give the greedy tokens of the same steps run eagerly on the card,
+    logits within 1e-3 normalized; every key but the first call of each
+    replays."""
     engines = _single_pair(cuda)
     taps = []
     for e in engines:
@@ -677,18 +680,19 @@ def test_step_graphs_replay_the_eager_steps(cuda):
         s.run_to_completion(max_steps=200)
         streams.append([q.output_ids for q in seqs])
     assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
-    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed"}
+    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed", "prefill"}
     assert taps[0].inner.replays > 0
     for got, want in zip(taps[0].logits, taps[1].logits):
         assert _norm_err(got, want) < 1e-3
 
 
 def test_gemma3_step_graphs_replay_the_eager_steps(cuda):
-    """Gemma-3's captured steps: the single-stream decode step over the
-    DualKVCache (rotating sliding slots computed on the card) past the
-    window, and the paged rider-free and mixed steps (K3 at D 256, windowed
-    on the sliding layer), give the tokens of the same steps run eagerly,
-    logits within 1e-3 normalized; K3 runs once per layer per paged step."""
+    """Gemma-3's captured steps: the single-stream prefill head chunks and
+    decode step over the DualKVCache (rotating sliding slots computed on
+    the card) past the window, and the paged direct prefill and rider-free
+    and mixed steps (K3 at D 256, windowed on the sliding layer), give the
+    tokens of the same steps run eagerly, logits within 1e-3 normalized; K3
+    runs once per layer per paged step."""
     engines = _single_pair(cuda, _gemma_graph_model)
     taps = []
     for e in engines:
@@ -714,7 +718,7 @@ def test_gemma3_step_graphs_replay_the_eager_steps(cuda):
         assert qmc.launch_counts["K3"] == 2 * (s.engine.device_steps - steps0) > 0
         streams.append([q.output_ids for q in seqs])
     assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
-    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed"}
+    assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed", "prefill"}
     for got, want in zip(taps[0].logits, taps[1].logits):
         assert _norm_err(got, want) < 1e-3
 
@@ -757,7 +761,7 @@ def test_masked_step_graphs_replay_the_eager_steps(cuda):
         s.run_to_completion(max_steps=400)
         streams.append([(q.output_ids, q.finish_reason) for q in seqs])
     assert streams[0] == streams[1]
-    keys = {(k[0], k[4]) for k in taps[0].inner.keys}
+    keys = {(k[0], k[4]) for k in taps[0].inner.keys if k[0] != "prefill"}
     assert {("decode", True), ("mixed", True)} <= keys
     assert taps[0].inner.replays > 0
     for got, want in zip(taps[0].logits, taps[1].logits):
@@ -884,3 +888,161 @@ def test_steady_chunk_reads_nothing_back(cuda):
     assert len(sched._inflight) == 1
     sched.run_to_completion(max_steps=200)
     assert all(len(s.output_ids) == 40 for s in seqs)
+
+
+# -- compiled prefills: every prefill as a CUDA graph ------------------------------
+
+
+def _pool_tensors(pool):
+    return [t for t in (pool.k, pool.v, pool.k_scale, pool.v_scale) if t is not None]
+
+
+def _prefill_calls(e, v):
+    """(ids, lens, first position, mask) of the prefills the card tests
+    run on a single-stream engine: a 50-token prompt and a 30-token
+    continuation (bucket 64: K2), then masked extends of 5 and 3 tokens
+    (bucket 8: K1) and of 40 and 20 tokens (bucket 64, masked: K2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    calls, first = [], 0
+    for n, bucket, masked in ((50, 64, False), (30, 64, False), (5, 8, True),
+                              (3, 8, True), (40, 64, True), (20, 64, True)):
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :n] = rng.integers(1, v, n)
+        mask = rng.uniform(size=(1, v)) < 0.5 if masked else None
+        calls.append((ids, np.array([n], np.int32), np.array([first], np.int32), mask))
+        first += n
+    return calls
+
+
+def _run_prefill(e, call, sync_free=False):
+    ids, lens, first, mask = call
+    args = (e._sampling({"temperature": 0.0}), e._penalties({}), *e._empty_bias)
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        e.state, token, _ = e.core._prefill(e.params, e.state, ids, lens, first, *args,
+                                            allowed_mask=mask, sampler_kind="greedy")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return token
+
+
+def test_prefill_graphs_replay_the_eager_prefills(cuda):
+    """Each prefill, captured and then replayed, against the same prefill
+    run eagerly by a twin on the card: single-stream prompts, continuations
+    from a first position past 0 and masked extends give equal tokens and
+    processed logits within 1e-3 normalized, and equal KV caches; paged
+    direct prefills of one bucket (another table, positions and length the
+    second time) leave equal pools. Every replay is queued under CUDA's
+    sync debug mode "error"."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.kv_cache import cache_tensors
+
+    engines = _single_pair(cuda)
+    taps = []
+    for e in engines:
+        e.core.graphs = _Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    v = engines[0].model.config.vocab_size
+    calls = _prefill_calls(engines[0], v)
+    seen = set()
+    for call in calls:
+        key = (call[0].shape[1], call[3] is not None)
+        toks = [_run_prefill(engines[0], call, sync_free=key in seen),
+                _run_prefill(engines[1], call)]
+        seen.add(key)
+        assert toks[0].tolist() == toks[1].tolist()
+    assert taps[0].inner.replays == 3 and taps[0].inner.captures == 3
+    assert len(taps[0].logits) == len(taps[1].logits) == len(calls)
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+    caches = [cache_tensors(e.state.cache) for e in engines]
+    for name, t in caches[0].items():
+        assert torch.equal(t, caches[1][name]), name
+
+    scheds = _paged_pair(cuda)
+    for table, first, n in (([3, 7, -1, -1, -1, -1, -1, -1], 0, 60),
+                            ([12, 0, 5, -1, -1, -1, -1, -1], 40, 33)):
+        ids = np.zeros((1, 64), np.int32)
+        pos = np.full((1, 64), -1, np.int32)
+        ids[0, :n] = np.arange(n) + 7
+        pos[0, :n] = first + np.arange(n)
+        args = (ids, pos, np.array([table], np.int32), np.array([first + n], np.int32))
+        for i, s in enumerate(scheds):
+            if i == 0 and first:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                s.engine._prefill(s.engine.params, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for a, b in zip(*(_pool_tensors(s.engine.pool) for s in scheds)):
+            assert torch.equal(a, b)
+    assert scheds[0].engine.graphs.replays == 1
+
+
+def test_prefill_graph_launch_counts(cuda):
+    """K1, its ln pre-pass, K2 and K4 launches of each replayed prefill equal
+    those of the same prefill run eagerly (counted from the graph's delta):
+    a 64-token bucket (K2 for every projection and the head) and a masked
+    8-token extend (K1, and K4 for the MLP block at M = 8); and those of a
+    replayed paged direct prefill equal its eager twin's."""
+    import numpy as np
+
+    engines = _single_pair(cuda)
+    calls = _prefill_calls(engines[0], engines[0].model.config.vocab_size)
+    for first, again in ((calls[0], calls[1]), (calls[2], calls[3])):
+        counts = []
+        for e in engines:
+            _run_prefill(e, first)  # the graph engine captures here
+            qmc.reset_counts()
+            _run_prefill(e, again)
+            torch.cuda.synchronize()
+            counts.append(dict(qmc.launch_counts))
+        assert counts[0] == counts[1]
+        assert counts[0]["K2" if first[0].shape[1] > 32 else "K1"] > 0
+    assert engines[0].core.graphs.replays == 2
+
+    scheds = _paged_pair(cuda)
+    counts = []
+    for s in scheds:
+        ids = np.arange(64, dtype=np.int32)[None] + 3
+        pos = np.arange(64, dtype=np.int32)[None]
+        args = (ids, pos, np.array([[2, -1, -1, -1, -1, -1, -1, -1]], np.int32),
+                np.array([64], np.int32))
+        s.engine._prefill(s.engine.params, *args)
+        qmc.reset_counts()
+        s.engine._prefill(s.engine.params, *args)
+        torch.cuda.synchronize()
+        counts.append(dict(qmc.launch_counts))
+    assert counts[0] == counts[1] and counts[0]["K2"] == 4 * 2
+    assert scheds[0].engine.graphs.replays == 1
+
+
+def test_cache_swap_frees_the_prefill_graphs(cuda):
+    """An INT8 conversion replaces the single-stream cache (another kind):
+    the graphs over the old cache, prefill graphs among them, go, and their
+    memory pool leaves the card once nothing holds it."""
+    import gc
+
+    from pie_tpu_torch.cache.kv_cache import maybe_quantize
+
+    e = _single_pair(cuda)[0]
+    e.generate(list(range(3, 40)), max_completion_tokens=20, temperature=0.0)
+    graphs = e.core.graphs
+    assert graphs.stats()["by_kind"]["prefill"]["graphs"] == 1
+    pool = tuple(graphs._pool)
+    assert graphs.pool_bytes() > 0
+    del graphs
+    e.state = e.core.set_cache(maybe_quantize(e.state.cache, 1))
+    assert e.core.graphs.captures == 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool]
+    assert not held
+    out = e.generate(list(range(3, 40)), max_completion_tokens=8, temperature=0.0)
+    assert len(out.token_ids) == 8

@@ -291,3 +291,78 @@ def test_constrained_request_is_refused(engine_fixture):
     call = b2["choices"][0]["message"]["tool_calls"][0]["function"]
     assert call["name"] == "get_weather"
     assert "city" in json.loads(call["arguments"])
+
+
+def test_abandoned_stream_keeps_the_engine_to_itself(engine_fixture):
+    """A client that leaves a streamed chat after its first content chunk:
+    the server's next write fails, the producer closes the generation at
+    its next token, and only then does the engine's lock pass to the next
+    request. No two threads ever drive the single-stream engine at once
+    (one could capture a prefill or step graph while the other replays)."""
+    import threading
+    import time
+
+    hello = engine_fixture.tokenizer.encode("hello", add_bos=False)[0]
+
+    class Watched:
+        """The engine, counting the threads inside it; its stream pauses
+        20 ms before each delta, as a slow generation would."""
+
+        def __init__(self, inner):
+            self.inner, self.active, self.most = inner, 0, 0
+            self.guard = threading.Lock()
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def _enter(self):
+            with self.guard:
+                self.active += 1
+                self.most = max(self.most, self.active)
+
+        def _leave(self):
+            with self.guard:
+                self.active -= 1
+
+        def chat_stream(self, *a, **kw):
+            self._enter()
+            try:
+                inner = self.inner.chat_stream(*a, **kw)
+                while True:
+                    time.sleep(0.02)
+                    try:
+                        delta = next(inner)
+                    except StopIteration as e:
+                        return e.value
+                    yield delta
+            finally:
+                self._leave()
+
+        def chat(self, *a, **kw):
+            self._enter()
+            try:
+                return self.inner.chat(*a, **kw)
+            finally:
+                self._leave()
+
+    watched = Watched(engine_fixture)
+    body = {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 60,
+            "temperature": 0.0, "logit_bias": {str(hello): 100.0}}
+
+    async def run():
+        app = create_app(engine=watched, settings=Settings(), device="cpu")
+        async with TestClient(TestServer(app)) as client:
+            resp = await client.post("/v1/chat/completions", json=dict(body, stream=True))
+            assert resp.status == 200
+            lines = 0
+            while lines < 2:  # the role chunk, then one content chunk
+                lines += (await resp.content.readline()).startswith(b"data: ")
+            resp.close()
+            again = await client.post("/v1/chat/completions",
+                                      json=dict(body, max_tokens=4))
+            assert again.status == 200, await again.text()
+            return await again.json()
+
+    data = asyncio.run(run())
+    assert data["choices"][0]["message"]["content"]
+    assert watched.most == 1 and watched.active == 0
