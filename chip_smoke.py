@@ -40,7 +40,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    each timed row carries K3's launch (warps per block, cp.async stages
    per warp, resident blocks per SM, page splits, grid blocks, and the
    bf16 hi + lo rounding of the probabilities for PV).
-3. model: a 2-layer model at the full 8B widths, same weights on the card
+3. model: a 1-layer model at the full 8B widths, same weights on the card
    (kernels) and on the CPU (plain versions): prefill 16 tokens, 4
    teacher-forced decode steps, then a 40-token chunk (so K2 runs too);
    then, over an INT8 paged pool, paged_forward (a 40-token prefill, 4
@@ -135,8 +135,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks and not; per-lane normalized error < 2e-2), and timed per
    Gemma-3 4B device step at 8 lanes x 2,048 tokens (29 sliding layers
    clipped to 1,024 tokens, 5 global) beside the plain version, SDPA on
-   gathered dequantized K/V and the bytes bound; (b) a 6-layer full-width
-   4B model (5 sliding + 1 global) and a 2-layer 1B model (1 sliding + 1
+   gathered dequantized K/V and the bytes bound; (b) a 2-layer full-width
+   4B model (1 sliding + 1 global) and a 2-layer 1B model (1 sliding + 1
    global, one KV head), card against CPU: the single-stream forward over
    the DualKVCache past the window, paged_forward and mixed_forward over
    an INT8 pool (normalized error < 0.03); (c) the 34-layer 4B
@@ -152,6 +152,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunks; then the 4B graphs against eager steps (phase_graphs, the
    single stream on a 1,100-token prompt past the window).
 
+13. qwen2.5-vl (after 12): (a) K1 at M = 1 and 8 and K2 at M = 512 at every
+   Qwen2.5-VL-7B projection shape (wq / wo 3584 x 3584, wk / wv 3584 x 512,
+   wg / wu 3584 x 18944, wd 18944 x 3584, the untied head 3584 x 152064)
+   against their plain version, timed with bound and library chain as in
+   phase 2; K3 at its heads (28 / 4: a group of 7, D 128) against its plain
+   version on INT8 and bf16 pages, timed at 8 lanes x 2,048 tokens; (b)
+   card against CPU (normalized error < 0.03): a 4-layer full-width
+   Qwen2.5-VL-7B with an 8-block tower (full attention at block 7) on one
+   224 x 224 image prompt (its tower features, __call__ with the t/h/w
+   streams, a decode step at the prompt's offset, a mixed step whose rider
+   is the prompt's embeddings, a paged decode step), the mixed step's image
+   lane against __call__ on the card, and the plain Qwen2-VL tower at 4
+   blocks; (c) the 28-layer single-stream engine (random INT4 g64, a
+   32-block bf16 tower): launches of a counted request (K1 197 per decoded
+   token, K2 197 per prefill), TTFT p50 at 512 tokens, an image prompt's
+   TTFT split (tower, prefill device and enqueue ms), decode tok/s after
+   an image prompt, a captured image prefill and 16 decode steps against
+   an eager twin (equal tokens, logits within 1e-3, caches byte-equal),
+   steady chunks; (d) the paged engine (8 lanes, 2 of them image prompts,
+   bf16 pages): tok/s, K3 28 per device step, each image lane's first token
+   equal to the single stream's; (e) one image chat over HTTP through
+   create_app on both backends (needs Pillow: else a line says "pillow":
+   false). Images are seeded numpy pixels through the port's patchify
+   step; the HTTP chat sends a PNG.
+
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
@@ -159,7 +184,8 @@ step), the 1B model check beside its reading before K2's single rounding
 (after phase 3b), a Gemma-3 summary, a prefill summary (TTFT beside one
 prefill's device and enqueue time, the prefill graphs' captures, capture
 seconds and the pool per geometry), then the kernel summary
-line (K1, its ln pre-pass, K2-K4, K3 at D 256), the card's name and power
+line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
+shapes), the card's name and power
 limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -956,7 +982,7 @@ def paged_timing(quantized, heads=(HQ, HKV, DH)):
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bound_bytes, bound_ops),
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-        bytes=nbytes, walked_page_heads=pages * HKV, flops=flops,
+        bytes=nbytes, walked_page_heads=pages * hkv, flops=flops,
     )
     emit(row)
     del dense, inputs, q, k, v, ks, vs
@@ -986,6 +1012,11 @@ def phase_paged_kernel():
 # -- phase 3 -------------------------------------------------------------------
 
 
+# the 8B card-against-CPU check's depth: one layer keeps its CPU side short;
+# stacked-layer offsets are checked at depth by phases 3b, 12b and 13b
+CHECK_LAYERS_8B = 1
+
+
 def llama8b_config(layers):
     from pie_tpu_torch.models.llama import LlamaConfig
 
@@ -1008,13 +1039,14 @@ def phase_model():
     from pie_tpu_torch.models.llama import LlamaModel
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
-    model = LlamaModel(llama8b_config(2))
+    model = LlamaModel(llama8b_config(CHECK_LAYERS_8B))
     cpu_params = model.init_quantized_params(seed=1, device="cpu")
     gpu_params = to_device(cpu_params, "cuda")
     ids = torch.randint(0, VOCAB, (1, 60), generator=torch.Generator().manual_seed(2))
     worst = 0.0
     qmc.reset_counts()
-    caches = {d: make_kv_cache(2, 1, 64, HKV, DH, dtype=torch.bfloat16, device=d)
+    caches = {d: make_kv_cache(CHECK_LAYERS_8B, 1, 64, HKV, DH, dtype=torch.bfloat16,
+                               device=d)
               for d in ("cpu", "cuda")}
     # prefill 16 (K1: M <= 32), 4 decode steps (K1 with fused ln / rope),
     # then 40 more tokens in one chunk (K2)
@@ -1036,7 +1068,7 @@ def phase_model():
     counts = dict(qmc.launch_counts)
     if not (counts["K1"] > 0 and counts["K2"] > 0):
         raise AssertionError(f"model check did not run both kernels: {counts}")
-    emit(dict(phase="model", layers=2, widths="llama3-8b", norm_err=worst,
+    emit(dict(phase="model", layers=CHECK_LAYERS_8B, widths="llama3-8b", norm_err=worst,
               launches=counts))
     paged_model_check(model, cpu_params, gpu_params)
     del cpu_params, gpu_params
@@ -1057,7 +1089,8 @@ def paged_model_check(model, cpu_params, gpu_params):
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
     tables = np.array([[3, 7, 10], [11, 0, 5], [9, 2, 6]], np.int32)
-    pools = {d: PagedKVPool.create(2, 12, HKV, DH, torch.bfloat16, True, device=d)
+    pools = {d: PagedKVPool.create(CHECK_LAYERS_8B, 12, HKV, DH, torch.bfloat16, True,
+                                   device=d)
              for d in ("cpu", "cuda")}
     params = {"cpu": cpu_params, "cuda": gpu_params}
     prompts = np.random.default_rng(5).integers(0, VOCAB, (3, 40)).astype(np.int32)
@@ -1113,7 +1146,7 @@ def paged_model_check(model, cpu_params, gpu_params):
     counts = dict(qmc.launch_counts)
     if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
         raise AssertionError(f"paged model check did not run every kernel: {counts}")
-    emit(dict(phase="model", path="paged_forward + mixed_forward", layers=2,
+    emit(dict(phase="model", path="paged_forward + mixed_forward", layers=CHECK_LAYERS_8B,
               widths="llama3-8b", kv="int8 paged", norm_err=max(errs),
               norm_err_per_step=errs, launches=counts))
 
@@ -2772,7 +2805,8 @@ def phase_gemma3(card):
     k3_err = gemma_k3_checks()
     k3_rows = {q: gemma_k3_timing(q) for q in (True, False)}
     checks = {label: gemma_model_check(label, cfg) for label, cfg in (
-        ("gemma3-4b (6 layers: 5 sliding + 1 global)", gemma_config(G4, 6)),
+        ("gemma3-4b (2 layers: 1 sliding + 1 global)",
+         gemma_config(G4, 2, sliding_window_pattern=2)),
         ("gemma3-1b (2 layers: 1 sliding + 1 global, Hkv 1)",
          gemma_config(G1, 2, sliding_window_pattern=2)))}
     engine, eng = gemma_engine(card)
@@ -2790,6 +2824,548 @@ def phase_gemma3(card):
     torch.cuda.empty_cache()
     return dict(k3=k3_rows, k3_err=k3_err, checks=checks, engine=eng, paged=paged,
                 graphs=graphs)
+
+
+# -- phase 13: Qwen2.5-VL-7B -----------------------------------------------------
+
+# Qwen2.5-VL-7B-Instruct, from its public config.json: the text decoder ...
+Q7 = dict(hidden_size=3584, intermediate_size=18944, num_attention_heads=28,
+          num_key_value_heads=4, vocab_size=152064, rms_norm_eps=1e-6,
+          rope_theta=1000000.0, mrope_section=(16, 24, 24), tie_word_embeddings=False,
+          image_token_id=151655, video_token_id=151656)
+Q7_LAYERS = 28
+Q7_START, Q7_END = 151652, 151653  # vision start / end
+# ... and its tower (windowed, RMSNorm, gated SiLU)
+Q7_VISION = dict(depth=32, hidden_size=1280, intermediate_size=3420, num_heads=16,
+                 out_hidden_size=3584, patch_size=14, temporal_patch_size=2,
+                 spatial_merge_size=2, window_size=112,
+                 fullatt_block_indexes=[7, 15, 23, 31], in_channels=3, hidden_act="silu")
+# Qwen2-VL-7B-Instruct's tower (LayerNorm, quick-GELU MLP, full attention)
+Q2_VISION = dict(depth=32, embed_dim=1280, hidden_size=3584, num_heads=16, mlp_ratio=4,
+                 patch_size=14, temporal_patch_size=2, spatial_merge_size=2,
+                 in_channels=3, hidden_act="quick_gelu")
+Q_PROJ = 7  # wq, wk, wv, wo, wg, wu, wd: one K1 / K2 launch each per layer
+Q_IMAGE = 224  # 16 x 16 patches: 64 merged tokens, four 8 x 8-patch windows
+QWEN_SHAPES = [  # name, K, N, launches per decoded token / per prefill
+    ("wq / wo", 3584, 3584, 2 * Q7_LAYERS),
+    ("wk / wv", 3584, 512, 2 * Q7_LAYERS),
+    ("wg / wu", 3584, 18944, 2 * Q7_LAYERS),
+    ("wd", 18944, 3584, Q7_LAYERS),
+    ("lm_head", 3584, 152064, 1),
+]
+
+
+def qwen_model(layers, vision=Q7_VISION, depth=None, seed=0):
+    """A Qwen2.5-VL-7B-wide model with ``layers`` text layers (random INT4
+    g64) and a random bf16 tower of ``depth`` blocks, on the card."""
+    from pie_tpu_torch.models.qwen2_vl import Qwen2VLConfig, Qwen2VLModel
+
+    vision = dict(vision, depth=depth or vision["depth"])
+    model = Qwen2VLModel(Qwen2VLConfig(model_type="qwen2_5_vl",
+                                       num_hidden_layers=layers, vision=vision, **Q7))
+    params = model.init_quantized_params(seed=seed)
+    params["vision"] = model.vision.init_params(seed=seed + 1)
+    return model, params
+
+
+def qwen_pixels(seed):
+    """A seeded 224 x 224 RGB image as the model reads it: normalized and
+    patchified with numpy (the port's patchify step; no Pillow), and its
+    grid."""
+    import numpy as np
+
+    from pie_tpu_torch.vision.utils import (
+        OPENAI_CLIP_MEAN,
+        OPENAI_CLIP_STD,
+        normalize,
+        qwen2vl_patchify,
+    )
+
+    img = np.random.default_rng(seed).integers(0, 256, (Q_IMAGE, Q_IMAGE, 3))
+    arr = normalize(img.astype(np.float32) / 255.0, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)
+    g = Q_IMAGE // 14
+    return qwen2vl_patchify(arr, 14, 2, 2), np.array([[1, g, g]])
+
+
+def qwen_prompt(salt, before=9, after=9):
+    """Text, one image's 64 placeholders between vision start and end,
+    text (84 tokens)."""
+    text = lambda n, o: [1 + (i * 37 + salt * 101 + o) % 100000 for i in range(n)]
+    return (text(before, 0) + [Q7_START] + [Q7["image_token_id"]] * 64 + [Q7_END]
+            + text(after, 7))
+
+
+def qwen_kernels():
+    """K1 (M = 1 and 8) and K2 (M = 512) at every Qwen2.5-VL-7B projection
+    shape and the head, then K3 at its heads (28 / 4: a group of 7, D 128)
+    against its plain version on INT8 and bf16 pages at contexts 1..2,048
+    and timed at 8 lanes x 2,048 tokens."""
+    rows = {}
+    for m in (1, 8, 512):
+        rows[m] = [(per, kernel_case(f"qwen2.5-vl-7b {name} M={m}", k, n, m))
+                   for name, k, n, per in QWEN_SHAPES]
+    worst = 0.0
+    for quantized in (True, False):
+        inputs = paged_inputs(PAGED_LENS, 28, 4, 128, quantized, seed=7)
+        diff, norm = paged_check(inputs, 3, 0)
+        worst = max(worst, diff)
+        emit(dict(phase="qwen2.5-vl", part="a: K3 group 7 vs plain", quantized=quantized,
+                  lens=PAGED_LENS, max_abs_err=diff, norm_err=norm))
+        del inputs
+    k3 = {q: paged_timing(q, heads=(28, 4, 128)) for q in (True, False)}
+    torch.cuda.empty_cache()
+    return rows, k3, max([worst] + [r["max_abs_err"] for r in k3.values()])
+
+
+def qwen_model_check(label, layers, depth, tower_only=False, vision=Q7_VISION):
+    """A cut Qwen model at full width, card against the CPU plain path on
+    the same random weights (INT4 g64 text, bf16 tower): the tower's
+    merged features of one 224 x 224 image; unless ``tower_only``, the
+    image prompt through ``__call__`` (its t/h/w streams), one decode step
+    at its offset, then over an INT8 paged pool one mixed step (the
+    prompt's embeddings as a rider for lane 1, which wakes on its last
+    token in the same step, lane 0 on its first token) and one paged decode
+    step of both lanes at their offsets; logits within 0.03 normalized.
+    On the card alone: the mixed step's image lane against ``__call__``'s
+    last prompt position (0.03)."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.kv_cache import make_kv_cache
+    from pie_tpu_torch.cache.paged import PagedKVPool
+    from pie_tpu_torch.models.qwen2_vl import image_positions, text_positions3
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, gpu_params = qwen_model(layers or 1, vision=vision, depth=depth, seed=3)
+    params = {"cpu": to_device(gpu_params, "cpu"), "cuda": gpu_params}
+    px, grid = qwen_pixels(1)
+    prompt = qwen_prompt(1)
+    n = len(prompt)
+    errs, outs = {}, {}
+
+    def compare(what, run, rows=slice(None)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            with torch.no_grad():
+                out[dev] = run(dev).float().cpu()[rows]
+        err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+        if not (torch.isfinite(out["cuda"]).all() and err < 0.03):
+            raise AssertionError(f"{label} model check, {what}: err {err}")
+        errs[what] = err
+        outs[what] = out["cuda"]
+
+    qmc.reset_counts()
+    ids = {d: torch.tensor([prompt], dtype=torch.int32, device=d) for d in ("cpu", "cuda")}
+    feats = {d: model.vision.forward(params[d]["vision"], torch.from_numpy(px).to(d), grid)
+             for d in ("cpu", "cuda")}
+    compare("tower", lambda d: feats[d])
+    if tower_only:
+        emit(dict(phase="qwen2.5-vl", part="b: model vs CPU", geometry=label,
+                  tower_blocks=depth, norm_err=errs["tower"]))
+        return errs["tower"]
+    emb = {d: model.embed_with_images(params[d], ids[d], torch.from_numpy(px).to(d), grid)
+           for d in ("cpu", "cuda")}
+    p3, delta = image_positions(model, np.array([prompt]), grid, n)
+    t = lambda a, d: torch.from_numpy(np.asarray(a, np.int32)).to(d)
+    caches = {d: make_kv_cache(layers, 1, 128, 4, 128, torch.bfloat16, device=d)
+              for d in ("cpu", "cuda")}
+
+    def call(dev, start, count, **kw):
+        first = torch.tensor([start], dtype=torch.int32, device=dev)
+        pos = first[:, None] + torch.arange(count, dtype=torch.int32, device=dev)[None]
+        caches[dev] = caches[dev].advance(first, count)
+        logits, caches[dev] = model(params[dev], kw.pop("ids", ids[dev]), caches[dev],
+                                    pos, **kw)
+        return logits
+
+    compare("call image prefill", lambda d: call(d, 0, n, inputs_embeds=emb[d],
+                                                 positions3=t(p3, d)))
+    tok = [[int(outs["call image prefill"][0, -1].argmax())]]
+    compare("call decode", lambda d: call(
+        d, n, 1, ids=t(tok, d), positions3=text_positions3(t([[n - delta]], d))))
+    maxp = 4
+    tables = np.arange(2 * maxp, dtype=np.int32).reshape(2, maxp)[:, ::-1].copy()
+    pools = {d: PagedKVPool.create(layers, 2 * maxp, 4, 128, torch.bfloat16, True,
+                                   device=d) for d in ("cpu", "cuda")}
+    cs = 96
+    rider, rpos = np.full(cs, -1), np.full(cs, -1)
+    rider[:n - 1], rpos[:n - 1] = prompt[:-1], np.arange(n - 1)
+    rp3 = np.full((3, cs), -1)
+    rp3[:, :n - 1] = p3[:, 0, :n - 1]
+    deltas = [3, delta]
+
+    def rider_embeds(d):
+        e = torch.zeros((cs, emb[d].shape[-1]), dtype=emb[d].dtype, device=d)
+        e[:n - 1] = emb[d][0, :n - 1]
+        return e
+
+    compare("mixed image rider", lambda d: model.mixed_forward(
+        params[d], pools[d], t([11, prompt[-1]], d), t([0, n - 1], d), t([1, n], d),
+        t(tables, d), t(rider, d), t(rpos, d), t([1], d), t([n - 1], d),
+        pf_embeds=rider_embeds(d), pf_pos3=t(rp3, d), pos_delta=t(deltas, d))[0])
+    lane = outs["mixed image rider"][1]
+    want = outs["call image prefill"][0, -1]
+    card_err = ((lane - want).abs().max() / want.abs().max()).item()
+    if not card_err < 0.03:
+        raise AssertionError(f"{label}: mixed image lane vs __call__ err {card_err}")
+    nxt = [int(a.argmax()) for a in outs["mixed image rider"]]
+    compare("paged decode", lambda d: model.paged_forward(
+        params[d], t([[nxt[0]], [nxt[1]]], d), pools[d], t(tables, d), t([[1], [n]], d),
+        t([2, n + 1], d), pos_delta=t(deltas, d))[0][:, 0])
+    counts = dict(qmc.launch_counts)
+    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
+        raise AssertionError(f"{label} model check did not run every kernel: {counts}")
+    emit(dict(phase="qwen2.5-vl", part="b: model vs CPU", geometry=label, layers=layers,
+              tower_blocks=depth, kv="bf16 contiguous / int8 paged", pos_delta=delta,
+              norm_err=max(errs.values()), norm_err_per_step=errs,
+              mixed_image_lane_vs_call=card_err, launches=counts))
+    del params, gpu_params, pools, caches
+    torch.cuda.empty_cache()
+    return max(errs.values())
+
+
+def qwen_mixed_vs_call(model, params, image):
+    """On the card: the image prompt through ``__call__`` (a bf16 cache, its
+    t/h/w streams) and as a rider of one mixed step over an INT8 pool (its
+    embeddings, lane 1 waking on its last token in the same step); the
+    image lane's logits against ``__call__``'s last position, normalized
+    max error (limit 0.03)."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.kv_cache import make_kv_cache
+    from pie_tpu_torch.cache.paged import PagedKVPool
+
+    prompt, kw = image["prompt"], image["kw"]
+    n, emb, layers = len(prompt), kw["prompt_embeds"], model.config.num_hidden_layers
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    cache = make_kv_cache(layers, 1, 128, 4, 128, torch.bfloat16, device="cuda")
+    cache = cache.advance(t([0]), n)
+    p3 = np.asarray(kw["positions3"])
+    with torch.no_grad():
+        want = model(params, t([prompt]), cache, t([np.arange(n)]), inputs_embeds=emb[None],
+                     positions3=t(p3[:, None]))[0][0, -1]
+        cs = 96
+        rider, rpos, rp3 = np.full(cs, -1), np.full(cs, -1), np.full((3, cs), -1)
+        rider[:n - 1], rpos[:n - 1], rp3[:, :n - 1] = prompt[:-1], np.arange(n - 1), p3[:, :-1]
+        pemb = torch.zeros((cs, emb.shape[-1]), dtype=emb.dtype, device="cuda")
+        pemb[:n - 1] = emb[:n - 1]
+        tables = t([[3, 2, 1, 0], [7, 6, 5, 4]])
+        pool = PagedKVPool.create(layers, 8, 4, 128, torch.bfloat16, True, device="cuda")
+        got = model.mixed_forward(params, pool, t([11, prompt[-1]]), t([0, n - 1]),
+                                  t([1, n]), tables, t(rider), t(rpos), t([1]), t([n - 1]),
+                                  pf_embeds=pemb, pf_pos3=t(rp3),
+                                  pos_delta=t([0, kw["pos_delta"]]))[0][1]
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    if not (torch.isfinite(got).all() and err < 0.03):
+        raise AssertionError(f"Qwen mixed image lane vs __call__: err {err}")
+    return err
+
+
+def qwen_word_tokenizer():
+    """Offline word-level tokenizer with ChatML's control tokens."""
+    import transformers
+    from tokenizers import Tokenizer as RawTok
+    from tokenizers import models, pre_tokenizers
+
+    from pie_tpu_torch.tokenizer import Tokenizer
+    from pie_tpu_torch.tokenizer.control_tokens import CHATML
+
+    words = ["hello", "world", "what", "is", "in", "this", "image", "user", "assistant",
+             "system", "<unk>"]
+    specials = CHATML.all_control_tokens
+    raw = RawTok(models.WordLevel({w: i for i, w in enumerate(specials + words)},
+                                  unk_token="<unk>"))
+    raw.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    raw.add_special_tokens(specials)
+    return Tokenizer(transformers.PreTrainedTokenizerFast(
+        tokenizer_object=raw, bos_token=None, eos_token="<|im_end|>", unk_token="<unk>"),
+        CHATML)
+
+
+def qwen_image_ttft(engine, prompt, image):
+    """One image request's first token, split: the tower and scatter (CUDA
+    events around ``_image_prompt``, which runs them eagerly), the
+    prefill's device ms (events around the replayed prefill graph) and the
+    host ms to queue it, and the request's TTFT on the host clock."""
+    import numpy as np
+
+    slen = len(prompt)
+    ids = np.zeros((1, engine._prefill_bucket(slen)), np.int32)
+    ids[0, :slen] = prompt
+    out = {}
+    tower_ms = event_ms(lambda: out.setdefault(
+        "image", engine._image_prompt(ids, slen, image["pixel_values"],
+                                      image["image_kwargs"])))
+    emb, p3, delta = out["image"]
+    engine.core.set_pos_delta(engine._one(delta))
+    sampling, pen = engine._sampling({"temperature": 0.0}), engine._penalties({})
+    host = []
+
+    def prefill():
+        t0 = time.perf_counter()
+        engine.state, _, _ = engine.core._prefill(
+            engine.params, engine.state, ids, engine._one(slen), engine._one(0), sampling,
+            pen, *engine._empty_bias, sampler_kind="greedy", inputs_embeds=emb,
+            positions3=p3)
+        host.append((time.perf_counter() - t0) * 1e3)
+
+    prefill_ms = event_ms(prefill)
+    gen = engine.generate_stream(prompt, max_completion_tokens=2, temperature=0.0, **image)
+    t0 = time.perf_counter()
+    next(gen)
+    ttft = (time.perf_counter() - t0) * 1e3
+    for _ in gen:
+        pass
+    return dict(tower_ms=tower_ms, prefill_event_ms=prefill_ms, prefill_enqueue_ms=host[0],
+                ttft_ms=ttft, pos_delta=delta, bucket=ids.shape[1], tokens=slen)
+
+
+def qwen_engine(card):
+    """The 28-layer Qwen2.5-VL-7B single-stream engine (random INT4 g64 text,
+    a 32-block bf16 tower): one counted text request (64-token prompt, 128
+    decoded tokens: K1 7 x 28 + 1 per decoded token, K2 7 x 28 + 1 per
+    prefill, no K3 or K4), TTFT p50 of 5 distinct 512-token prompts, an
+    image prompt's TTFT split into tower, prefill device and enqueue ms,
+    128 greedy tokens after an image prompt as tok/s; then one captured
+    image prefill and 16 decode steps against an eager twin (equal tokens,
+    logits within 1e-3 normalized, caches byte-equal)."""
+    from pie_tpu_torch.cache.kv_cache import cache_tensors
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, params = qwen_model(Q7_LAYERS)
+    engine = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                             decode_chunk=128)
+    prompt = list(range(1, 65))
+    engine.generate(prompt, max_completion_tokens=9, temperature=0.0)  # warm up
+    qmc.reset_counts()
+    res = engine.generate([p + 7 for p in prompt], max_completion_tokens=129,
+                          temperature=0.0)
+    torch.cuda.synchronize()
+    launches = dict(qmc.launch_counts)
+    decoded = res.completion_tokens - 1
+    per = Q_PROJ * Q7_LAYERS + 1
+    if (decoded != 128 or launches["K1"] != per * decoded or launches["K2"] != per
+            or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"Qwen main path launches {launches} for {decoded} tokens")
+
+    def fresh(salt, n=512):
+        return [1 + (i * 37 + salt * 101) % 100000 for i in range(n)]
+
+    def ttft(p, new=2, **kw):
+        gen = engine.generate_stream(p, max_completion_tokens=new, temperature=0.0, **kw)
+        t0 = time.perf_counter()
+        next(gen)
+        dt = time.perf_counter() - t0
+        n, t1 = 0, time.perf_counter()
+        for _ in gen:
+            n += 1
+        return dt, (n / (time.perf_counter() - t1) if n else None)
+
+    ttft(fresh(99))
+    ttfts = sorted(ttft(fresh(s))[0] for s in range(5))
+    px, grid = qwen_pixels(2)
+    image = dict(pixel_values=px, image_kwargs={"grid_thw": grid})
+    ttft(qwen_prompt(2), **image)  # the image prefill's capture
+    split = qwen_image_ttft(engine, qwen_prompt(3), image)
+    image_tok_s = max(ttft(qwen_prompt(4), 129, **image)[1] for _ in range(2))
+    text_tok_s = ttft(prompt, 129)[1]
+
+    twin = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                           decode_chunk=16, prompt_cache=False)
+    twin.core.graphs = eager_steps(twin.core.graphs)
+    graphed = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                              decode_chunk=16, prompt_cache=False)
+    taps, streams = [], []
+    for e in (graphed, twin):
+        e.generate(qwen_prompt(5), max_completion_tokens=17, temperature=0.0, **image)
+        e.core.graphs = Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+        streams.append(e.generate(qwen_prompt(6), max_completion_tokens=17,
+                                  temperature=0.0, **image).token_ids)
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(taps[0].logits, taps[1].logits)]
+    caches = [cache_tensors(e.state.cache) for e in (graphed, twin)]
+    cache_equal = all(torch.equal(t, caches[1][k]) for k, t in caches[0].items())
+    if not (streams[0] == streams[1] and len(streams[0]) == 17 and max(errs) < 1e-3
+            and cache_equal and taps[0].inner.replays >= 17):
+        raise AssertionError(f"Qwen image graphs vs eager: {streams} {max(errs)} "
+                             f"{cache_equal} {taps[0].inner.replays}")
+    graph_check = dict(tokens_equal=True, steps=len(errs), max_norm_err=max(errs),
+                       cache_byte_equal=cache_equal, replays=taps[0].inner.replays)
+    del twin, graphed, taps, caches
+    steady = steady_single(engine)
+    row = dict(phase="qwen2.5-vl", part="c: engine", geometry="qwen2.5-vl-7b int4 g64",
+               layers=Q7_LAYERS, tower_blocks=32, ttft_p50_ms=ttfts[2] * 1e3,
+               ttft_ms=[x * 1e3 for x in ttfts], decode_tok_s=text_tok_s,
+               image=split, image_decode_tok_s=image_tok_s, graphs_vs_eager=graph_check,
+               k1_per_decoded_token=launches["K1"] / decoded, k2_per_prefill=launches["K2"],
+               launches=launches, steady=steady, graphs=engine.core.graphs.stats(),
+               card=card)
+    emit(row)
+    return engine, row
+
+
+def qwen_paged(engine1, card):
+    """The 28-layer paged engine (8 lanes, bf16 pages, 8-step chunks): one
+    counted run of 6 text lanes (64-token prompts) and 2 image lanes (84
+    tokens: their embeddings ride mixed steps), 128 new tokens each (K3 28
+    per device step, counted under replay) as aggregate tok/s; each image
+    lane's first token equals the single-stream engine's on the same
+    request; at 28 layers, a mixed step with an image rider against
+    ``__call__`` on the same prompt (``qwen_mixed_vs_call``); steady
+    chunks."""
+    import gc
+
+    import numpy as np
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.models.qwen2_vl import image_positions
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, params = engine1.model, engine1.params
+    lanes = 8
+    engine = PagedEngine(model, params, num_lanes=lanes, num_pages=128,
+                         max_pages_per_seq=14)
+    sched = Scheduler(engine, decode_steps=8)
+    images = []
+    for seed in (11, 12, 13):
+        px, grid = qwen_pixels(seed)
+        prompt = qwen_prompt(seed)
+        with torch.no_grad():
+            emb = model.embed_with_images(
+                params, torch.tensor([prompt], dtype=torch.int32, device="cuda"),
+                torch.from_numpy(px).cuda(), grid)[0]
+        p3, delta = image_positions(model, np.array([prompt]), grid, len(prompt))
+        images.append(dict(prompt=prompt, kw=dict(prompt_embeds=emb, positions3=p3[:, 0],
+                                                  pos_delta=delta),
+                           image=dict(pixel_values=px, image_kwargs={"grid_thw": grid})))
+    text = list(range(1, 65))
+    sched.add_request(images[2]["prompt"], max_new_tokens=9, temperature=0.0,
+                      **images[2]["kw"])  # warm up: the embeds graphs
+    sched.add_request(text, max_new_tokens=17, temperature=0.0)
+    sched.run_to_completion()
+    qmc.reset_counts()
+    steps0 = engine.device_steps
+    seqs = [sched.add_request([t + i for t in text], max_new_tokens=128, temperature=0.0)
+            for i in range(lanes - 2)]
+    seqs += [sched.add_request(im["prompt"], max_new_tokens=128, temperature=0.0,
+                               **im["kw"]) for im in images[:2]]
+    t0 = time.perf_counter()
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    tok_s = sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0)
+    launches = dict(qmc.launch_counts)
+    steps = engine.device_steps - steps0
+    if not (steps > 0 and launches["K3"] == Q7_LAYERS * steps and launches["K1"] > 0
+            and launches["K2"] > 0 and all(len(s.output_ids) == 128 for s in seqs)):
+        raise AssertionError(f"Qwen paged path: {launches} over {steps} steps")
+    first = [engine1.generate(im["prompt"], max_completion_tokens=1, temperature=0.0,
+                              **im["image"]).token_ids[0] for im in images[:2]]
+    lane_first = [s.output_ids[0] for s in seqs[-2:]]
+    if lane_first != first:
+        raise AssertionError(f"image lanes' first tokens {lane_first}, single stream {first}")
+    keys = engine.graphs.keys
+    if not any(k[0] == "mixed" and k[5] for k in keys):
+        raise AssertionError(f"no image rider step among {keys}")
+    mixed_err = qwen_mixed_vs_call(model, params, images[0])
+    steady = steady_paged(sched, text, lanes)
+    graph_stats = engine.graphs.stats()
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(phase="qwen2.5-vl", part="d: paged engine", geometry="qwen2.5-vl-7b int4 g64",
+               layers=Q7_LAYERS, lanes=lanes, image_lanes=2, kv="bf16 paged",
+               decode_tok_s=tok_s, device_steps=steps, k3_per_step=launches["K3"] / steps,
+               image_lane_first_tokens=lane_first, single_stream_first_tokens=first,
+               mixed_image_lane_vs_call=mixed_err,
+               launches=launches, steady=steady, graphs=graph_stats, card=card)
+    emit(row)
+    return row
+
+
+def qwen_chat_http(engine1):
+    """One chat with an image (the OpenAI image_url part, a PNG data URI)
+    over HTTP through create_app, on the single-stream engine and on a
+    batching engine over the same weights: 200 and usage on both. Needs
+    Pillow to decode the PNG; without it the line says "pillow": false."""
+    import asyncio
+    import base64
+    import io
+
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
+    from pie_tpu_torch.server.app import create_app
+    from pie_tpu_torch.server.config import Settings
+
+    try:
+        from PIL import Image
+    except ImportError:
+        emit(dict(phase="qwen2.5-vl", part="e: HTTP image chat", pillow=False))
+        return None
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(21).integers(
+        0, 256, (Q_IMAGE, Q_IMAGE, 3), dtype=np.uint8)).save(buf, format="PNG")
+    uri = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+    engine1.tokenizer = tok = qwen_word_tokenizer()
+    batched = BatchedInferenceEngine(model=engine1.model, params=engine1.params,
+                                     tokenizer=tok, num_lanes=2, num_pages=16,
+                                     max_pages_per_seq=8)
+
+    async def ask(engine, batching):
+        runner = web.AppRunner(create_app(engine=engine, settings=Settings(batching=batching),
+                                          device=engine.device))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        port = site._server.sockets[0].getsockname()[1]
+        try:
+            async with aiohttp.ClientSession() as s:
+                t0 = time.perf_counter()
+                async with s.post(f"http://127.0.0.1:{port}/v1/chat/completions", json=dict(
+                        messages=[{"role": "user", "content": [
+                            {"type": "text", "text": "what is in this image"},
+                            {"type": "image_url", "image_url": {"url": uri}}]}],
+                        max_tokens=8, temperature=0.0)) as r:
+                    return r.status, await r.json(), (time.perf_counter() - t0) * 1e3
+        finally:
+            await runner.cleanup()
+
+    out = {}
+    try:
+        for name, engine, batching in (("single", engine1, False), ("batched", batched, True)):
+            status, body, ms = asyncio.run(ask(engine, batching))
+            if status != 200 or body["usage"]["completion_tokens"] < 1:
+                raise AssertionError(f"Qwen HTTP image chat ({name}): {status} {body}")
+            out[name] = dict(status=status, ms=ms, usage=body["usage"])
+    finally:
+        batched.shutdown()
+    emit(dict(phase="qwen2.5-vl", part="e: HTTP image chat", pillow=True,
+              image_tokens=engine1.image_processor.tokens_per_image, **out))
+    return out
+
+
+def phase_qwen2vl(card):
+    """Phase 13 (module docstring)."""
+    import gc
+
+    rows, k3, k3_err = qwen_kernels()
+    checks = {
+        "qwen2.5-vl-7b (4 text layers, 8 tower blocks: full attention at 7)":
+            qwen_model_check("qwen2.5-vl-7b", 4, 8),
+        "qwen2-vl-7b tower (4 blocks)":
+            qwen_model_check("qwen2-vl-7b tower", 0, 4, tower_only=True, vision=Q2_VISION),
+    }
+    engine, eng = qwen_engine(card)
+    paged = qwen_paged(engine, card)
+    http_out = qwen_chat_http(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, k3=k3, k3_err=k3_err, checks=checks, engine=eng, paged=paged,
+                http=http_out)
 
 
 # -- main ----------------------------------------------------------------------
@@ -2853,6 +3429,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
     gemma = timed("gemma3", phase_gemma3, card)
+    qwen = timed("qwen2.5-vl", phase_qwen2vl, card)
 
     summary = []
     for kname, src, what, per_rows, launches in (
@@ -2863,6 +3440,12 @@ def main() -> int:
         ("K2", "pie_tpu_torch/csrc/quant_gemm.cu",
          "1B int4 g64 with the f32-scale tied head, per 512-token prefill",
          rows_1b["K2"], eng1b["launches"]["K2"]),
+        ("K1", "pie_tpu_torch/csrc/quant_gemv.cu",
+         "Qwen2.5-VL-7B int4 g64, per decoded token", qwen["rows"][1],
+         qwen["engine"]["launches"]["K1"]),
+        ("K2", "pie_tpu_torch/csrc/quant_gemm.cu",
+         "Qwen2.5-VL-7B int4 g64, per 512-token prefill", qwen["rows"][512],
+         qwen["engine"]["launches"]["K2"]),
     ):
         total = lambda key: sum(per * r[key] for per, r in per_rows)
         bb = sum(per * r["bytes"] for per, r in per_rows) / HBM_BYTES_PER_S * 1e3
@@ -2924,6 +3507,17 @@ def main() -> int:
         ms=g3["kernel_ms"], kernel_ms=g3["kernel_ms"], plain_ms=g3["plain_ms"],
         bound_ms=g3["bound_ms"], bound_by=g3["bound_by"], library_ms=g3["library_ms"],
     ))
+    q3 = qwen["k3"][True]  # per Qwen2.5-VL-7B device step: one launch per layer
+    summary.append(dict(
+        name="K3 paged_attention (Qwen2.5-VL-7B heads 28 / 4, a group of 7, D 128, "
+             "8 lanes x 2,048-token INT8 pages, per device step)",
+        route="cuda", source="pie_tpu_torch/csrc/paged_attention.cu",
+        replaces="pie_tpu/ops/paged_attention.py:510",
+        launches=qwen["paged"]["launches"]["K3"], max_abs_err=qwen["k3_err"],
+        ms=Q7_LAYERS * q3["kernel_ms"], kernel_ms=Q7_LAYERS * q3["kernel_ms"],
+        plain_ms=Q7_LAYERS * q3["plain_ms"], bound_ms=Q7_LAYERS * q3["bound_ms"],
+        bound_by=q3["bound_by"], library_ms=Q7_LAYERS * q3["library_ms"],
+    ))
     k4 = k4_rows[(4, 1)]  # per decoded token at 1B: one launch per layer
     summary.append(dict(
         name="K4 fused_mlp (1B int4 g64, M = 1, per decoded token)",
@@ -2965,13 +3559,29 @@ def main() -> int:
         k3_per_paged_step=gemma["paged"]["k3_per_step"],
         graph_pool_bytes=dict(single=gemma["engine"]["graphs"],
                               paged=gemma["paged"]["graphs"]), card=card))
+    emit(dict(phase="summary qwen2.5-vl", card=card, model_checks=qwen["checks"],
+              k1_per_decoded_token=qwen["engine"]["k1_per_decoded_token"],
+              k2_per_prefill=qwen["engine"]["k2_per_prefill"],
+              **{f"{name}_{key}": sum(per * r[key] for per, r in qwen["rows"][m])
+                 for name, m in (("k1_m1", 1), ("k1_m8", 8), ("k2_m512", 512))
+                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+              k3_per_device_step_bf16={key: Q7_LAYERS * qwen["k3"][False][key]
+                                       for key in ("kernel_ms", "plain_ms", "library_ms",
+                                                   "bound_ms")},
+              ttft_p50_ms=qwen["engine"]["ttft_p50_ms"], image=qwen["engine"]["image"],
+              decode_tok_s=qwen["engine"]["decode_tok_s"],
+              image_decode_tok_s=qwen["engine"]["image_decode_tok_s"],
+              paged_tok_s=qwen["paged"]["decode_tok_s"],
+              k3_per_paged_step=qwen["paged"]["k3_per_step"],
+              http=qwen["http"] is not None))
     emit(dict(phase="summary prefill graphs", card=card, geometries={
         label: dict(ttft_p50_ms=row["ttft_p50_ms"],
                     **{k: row[k] for k in ("prefill_512", "prefill_2048") if k in row},
                     prefill_graphs=row["graphs"]["by_kind"].get("prefill"),
                     pool_bytes=row["graphs"]["pool_bytes"])
         for label, row in (("llama3-8b", eng), ("llama3.2-1b", eng1b),
-                           ("gemma3-4b", gemma["engine"]))},
+                           ("gemma3-4b", gemma["engine"]),
+                           ("qwen2.5-vl-7b", qwen["engine"]))},
         ttft_under_load_p50_ms=dict(llama3_8b=paged["ttft_under_load_p50_ms"],
                                     llama32_1b=paged1b["ttft_under_load_p50_ms"]),
         aten_calls_per_8b_admission=paged["aten_calls_per_admission"]))

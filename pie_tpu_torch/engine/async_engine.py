@@ -10,9 +10,14 @@ into the shared ``Scheduler``; tokens stream back per request; a checkpoint
 scheduler, which decodes it beside the other lanes. Only the scheduler
 thread touches CUDA: it runs every device program, so the step graphs are
 captured there (a request thread only queues and reads host objects, and
-``capture_error_mode="thread_local"`` would let it touch CUDA anyway). Not
-ported yet, and refused with ``InferenceError``: the native scheduler
-(``scheduler_impl="native"``, ROADMAP A7) and image inputs (A9c).
+``capture_error_mode="thread_local"`` would let it touch CUDA anyway). An
+image request (``pixel_values`` with ``image_kwargs={"grid_thw": ...}``, or
+images attached to chat messages) computes its M-RoPE streams and decode
+offset on the request thread (host arrays); the scheduler thread runs the
+vision tower before it queues the sequence, whose embeddings then prefill
+as rider slices beside the other lanes. Not ported yet, and refused with
+``InferenceError``: the native scheduler (``scheduler_impl="native"``,
+ROADMAP A7) and Gemma-3 image inputs (A9c-2).
 """
 
 from __future__ import annotations
@@ -79,6 +84,9 @@ class BatchedInferenceEngine:
         self.model = model
         self.params = params
         self.tokenizer = tokenizer
+        from pie_tpu_torch.vision.utils import make_image_processor
+
+        self.image_processor = make_image_processor(model)
         self.core = PagedEngine(
             model, params, num_lanes=num_lanes, num_pages=num_pages,
             max_pages_per_seq=max_pages_per_seq, prefill_chunk=prefill_chunk,
@@ -116,7 +124,9 @@ class BatchedInferenceEngine:
         while not self._stop.is_set():
             try:
                 while True:
-                    sched.waiting.append(self._submit_q.get_nowait())
+                    seq = self._submit_q.get_nowait()
+                    if seq.image_inputs is None or self._embed_images(seq):
+                        sched.waiting.append(seq)
             except queue.Empty:
                 pass
             if not sched.has_work:
@@ -135,6 +145,25 @@ class BatchedInferenceEngine:
                     sched._finish(seq, "error: scheduler failure")
                 sched.waiting.clear()
 
+    def _embed_images(self, seq: Sequence) -> bool:
+        """On the scheduler thread: run the vision tower over a sequence's
+        pixel inputs, eagerly, and keep the prompt's embeddings [plen, D]
+        on the device for its rider slices. False (and the sequence
+        finished with an error) when the tower fails."""
+        pixels, grid = seq.image_inputs
+        seq.image_inputs = None
+        try:
+            ids = torch.as_tensor(seq.prompt_ids, dtype=torch.int32,
+                                  device=self.device)[None]
+            with torch.no_grad():
+                seq.prompt_embeds = self.model.embed_with_images(
+                    self.params, ids, torch.as_tensor(pixels).to(self.device), grid)[0]
+        except Exception as e:
+            logger.exception("vision tower failed")
+            self.scheduler._finish(seq, f"error: image inputs: {e}")
+            return False
+        return True
+
     # -- request path ----------------------------------------------------
 
     def _next_id(self) -> int:
@@ -149,15 +178,19 @@ class BatchedInferenceEngine:
         stop_token_ids: Seq[int] = (),
         logprobs: bool = False,
         pixel_values=None,
+        image_kwargs=None,
         **kwargs,
     ) -> Iterator[StreamedToken]:
         """Same contract as InferenceEngine.generate_stream (StopIteration
         value = GenerationResult). Logprobs are not reported on the batched
-        path, as in the JAX package."""
+        path, as in the JAX package. ``pixel_values`` with
+        ``image_kwargs={"grid_thw": ...}``: an image prompt (module
+        docstring)."""
         if not prompt_ids:
             raise InferenceError("empty prompt")
+        image = None
         if pixel_values is not None:
-            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
+            image = self._image_request(prompt_ids, pixel_values, image_kwargs)
         self.start()
         out_q: queue.Queue = queue.Queue()
         seq = Sequence(
@@ -174,6 +207,8 @@ class BatchedInferenceEngine:
             frequency_penalty=float(kwargs.get("frequency_penalty", 0.0)),
             logit_bias=dict(kwargs.get("logit_bias") or {}),
         )
+        if image is not None:
+            seq.image_inputs, seq.positions3, seq.pos_delta = image
         seq.on_token = lambda s, t: out_q.put(t)
         seq.on_finish = lambda s: out_q.put(_SENTINEL)
         self._submit_q.put(seq)
@@ -195,6 +230,22 @@ class BatchedInferenceEngine:
             prompt_tokens=len(seq.prompt_ids),
             completion_tokens=len(seq.output_ids),
         )
+
+    def _image_request(self, prompt_ids, pixel_values, image_kwargs) -> tuple:
+        """((pixel_values, grid_thw), positions3 [3, plen], pos_delta) of an
+        image request, on the host."""
+        grid = (image_kwargs or {}).get("grid_thw")
+        if getattr(self.model, "vision", None) is None:
+            raise InferenceError("image inputs need a model with a vision tower")
+        if grid is None or not getattr(self.model, "uses_mrope", False):
+            raise InferenceError("image inputs need an M-RoPE model (Qwen2-VL) and "
+                                 "image_kwargs={'grid_thw': ...}; Gemma-3's are "
+                                 "ROADMAP A9c-2")
+        from pie_tpu_torch.models.qwen2_vl import image_positions
+
+        p3, delta = image_positions(self.model, [list(prompt_ids)], grid,
+                                    len(prompt_ids))
+        return (pixel_values, grid), p3[:, 0], delta
 
     def generate(self, prompt_ids, **kw) -> GenerationResult:
         gen = self.generate_stream(prompt_ids, **kw)

@@ -6,13 +6,16 @@ on the card a CUDA graph per static key, captured at the key's first use
 and replayed after; on the CPU the same step function, called directly.
 
 - The prefill (``_prefill``): one graph per (prompt bucket, sampler kind,
-  logprobs, bias width, mask on). The prompt's ids, lengths and first
-  positions (the prompt cache's offset) and the constrained mask are
-  copied into static buffers, so one graph serves every prompt length,
-  offset and mask of its bucket.
+  logprobs, bias width, mask on, embeds on, M-RoPE streams on). The
+  prompt's ids, lengths and first positions (the prompt cache's offset),
+  the constrained mask, and an image prompt's embeddings [B, bucket, D]
+  and M-RoPE streams [3, B, bucket] are copied into static buffers, so one
+  graph serves every prompt length, offset, mask and image of its bucket.
 - The compiled ``lax.scan`` over decode steps becomes ``num_steps`` runs
   of one decode step, one graph per (KV bucket, sampler kind, logprobs,
-  penalties on, bias on).
+  penalties on, bias on). A ``uses_mrope`` model's step turns rope at
+  lengths - pos_delta, read from a static [B] buffer (``set_pos_delta``:
+  zeros for text, an image prompt's offset), so one graph serves both.
 
 Both steps read and write the core's one ``DecodeState``, whose tensors
 are static buffers (``new_state`` resets them in place); a chunk's
@@ -170,6 +173,13 @@ class EngineCore:
         # prompt bucket -> static prefill inputs; the static [B, V] mask
         self._prefill_in: dict = {}
         self._allowed: Optional[torch.Tensor] = None
+        # (shape, dtype) -> static image-prompt embeddings; bucket -> static
+        # M-RoPE streams
+        self._embeds_in: dict = {}
+        self._pos3_in: dict = {}
+        #: M-RoPE decode offsets [B] (a uses_mrope model's steps read them)
+        self.pos_delta = torch.zeros((batch_size,), dtype=torch.int32,
+                                     device=self.device)
         # a prefill checks no stop ids: its inputs' stop width is 0
         self._no_stop = torch.full((0,), PAD_TOKEN, dtype=torch.int32,
                                    device=self.device)
@@ -311,6 +321,31 @@ class EngineCore:
                 torch.zeros((b,), dtype=torch.int32, device=dev))
         return bufs
 
+    def set_pos_delta(self, delta) -> None:
+        """Copy the sequences' M-RoPE decode offsets [B] into the static
+        buffer the decode steps read (queued on the stream)."""
+        upload(self.pos_delta, delta)
+
+    def _image_buffers(self, bucket: int, inputs_embeds, positions3) -> tuple:
+        """The static image-prompt inputs of this bucket, holding these
+        values (device copies on the stream): embeddings [B, bucket, D] and
+        M-RoPE streams [3, B, bucket] (a host array, uploaded), each None
+        when not given."""
+        emb = p3 = None
+        if inputs_embeds is not None:
+            key = (tuple(inputs_embeds.shape), inputs_embeds.dtype)
+            emb = self._embeds_in.get(key)
+            if emb is None:
+                emb = self._embeds_in[key] = torch.empty_like(inputs_embeds)
+            emb.copy_(inputs_embeds)
+        if positions3 is not None:
+            p3 = self._pos3_in.get(bucket)
+            if p3 is None:
+                p3 = self._pos3_in[bucket] = torch.zeros(
+                    (3, self.batch_size, bucket), dtype=torch.int32, device=self.device)
+            upload(p3, positions3)
+        return emb, p3
+
     def _mask_buffer(self, allowed_mask) -> torch.Tensor:
         """The static [B, V] allowed-token mask holding ``allowed_mask``
         (a host array, uploaded from pinned memory, or a tensor), made at
@@ -336,15 +371,18 @@ class EngineCore:
         allowed_mask=None,
         return_logprobs: bool = False,
         sampler_kind: str = "auto",
+        inputs_embeds=None,  # [B, Tpad, D] an image prompt's embeddings
+        positions3=None,  # [3, B, Tpad] its M-RoPE streams (host array)
     ):
         """Run the prompt through the model, sample the first new token.
 
         The prompt's ids, lengths and first positions (host arrays or
-        tensors) and the mask are copied into static buffers, then the
-        prefill step runs through ``self.graphs`` keyed by (bucket, sampler
-        kind, logprobs, bias width, mask on, params), as ``jax.jit`` keys
-        the JAX prefill by its static arguments and shapes: on the card a
-        CUDA graph per key, on the CPU the step itself. sampler_kind is
+        tensors), the mask and an image prompt's embeddings and M-RoPE
+        streams are copied into static buffers, then the prefill step runs
+        through ``self.graphs`` keyed by (bucket, sampler kind, logprobs,
+        bias width, mask on, embeds on, streams on, params), as ``jax.jit``
+        keys the JAX prefill by its static arguments and shapes: on the
+        card a CUDA graph per key, on the CPU the step itself. sampler_kind is
         resolved on the host ("auto" is refused). The step writes the
         result into the static state. Returns (state, token, aux), the
         token and the logprobs aux (chosen, top values, top ids) tensors of
@@ -358,32 +396,39 @@ class EngineCore:
         for buf, src in zip(bufs, (input_ids, prompt_lens, first_pos)):
             upload(buf, src)
         mask = None if allowed_mask is None else self._mask_buffer(allowed_mask)
+        image = self._image_buffers(bucket, inputs_embeds, positions3)
         inp = self._step_inputs(sampling, penalties, bias_ids, bias_vals,
                                 self._no_stop)
         key = ("prefill", bucket, sampler_kind, return_logprobs, bias_ids.shape[1],
-               mask is not None, id(params))
+               mask is not None, image[0] is not None, image[1] is not None,
+               id(params))
         step = functools.partial(self._prefill_step, params, st, inp, bufs, mask,
-                                 sampler_kind, return_logprobs)
+                                 sampler_kind, return_logprobs, image)
         res = self.graphs(key, step, samples=sampler_kind != "greedy")
         token = res[0].clone()
         aux = tuple(r.clone() for r in res[2:]) if return_logprobs else None
         return st, token, aux
 
     def _prefill_step(self, params, st: DecodeState, inp: _StepInputs, bufs,
-                      allowed_mask, sampler_kind: str, return_logprobs: bool):
+                      allowed_mask, sampler_kind: str, return_logprobs: bool,
+                      image: tuple = (None, None)):
         """The prefill over the static state and buffers (a graph's body):
         the prompt's KV written in place, the first token sampled from the
         last real prompt position's processed logits. Penalties always
-        apply, as in the JAX prefill. Returns (token [B], processed logits
-        [B, V]) plus (chosen, top values, top ids) with logprobs."""
+        apply, as in the JAX prefill. ``image``: the static embeddings and
+        M-RoPE streams of an image prompt (None each when off). Returns
+        (token [B], processed logits [B, V]) plus (chosen, top values, top
+        ids) with logprobs."""
         input_ids, prompt_lens, first_pos = bufs
         b, t = input_ids.shape
         dev = input_ids.device
         positions = first_pos[:, None] + torch.arange(t, dtype=torch.int32,
                                                       device=dev)[None, :]
         cache = st.cache.advance(first_pos, t, valid_lens=prompt_lens)
+        extra = {} if image[1] is None else {"positions3": image[1]}
         logits, cache = self.model(params, input_ids, cache, positions,
-                                   valid_lens=prompt_lens)
+                                   inputs_embeds=image[0], valid_lens=prompt_lens,
+                                   **extra)
         cache = cache.trim_to(first_pos + prompt_lens)
 
         # logits of the LAST real prompt token, per sequence
@@ -426,8 +471,13 @@ class EngineCore:
         cache = full.trim_capacity(bucket) if bucket < full.capacity else full
         active = ~st.done
         adv = cache.advance(st.lengths, 1)
+        extra = {}
+        if getattr(self.model, "uses_mrope", False):
+            # M-RoPE: rope turns pos_delta behind the KV slot (text: 0)
+            rope = (st.lengths - self.pos_delta)[:, None]
+            extra["positions3"] = rope[None].expand(3, *rope.shape)
         logits, _ = self.model(params, st.last_token[:, None], adv,
-                               st.lengths[:, None])
+                               st.lengths[:, None], **extra)
         proc = self._process_logits(
             logits[:, 0], st.history, inp.penalties if use_penalties else None,
             inp.bias_ids if use_bias else None, inp.bias_vals, None)

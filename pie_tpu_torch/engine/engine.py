@@ -9,12 +9,17 @@ prefill per choice point, forced runs encoded on the host); the chat API
 (``_chat_run`` / ``_chat``, structured requests included); prompts split
 into head chunks for a model that bounds its prefill chunk (Gemma-3:
 ``_prefill_head_chunks``); loading a checkpoint (``model_path``:
-``models/loader.py`` and the snapshot's tokenizer). Every prefill (the
-prompt, its head chunks, ``cache_prompt``, each constrained extend) runs
-through the core's prefill step, a captured CUDA graph per bucket on the
-card (``EngineCore._prefill``). Not ported yet: image
-inputs (ROADMAP A9c), which raise ``InferenceError`` rather than decode
-something else.
+``models/loader.py`` and the snapshot's tokenizer); image prompts
+(``pixel_values`` with ``image_kwargs={"grid_thw": ...}``, or images
+attached to chat messages): the vision tower runs eagerly, then the
+prompt's embeddings and M-RoPE streams ride the captured prefill and the
+decode steps turn rope at the prompt's offset (``pos_delta``). Every
+prefill (the prompt, its head chunks, ``cache_prompt``, each constrained
+extend) runs through the core's prefill step, a captured CUDA graph per
+bucket on the card (``EngineCore._prefill``). An image prompt skips the
+prompt cache and leaves it claiming nothing. Not ported yet, and refused
+with ``InferenceError``: Gemma-3 image inputs (ROADMAP A9c-2) and
+constrained decoding on an image prompt.
 """
 
 from __future__ import annotations
@@ -171,6 +176,9 @@ class InferenceEngine:
             torch.full((1, 0), PAD_TOKEN, dtype=torch.int32, device=self.device),
             torch.zeros((1, 0), dtype=torch.float32, device=self.device),
         )
+        from pie_tpu_torch.vision.utils import make_image_processor
+
+        self.image_processor = make_image_processor(model)
 
     # ------------------------------------------------------------------
 
@@ -234,15 +242,17 @@ class InferenceEngine:
         stop_token_ids: Sequence[int] = (),
         logprobs: bool = False,
         pixel_values=None,
+        image_kwargs: Optional[dict] = None,
         **kwargs,
     ) -> Iterator[StreamedToken]:
         """Yield tokens one at a time; the GenerationResult is the
-        generator's return value (StopIteration.value)."""
-        if pixel_values is not None:
-            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
+        generator's return value (StopIteration.value). ``pixel_values``
+        (the image processor's patches, a host array or tensor) with
+        ``image_kwargs={"grid_thw": [n, 3]}``: the prompt's image
+        placeholders take the vision tower's features."""
         result = yield from self._run(
             list(prompt_ids), max_completion_tokens, list(stop_token_ids),
-            logprobs, kwargs,
+            logprobs, kwargs, pixel_values, image_kwargs,
         )
         return result
 
@@ -340,9 +350,30 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
 
-    def _run(self, prompt_ids, max_tokens, stop_token_ids, logprobs, kw):
+    def _image_prompt(self, ids: np.ndarray, slen: int, pixel_values, image_kwargs):
+        """(inputs_embeds [1, bucket, D], positions3 [3, 1, bucket],
+        pos_delta) of an image prompt padded to its bucket: the vision
+        tower's features over the placeholders (run eagerly, now), the t/h/w
+        streams and the decode offset."""
+        grid = (image_kwargs or {}).get("grid_thw")
+        if getattr(self.model, "vision", None) is None:
+            raise InferenceError("image inputs need a model with a vision tower")
+        if grid is None or not getattr(self.model, "uses_mrope", False):
+            raise InferenceError("image inputs need an M-RoPE model (Qwen2-VL) and "
+                                 "image_kwargs={'grid_thw': ...}; Gemma-3's are "
+                                 "ROADMAP A9c-2")
+        from pie_tpu_torch.models.qwen2_vl import image_positions
+
+        px = torch.as_tensor(pixel_values).to(self.device)
+        embeds = self.model.embed_with_images(self.params, self._ids(ids), px, grid)
+        positions3, delta = image_positions(self.model, ids, grid, slen)
+        return embeds, positions3, delta
+
+    def _run(self, prompt_ids, max_tokens, stop_token_ids, logprobs, kw,
+             pixel_values=None, image_kwargs=None):
         if not prompt_ids:
             raise InferenceError("empty prompt")
+        image = pixel_values is not None
         plen = len(prompt_ids)
         if plen + max_tokens > self.core.max_seq_len:
             max_tokens = max(0, self.core.max_seq_len - plen)
@@ -352,9 +383,14 @@ class InferenceEngine:
             qc = maybe_quantize(self.state.cache, self.kv_quantize_threshold)
             if qc is not self.state.cache:
                 self.state = self.core.set_cache(qc)
-        # prompt-cache prefix reuse: prefill only the un-cached suffix
+        # prompt-cache prefix reuse: prefill only the un-cached suffix. An
+        # image prompt skips it (placeholder ids do not identify the image)
+        # and overwrites the cache from slot 0, so the cache then claims
+        # nothing (the JAX engine keeps its old claim: ROADMAP C)
         first_pos = 0
-        if self.prompt_cache is not None:
+        if self.prompt_cache is not None and image:
+            self.prompt_cache.update([])
+        elif self.prompt_cache is not None:
             first_pos = self._reuse_prefix(prompt_ids)
             if first_pos == 0 and self.prompt_cache.cache_dir:
                 try:
@@ -386,6 +422,13 @@ class InferenceEngine:
         slen = len(suffix)
         ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
         ids[0, :slen] = suffix
+        embeds = positions3 = None
+        delta = 0
+        if image:
+            embeds, positions3, delta = self._image_prompt(ids, slen, pixel_values,
+                                                           image_kwargs)
+        if getattr(self.model, "uses_mrope", False):
+            self.core.set_pos_delta(self._one(delta))
         stop = np.full((_pow2_width(len(stop_token_ids)),), PAD_TOKEN, np.int32)
         stop[:len(stop_token_ids)] = list(stop_token_ids)
         stop = self._ids(stop)
@@ -399,7 +442,8 @@ class InferenceEngine:
         state, token, aux = self.core._prefill(
             self.params, self.state, ids, self._one(slen),
             self._one(first_pos), sampling, penalties, bias_ids, bias_vals,
-            return_logprobs=logprobs, sampler_kind=skind,
+            return_logprobs=logprobs, sampler_kind=skind, inputs_embeds=embeds,
+            positions3=positions3,
         )
 
         out_tokens: list[int] = []
@@ -427,7 +471,7 @@ class InferenceEngine:
 
         def _finalize(reason):
             self.state = state
-            if self.prompt_cache is not None:
+            if self.prompt_cache is not None and not image:
                 self.prompt_cache.update(list(prompt_ids) + out_tokens)
             return self._result(prompt_ids, out_tokens, out_logprobs, reason,
                                 logprobs)
@@ -495,7 +539,7 @@ class InferenceEngine:
                 finish = "stop"
                 break
         self.state = state
-        if self.prompt_cache is not None:
+        if self.prompt_cache is not None and not image:
             self.prompt_cache.update(list(prompt_ids) + out_tokens)
         return self._result(prompt_ids, out_tokens, out_logprobs, finish, logprobs)
 
@@ -755,13 +799,28 @@ def _chat_run(
     tok = engine.tokenizer
     if tok is None:
         raise InferenceError("chat API requires a tokenizer")
+    # images attached to the messages, in message order: preprocessed on
+    # the host, each expanded into a placeholder run the prefill scatters
+    # the vision tower's features over
+    sources = []
     for it in interactions:
-        images = it.get("images") if isinstance(it, dict) else it.images
-        if images:
-            raise InferenceError("image inputs are not ported yet (ROADMAP A9c)")
+        sources.extend((it.get("images") if isinstance(it, dict) else it.images) or [])
+    image_token_id, tokens_per_image, image = None, 0, {}
+    if sources:
+        proc = getattr(engine, "image_processor", None)
+        image_token_id = getattr(engine.model.config, "image_token_id", None)
+        if proc is None or image_token_id is None:
+            raise InferenceError("image inputs need a model with a vision tower")
+        try:
+            pixels, grid = proc.batch(sources)
+        except Exception as e:
+            raise InferenceError(f"unreadable image: {e}") from e
+        image = {"pixel_values": pixels, "image_kwargs": {"grid_thw": grid}}
+        tokens_per_image = proc.tokens_per_image
 
     prompt_ids = tok.apply_chat_template(
         interactions, add_generation_prompt=True, tools=tools,
+        image_token_id=image_token_id, tokens_per_image=tokens_per_image,
     )
 
     # structured generation: the request may pin the output shape
@@ -775,6 +834,9 @@ def _chat_run(
         reasoning=reasoning,
     )
     if st.machine is not None:
+        if image:
+            raise InferenceError("constrained decoding on an image prompt is not "
+                                 "supported")
         merged = dict(sampling_kwargs)
         merged.update(st.generation_kwargs)
         if st.state_kwargs:
@@ -816,6 +878,7 @@ def _chat_run(
         max_completion_tokens=max_completion_tokens,
         stop_token_ids=tok.stop_tokens,
         logprobs=logprobs,
+        **image,
         **sampling_kwargs,
     )
     result = None

@@ -38,9 +38,19 @@ the chunk's start), the later steps sample unmasked, and the drain accepts
 the longest prefix the machine accepts, rolls the lane back to the host's
 truth past it, and re-arms forced-token runs through the prefill rider or
 a direct prefill. A chunk with a mask runs the steps keyed by ``use_mask``;
-chunks without one keep their own steps and upload no mask. Not ported:
-image prompts and M-RoPE (requests carrying them are refused by
-``BatchedInferenceEngine``), and the native scheduler's ``_decode_impl`` /
+chunks without one keep their own steps and upload no mask.
+
+Image prompts (Qwen2-VL): a sequence carries its prompt's embeddings on
+the device (``prompt_embeds``, the vision tower's features over the
+placeholders), its M-RoPE streams (``positions3``) and its decode offset
+(``pos_delta``). It always prefills as rider slices (never a direct
+prefill, never the prefix store): a step whose slice carries embeddings
+copies them into the static rider-embeddings buffer before it runs and
+takes the graph keyed "embeds on". For an M-RoPE model every mixed step
+reads the slice's streams from a static [3, Cs] buffer (text slices carry
+their positions) and every step reads the lanes' offsets from a static
+[B] buffer (zeros for text), so text and image lanes share the graphs.
+Not ported: the native scheduler's ``_decode_impl`` /
 ``_sample_first_impl`` (ROADMAP A7).
 """
 
@@ -144,6 +154,15 @@ class Sequence:
     pending_base: int = 0
     # the prompt's full pages are registered in the PrefixStore (at first wake)
     prefix_cached: bool = False
+    # an image prompt: its embeddings [plen, D] on the device, its M-RoPE
+    # streams [3, plen] (host) and its decode offset (rope position = KV
+    # position - pos_delta past the prompt)
+    prompt_embeds: Any = None
+    positions3: Any = None
+    pos_delta: int = 0
+    # pixel inputs not yet through the vision tower: (pixel_values,
+    # grid_thw), embedded by the batching service's scheduler thread
+    image_inputs: Any = None
 
     @property
     def num_tokens(self) -> int:
@@ -182,6 +201,11 @@ class RiderPlan:
     pos: np.ndarray  # [N, Cs] int32 positions (-1 pad)
     lane: np.ndarray  # [N] lane whose table each slice uses
     ctx: np.ndarray  # [N] rider-lane pool tokens after each slice
+    # per step: (prompt_embeds, start, count) of an image prompt's slice,
+    # or None
+    embeds: list
+    # [N, 3, Cs] int32 M-RoPE streams of each slice (an M-RoPE model only)
+    pos3: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -258,6 +282,12 @@ class PagedEngine:
             bias_vals=torch.zeros((b, MAX_BIAS), dtype=torch.float32, device=dev),
         )
         self._rider = torch.full((2 * rider_width + 2,), -1, dtype=i32, device=dev)
+        # M-RoPE: the slice's streams and the lanes' decode offsets; an
+        # image slice's embeddings (made at the first one)
+        self.mrope = bool(getattr(model, "uses_mrope", False))
+        self._rider_pos3 = torch.full((3, rider_width), -1, dtype=i32, device=dev)
+        self.pos_delta = torch.zeros((b,), dtype=i32, device=dev)
+        self._rider_embeds: Optional[torch.Tensor] = None
         # constrained lanes: the chunk's token masks [B, V] (made at the
         # first masked chunk), which lanes they apply to, and the tokens
         # each lane has sampled since the chunk began (the mask applies to
@@ -307,28 +337,37 @@ class PagedEngine:
         return ()
 
     def _step(self, params, sampler_kind: str, use_penalties: bool,
-              use_bias: bool, mixed: bool, use_mask: bool = False):
+              use_bias: bool, mixed: bool, use_mask: bool = False,
+              use_embeds: bool = False):
         """One continuous-batching step over the static buffers (a graph's
         body): every live lane advances one token (a mixed step also
         writes the rider slice's K/V), samples, and freezes on a stop token
         or its length budget; frozen lanes emit PAD. ``use_mask``: a lane
         flagged in ``mask_valid`` samples its first token of the chunk
-        under its row of ``allowed``. Returns (emitted [B], logits [B, V])."""
+        under its row of ``allowed``. ``use_embeds``: the rider slice's
+        embeddings are the static image-embeddings buffer's. An M-RoPE
+        model reads the slice's streams and the lanes' offsets. Returns
+        (emitted [B], logits [B, V])."""
         st, lp, model = self.lanes, self.lane_params, self.model
         pad = torch.full_like(st.last, PAD_TOKEN)
         active = ~st.done
         dec_pos = torch.where(active, st.ctx, pad)
         dec_ctx = torch.where(active, st.ctx + 1, torch.ones_like(st.ctx))
+        extra = {"pos_delta": self.pos_delta} if self.mrope else {}
         if mixed:
             r, cs = self._rider, self.rider_width
+            if self.mrope:
+                extra["pf_pos3"] = self._rider_pos3
+            if use_embeds:
+                extra["pf_embeds"] = self._rider_embeds
             logits, _ = model.mixed_forward(
                 params, self.pool, st.last, dec_pos, dec_ctx, self.block_tables,
-                r[:cs], r[cs:2 * cs], r[2 * cs:2 * cs + 1], r[2 * cs + 1:],
+                r[:cs], r[cs:2 * cs], r[2 * cs:2 * cs + 1], r[2 * cs + 1:], **extra,
             )
         else:
             logits, _ = model.paged_forward(
                 params, st.last[:, None], self.pool, self.block_tables,
-                dec_pos[:, None], dec_ctx,
+                dec_pos[:, None], dec_ctx, **extra,
             )
             logits = logits[:, 0]
         if use_penalties:
@@ -387,10 +426,13 @@ class PagedEngine:
         if sampler_kind not in SAMPLER_KINDS:
             raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host")
         if rider is not None:
-            rider_dev = self.to_device(np.concatenate(
-                [rider.ids, rider.pos, rider.lane[:, None], rider.ctx[:, None]],
-                axis=1).astype(np.int32))  # [N, 2 Cs + 2]
+            cols = [rider.ids, rider.pos, rider.lane[:, None], rider.ctx[:, None]]
+            if rider.pos3 is not None:
+                cols.append(rider.pos3.reshape(num_steps, -1))
+            # [N, 2 Cs + 2 (+ 3 Cs)]
+            rider_dev = self.to_device(np.concatenate(cols, axis=1).astype(np.int32))
             rides = (rider.ids >= 0).any(axis=1)
+            nr = self._rider.shape[0]
         if wake is not None:
             w_step = self.to_device(wake.step)
             w_tok, w_ctx, w_prod, w_hist = (
@@ -415,17 +457,33 @@ class PagedEngine:
                 st.hist.copy_(torch.where(w[:, None], w_hist, st.hist))
                 st.done.logical_and_(~w)
             mixed = bool(rider is not None and rides[s])
+            embeds = mixed and rider.embeds[s] is not None
             if mixed:
-                self._rider.copy_(rider_dev[s])
+                self._rider.copy_(rider_dev[s, :nr])
+                if rider.pos3 is not None:
+                    self._rider_pos3.copy_(rider_dev[s, nr:].reshape(3, -1))
+            if embeds:
+                self._copy_rider_embeds(*rider.embeds[s])
             key = ("mixed" if mixed else "decode", sampler_kind, use_penalties,
-                   use_bias, mask is not None, id(params))
+                   use_bias, mask is not None, embeds, id(params))
             out = self.graphs(
                 key, functools.partial(self._step, params, sampler_kind,
                                        use_penalties, use_bias, mixed,
-                                       mask is not None),
+                                       mask is not None, embeds),
                 samples=sampler_kind != "greedy")
             emitted[s].copy_(out[0])
         return emitted
+
+    def _copy_rider_embeds(self, prompt_embeds: torch.Tensor, start: int,
+                           count: int) -> None:
+        """Rows [start, start + count) of an image prompt's embeddings into
+        the static rider-embeddings buffer (a device copy on the stream;
+        the buffer is made, zeroed, at the first image slice)."""
+        if self._rider_embeds is None:
+            self._rider_embeds = torch.zeros(
+                (self.rider_width, prompt_embeds.shape[-1]), dtype=prompt_embeds.dtype,
+                device=self.device)
+        self._rider_embeds[:count].copy_(prompt_embeds[start:start + count])
 
 
 class Scheduler:
@@ -479,6 +537,7 @@ class Scheduler:
         }
         self.bias_ids = np.full((b, MAX_BIAS), -1, np.int32)
         self.bias_vals = np.zeros((b, MAX_BIAS), np.float32)
+        self.pos_delta = np.zeros((b,), np.int32)  # M-RoPE decode offsets
         self._lane_params: Optional[LaneParams] = None  # device copy of the above
         # steady-state pipelining: whether the engine's lane state carries
         # on from the last dispatched chunk, and the chunks in flight,
@@ -622,6 +681,7 @@ class Scheduler:
                 upload(getattr(lp.pen, k), v)
             upload(lp.bias_ids, self.bias_ids)
             upload(lp.bias_vals, self.bias_vals)
+            upload(self.engine.pos_delta, self.pos_delta)
             self._lane_params = lp
         return lp
 
@@ -705,7 +765,8 @@ class Scheduler:
             self.histories[lane] = wake.hist[lane]
             self.done[lane] = False
             self.produced[lane] = 0
-            if self.prefix_store is not None and not seq.prefix_cached:
+            if (self.prefix_store is not None and not seq.prefix_cached
+                    and seq.prompt_embeds is None):
                 seq.prefix_cached = True
                 self.prefix_store.insert(seq.prompt_ids,
                                          self.manager.block_table(seq.seq_id))
@@ -835,8 +896,8 @@ class Scheduler:
         Queued on the device without a read back."""
         e = self.engine
         for lane, seq in sorted(self.running.items()):
-            if seq.status != SeqStatus.PREFILLING:
-                continue
+            if seq.status != SeqStatus.PREFILLING or seq.prompt_embeds is not None:
+                continue  # an image prompt's embeddings ride mixed steps
             plen1 = len(seq.pending) - 1
             if plen1 - seq.prefill_pos <= DIRECT_PREFILL_MIN:
                 continue
@@ -880,8 +941,10 @@ class Scheduler:
             # table (refcounted, never written by this lane) and prefill only
             # the suffix
             store = self.prefix_store
+            # an image prompt's placeholder ids do not identify its image
+            share = store is not None and seq.prompt_embeds is None
             while True:
-                shared = store.match(seq.prompt_ids) if store is not None else []
+                shared = store.match(seq.prompt_ids) if share else []
                 if self.manager.allocate_seq_with_prefix(seq.seq_id, need, shared):
                     break
                 shortfall = self.manager.pages_needed(need) - len(shared)
@@ -923,6 +986,7 @@ class Scheduler:
             self.pen["dry_allowed"][lane] = seq.dry_allowed_length
             self.bias_ids[lane] = -1
             self.bias_vals[lane] = 0.0
+            self.pos_delta[lane] = seq.pos_delta
             for i, (tid, bv) in enumerate(sorted(seq.logit_bias.items())[:MAX_BIAS]):
                 self.bias_ids[lane, i] = int(tid)
                 self.bias_vals[lane, i] = float(bv)
@@ -938,6 +1002,8 @@ class Scheduler:
         rider = RiderPlan(
             ids=np.full((n, cs), -1, np.int32), pos=np.full((n, cs), -1, np.int32),
             lane=np.zeros((n,), np.int32), ctx=np.zeros((n,), np.int32),
+            pos3=np.full((n, 3, cs), -1, np.int32) if e.mrope else None,
+            embeds=[None] * n,
         )
         wake = WakePlan(
             step=np.full((b,), -1, np.int32), tokens=np.zeros((b,), np.int32),
@@ -967,6 +1033,7 @@ class Scheduler:
             self.produced[lane] = len(seq.output_ids)
             wake.prod[lane] = self.produced[lane]
             if (self.prefix_store is not None and not seq.prefix_cached
+                    and seq.prompt_embeds is None
                     and seq.pending_base + len(seq.pending) == len(seq.prompt_ids)):
                 # this very chunk writes the prompt's KV; device order makes
                 # it visible before any later chunk reads it
@@ -990,6 +1057,11 @@ class Scheduler:
                 rider.ids[s, :cnt] = seq.pending[seq.prefill_pos:seq.prefill_pos + cnt]
                 rider.pos[s, :cnt] = base + np.arange(seq.prefill_pos,
                                                       seq.prefill_pos + cnt)
+                if rider.pos3 is not None:
+                    rider.pos3[s, :, :cnt] = _pos3_slice(seq, rider.pos[s, :cnt])
+                if seq.prompt_embeds is not None and base == 0:
+                    # the image prompt's slice: its embeddings, not its ids'
+                    rider.embeds[s] = (seq.prompt_embeds, seq.prefill_pos, cnt)
                 rider.lane[s] = lane
                 seq.prefill_pos += cnt
                 rider.ctx[s] = base + seq.prefill_pos
@@ -1031,6 +1103,9 @@ class Scheduler:
                 rider.pos[s] = -1
                 rider.lane[s] = 0
                 rider.ctx[s] = 0
+                rider.embeds[s] = None
+                if rider.pos3 is not None:
+                    rider.pos3[s] = -1
         return rider, wake
 
     def _sync_table(self, lane: int, seq: Sequence):
@@ -1203,6 +1278,18 @@ class Scheduler:
                 seq.on_finish(seq)
             except Exception:  # pragma: no cover
                 logger.exception("on_finish callback failed")
+
+
+def _pos3_slice(seq: Sequence, pos: np.ndarray) -> np.ndarray:
+    """[3, k] M-RoPE streams of one sequence's pool positions ``pos``: the
+    prompt's positions read its streams (``seq.positions3``), later ones
+    run at pos - pos_delta on all three (text: the positions)."""
+    out = np.broadcast_to((pos - seq.pos_delta)[None], (3, len(pos))).astype(np.int32)
+    if seq.positions3 is not None:
+        plen = seq.positions3.shape[1]
+        idx = np.clip(pos, 0, plen - 1)
+        out = np.where((pos < plen)[None], seq.positions3[:, idx], out)
+    return out
 
 
 def _bucket_chunk(n: int, max_chunk: int) -> int:

@@ -26,7 +26,7 @@ on the card.
 The JAX package's Gemma-3 params carry across unchanged through
 ``models.llama.from_jax_params`` (same keys, stacked layers, quantized
 tensors repacked). The vision tower and image inputs are not ported yet
-(ROADMAP A9c): a config with a vision tower raises.
+(ROADMAP A9c-2): a config with a vision tower raises.
 """
 
 from __future__ import annotations
@@ -136,7 +136,7 @@ class Gemma3Model:
     def __init__(self, config: Gemma3Config):
         if config.vision:
             raise ValueError("the Gemma-3 vision tower and image inputs are not "
-                             "ported yet (ROADMAP A9c); a text-only (gemma3_text) "
+                             "ported yet (ROADMAP A9c-2); a text-only (gemma3_text) "
                              "config is served")
         self.config = config
         dh = config.head_dim
@@ -365,7 +365,8 @@ class Gemma3Model:
         these positions; positions [B, T]. Returns (logits [B, T, V] f32,
         cache)."""
         if inputs_embeds is not None:
-            raise NotImplementedError("image inputs are not ported yet (ROADMAP A9c)")
+            raise NotImplementedError("Gemma-3 image inputs are not ported yet "
+                                      "(ROADMAP A9c-2)")
         h = self.embed(params, input_ids)
         if isinstance(cache, DualKVCache):
             return self._dual_forward(params, h, cache, positions, valid_lens)

@@ -449,14 +449,13 @@ class LlamaModel:
 
         input_ids: [B, T]; cache: KVCache / QuantizedKVCache already advanced
         for these positions; positions: [B, T]. Returns (logits [B, T, V]
-        f32, cache).
+        f32, cache). inputs_embeds [B, T, D]: embeddings in place of the
+        ids' (as in JAX).
         """
-        if inputs_embeds is not None:
-            raise NotImplementedError("image inputs are not ported yet (ROADMAP A9c)")
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        h = self.embed(params, input_ids)
+        h = self.embed(params, input_ids) if inputs_embeds is None else inputs_embeds
         b, t = h.shape[0], h.shape[1]
         dev = h.device
         quantized = isinstance(cache, QuantizedKVCache)

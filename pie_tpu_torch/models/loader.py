@@ -80,17 +80,22 @@ def resolve_model_path(model_path: str | Path) -> Path:
     raise FileNotFoundError(f"model path {s} does not exist")
 
 
+def _move(tree: dict, device) -> dict:
+    """Every tensor of a nested dict -> ``device``, each host tensor dropped
+    as it is moved."""
+    out = {}
+    for name in list(tree):
+        node = tree.pop(name)
+        out[name] = _move(node, device) if isinstance(node, dict) else node.to(device)
+    return out
+
+
 def _place(model, params: dict, device, qcfg: Optional[QuantizationConfig]) -> dict:
-    """Host params -> ``device``, quantized there when ``qcfg``. The host
+    """Host params -> ``device``, quantized there when ``qcfg`` (the text
+    decoder's projections and head; a vision tower stays dense). The host
     copy is dropped as it is moved, so the peak stays near one dense copy
     on each side."""
-    out = {}
-    layers = params.pop("layers")
-    out["layers"] = {}
-    for name in list(layers):
-        out["layers"][name] = layers.pop(name).to(device)
-    for name in list(params):
-        out[name] = params.pop(name).to(device)
+    out = _move(params, device)
     if qcfg is not None:
         logger.info("quantizing weights: %d bits, group size %d", qcfg.bits,
                     qcfg.group_size)

@@ -20,6 +20,7 @@ _ALIASES = {
     "gemma3": "gemma3",
     "gemma3_text": "gemma3",
     "qwen2_vl": "qwen2_vl",
+    "qwen2_5_vl": "qwen2_vl",
     "qwen2": "qwen2",
 }
 
@@ -32,17 +33,8 @@ def register_model(model_type: str) -> Callable:
     return deco
 
 
-# families the JAX package serves that the port does not yet
-_NOT_PORTED = {"qwen2_vl", "qwen2_5_vl"}
-
-
 def get_model_class(model_type: str):
     canonical = _ALIASES.get(model_type, model_type)
-    if canonical in _NOT_PORTED:
-        raise ValueError(
-            f"model architecture {model_type!r} is not ported yet "
-            "(ROADMAP A9b: Qwen2-VL)"
-        )
     # Import the module to trigger registration.
     try:
         importlib.import_module(f"pie_tpu_torch.models.{canonical}")

@@ -52,6 +52,8 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.models.gguf",
     "pie_tpu_torch.server.app",
     "pie_tpu_torch.models.gemma3",
+    "pie_tpu_torch.models.qwen2_vl",
+    "pie_tpu_torch.vision.utils",
 ])
 def test_batching_modules_import_no_jax(module):
     """Each module of the continuous-batching path, and of the checkpoint

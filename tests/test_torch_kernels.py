@@ -289,6 +289,9 @@ K3_HEADS = [(d, hq, hkv) for d in (64, 128)
 # head_dim 256 (half-page stages, q in shared memory): Gemma-3 4B (8 / 4),
 # 12B (16 / 8) and 1B (4 / 1, MQA), and a group of 16
 K3_HEADS += [(256, hq, hkv) for hq, hkv in ((8, 4), (16, 8), (4, 1), (16, 1))]
+# odd and even groups under the padded 16 rows: Qwen2.5-VL-7B (28 / 4, a
+# group of 7) and Qwen2-VL-2B (12 / 2, a group of 6)
+K3_HEADS += [(128, 28, 4), (128, 12, 2)]
 
 
 @pytest.mark.parametrize("d,hq,hkv", K3_HEADS)
@@ -343,6 +346,35 @@ def test_k3_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert torch.equal(out, pa.paged_attention_decode(q, *args))
         assert int(pa._counters[q.device][:len(lens) * 8].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("hq,hkv", [(28, 4), (12, 2)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k3_qwen_groups_in_a_cuda_graph(cuda, hq, hkv, quantized):
+    """K3 at the Qwen2-VL groups (7 and 6 query heads a KV head), D 128,
+    INT8 and bf16 pages, 8 lanes up to 2,048 tokens: the eager call against
+    the plain version (2e-2), then captured and replayed over new queries
+    and shorter contexts, equal to the eager call each time."""
+    lens = (2048, 1500, 700, 65, 2048, 5, 1000, 130)
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, lens, hq, hkv, 128, quantized,
+                                                maxp=32)
+    scale = 128 ** -0.5
+    args = (k, v, ks, vs, 1, tables, ctx, scale)
+    got = pa.paged_attention_decode(q, *args)
+    want = pa.paged_attention_ref(q.float(), *args)
+    assert _norm_err(got, want) < 2e-2
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention_decode(q, *args)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=cuda).bfloat16())
+        ctx.sub_(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pa.paged_attention_decode(q, *args))
+        assert _norm_err(out, pa.paged_attention_ref(q.float(), *args)) < 2e-2
 
 
 def test_paged_attention_rejects_what_it_does_not_take(cuda):
@@ -625,6 +657,46 @@ def _gemma_graph_model(dev):
     return model, model.init_quantized_params(seed=0, device=dev)
 
 
+QWEN_IMAGE = 1000  # the small Qwen's image token (vision start 998, end 999)
+
+
+def _qwen_graph_model(dev):
+    """Two layers at the Qwen2-VL-2B widths (hidden 1536, heads 12 / 2,
+    head_dim 128: K3 at a group of 6) with a small vocabulary, random INT4
+    g64 weights and biases, and a random 2-block Qwen2.5 tower (width 128,
+    windows of 2 x 2 merge units, full attention at block 1)."""
+    from pie_tpu_torch.models.qwen2_vl import Qwen2VLConfig, Qwen2VLModel
+
+    model = Qwen2VLModel(Qwen2VLConfig(
+        hidden_size=1536, intermediate_size=8960, num_hidden_layers=2,
+        num_attention_heads=12, num_key_value_heads=2, vocab_size=1024,
+        mrope_section=(16, 24, 24), image_token_id=QWEN_IMAGE, video_token_id=1001,
+        vision=dict(depth=2, hidden_size=128, out_hidden_size=1536,
+                    intermediate_size=256, num_heads=2, patch_size=14,
+                    window_size=56, fullatt_block_indexes=[1])))
+    params = model.init_quantized_params(seed=0, device=dev)
+    params["vision"] = model.vision.init_params(seed=1, device=dev)
+    return model, params
+
+
+def _qwen_image(model, params, dev, seed=0):
+    """(prompt, image keyword arguments, embeddings [plen, D], streams
+    [3, plen], offset) of a prompt holding one 112 x 112 image (8 x 8
+    patches: 16 merged tokens, four windows)."""
+    import numpy as np
+
+    from pie_tpu_torch.models.qwen2_vl import image_positions
+
+    grid = np.array([[1, 8, 8]])
+    prompt = [5, 6, 998] + [QWEN_IMAGE] * 16 + [999, 7, 8, 9]
+    px = np.random.default_rng(seed).standard_normal((64, 3 * 2 * 14 * 14)).astype(np.float32)
+    with torch.no_grad():
+        emb = model.embed_with_images(params, torch.tensor([prompt], device=dev),
+                                      torch.from_numpy(px).to(dev), grid)[0]
+    p3, delta = image_positions(model, [prompt], grid, len(prompt))
+    return prompt, dict(pixel_values=px, image_kwargs={"grid_thw": grid}), emb, p3[:, 0], delta
+
+
 def _single_pair(dev, make=_graph_model):
     from pie_tpu_torch.engine import InferenceEngine
 
@@ -719,6 +791,56 @@ def test_gemma3_step_graphs_replay_the_eager_steps(cuda):
         streams.append([q.output_ids for q in seqs])
     assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
     assert {k[0] for k in taps[0].inner.keys} == {"decode", "mixed", "prefill"}
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+
+def test_qwen_image_graphs_replay_the_eager_steps(cuda):
+    """Qwen2-VL's captured image prefill (embeddings and M-RoPE streams in
+    static buffers) and decode steps at the prompt's offset, and the paged
+    mixed steps with an image rider (embeddings in the static rider buffer,
+    key "embeds on") beside text lanes, give the tokens of the same steps
+    run eagerly on the card, logits within 1e-3 normalized, the single
+    stream's caches byte-equal; K3 runs once per layer per paged step."""
+    from pie_tpu_torch.cache.kv_cache import cache_tensors
+
+    engines = _single_pair(cuda, _qwen_graph_model)
+    model, params = engines[0].model, engines[0].params
+    prompt, image, emb, p3, delta = _qwen_image(model, params, cuda)
+    taps = []
+    for e in engines:
+        e.core.graphs = _Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    outs = [e.generate(prompt, max_completion_tokens=24, temperature=0.0, **image)
+            for e in engines]
+    assert outs[0].token_ids == outs[1].token_ids and len(outs[0].token_ids) == 24
+    assert any(k[0] == "prefill" and k[6] and k[7] for k in taps[0].inner.keys)
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+    caches = [cache_tensors(e.state.cache) for e in engines]
+    for name, t in caches[0].items():
+        assert torch.equal(t, caches[1][name]), name
+    again = engines[0].generate(prompt, max_completion_tokens=24, temperature=0.0,
+                                **image)  # replays the image prefill
+    assert again.token_ids == outs[0].token_ids
+
+    scheds = _paged_pair(cuda, _qwen_graph_model)
+    taps, streams = [], []
+    for s in scheds:
+        s.engine.graphs = _Tap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+        qmc.reset_counts()
+        steps0 = s.engine.device_steps
+        seqs = [s.add_request(p, max_new_tokens=12, temperature=0.0)
+                for p in PAGED_PROMPTS[1:3]]
+        seqs.append(s.add_request(prompt, max_new_tokens=12, temperature=0.0,
+                                  prompt_embeds=emb, positions3=p3, pos_delta=delta))
+        s.run_to_completion(max_steps=200)
+        assert qmc.launch_counts["K3"] == 2 * (s.engine.device_steps - steps0) > 0
+        streams.append([q.output_ids for q in seqs])
+    assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
+    assert streams[0][2][0] == outs[0].token_ids[0]
+    assert any(k[0] == "mixed" and k[5] for k in taps[0].inner.keys)
     for got, want in zip(taps[0].logits, taps[1].logits):
         assert _norm_err(got, want) < 1e-3
 
@@ -880,6 +1002,28 @@ def test_steady_chunk_reads_nothing_back(cuda):
         sched.step()
     sched.step()
     assert not sched._inflight
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched._fill_pipeline()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(sched._inflight) == 1
+    sched.run_to_completion(max_steps=200)
+    assert all(len(s.output_ids) == 40 for s in seqs)
+
+    # Qwen2-VL with an image lane: its decode steps read the lanes'
+    # M-RoPE offsets from a static buffer, no host value
+    sched = _paged_pair(cuda, _qwen_graph_model)[0]
+    model, params = sched.engine.model, sched.engine.params
+    prompt, _, emb, p3, delta = _qwen_image(model, params, cuda)
+    seqs = [sched.add_request(p, max_new_tokens=40, temperature=0.0)
+            for p in PAGED_PROMPTS[1:3]]
+    seqs.append(sched.add_request(prompt, max_new_tokens=40, temperature=0.0,
+                                  prompt_embeds=emb, positions3=p3, pos_delta=delta))
+    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
+        sched.step()
+    sched.step()
+    assert not sched._inflight and int(sched.engine.pos_delta.max()) == delta > 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         sched._fill_pipeline()

@@ -168,17 +168,57 @@ def test_bf16_snapshot_loads_exactly(tmp_path):
 
 
 def test_other_families_name_the_roadmap(tmp_path):
-    """Qwen2-VL (A9b) and a Gemma-3 config with a vision tower (A9c) are
-    refused before any weight is read, each naming its ROADMAP item."""
-    configs = {
-        "A9b": {"model_type": "qwen2_vl"},
-        "A9c": {"model_type": "gemma3", "text_config": {"hidden_size": 64},
-                "vision_config": {"hidden_size": 32}},
-    }
-    for item, cfg in configs.items():
-        (tmp_path / "config.json").write_text(json.dumps(cfg))
-        with pytest.raises(ValueError, match=item):
-            loader.load_model(tmp_path, device="cpu")
+    """A Gemma-3 config with a vision tower (A9c) is refused before any
+    weight is read, naming its ROADMAP item; Qwen2-VL (A9b, ported) and
+    Qwen2.5-VL configs build their model."""
+    from pie_tpu_torch.models.qwen2_vl import Qwen2VLModel
+
+    cfg = {"model_type": "gemma3", "text_config": {"hidden_size": 64},
+           "vision_config": {"hidden_size": 32}}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="A9c"):
+        loader.load_model(tmp_path, device="cpu")
+    for model_type in ("qwen2_vl", "qwen2_5_vl"):
+        model = loader.build_model({"model_type": model_type, "hidden_size": 64,
+                                    "num_attention_heads": 4})
+        assert isinstance(model, Qwen2VLModel) and model.vision is None
+
+
+def test_qwen2_vl_snapshot_matches_jax(tmp_path):
+    """A Qwen2-VL snapshot (bf16, an INT4 g64 quantization block): the
+    port's params equal the JAX load_model's carried across, the text
+    decoder's projections and head quantized (codes as in
+    test_load_model_matches_jax), the tower bf16 and dense, bit for bit; its
+    vision_config read. A Qwen2.5-VL snapshot, which the JAX registry
+    cannot resolve (ROADMAP C3.8), loads its windowed tower."""
+    from pie_tpu_torch.models.qwen2_vl import Qwen2VLModel
+
+    from test_torch_qwen2_vl import VCFG25, VLM_TINY
+
+    torch.manual_seed(0)
+    hf = transformers.Qwen2VLForConditionalGeneration(transformers.Qwen2VLConfig(**VLM_TINY))
+    snap = save_snapshot(tmp_path / "qwen2", hf, quant=QUANT, dtype=torch.bfloat16)
+    tm, tp = loader.load_model(snap, device="cpu")
+    assert isinstance(tm, Qwen2VLModel) and tm.vision is not None
+    assert tm.config.vision["patch_size"] == 4 and tm.config.mrope_section == (2, 3, 3)
+    assert isinstance(tp["layers"]["wq"], QuantizedTensor)
+    assert isinstance(tp["lm_head"], QuantizedTensor)
+    assert tp["layers"]["bq"].dtype == torch.bfloat16
+    for name, t in tp["vision"]["blocks"].items():
+        assert t.dtype == torch.bfloat16 and not isinstance(t, QuantizedTensor), name
+    with jax.disable_jit():
+        _, jp = jload_model(snap)
+    _assert_params_equal(tp, from_jax_params(jax_to_np(jp), "cpu"))
+
+    torch.manual_seed(1)
+    cfg25 = dict(VLM_TINY, vision_config=dict(VCFG25, out_hidden_size=64))
+    hf25 = transformers.Qwen2_5_VLForConditionalGeneration(
+        transformers.Qwen2_5_VLConfig(**cfg25))
+    snap25 = save_snapshot(tmp_path / "qwen25", hf25, dtype=torch.bfloat16)
+    tm25, tp25 = loader.load_model(snap25, device="cpu")
+    assert tm25.vision.windowed and "gate_w" in tp25["vision"]["blocks"]
+    assert torch.equal(tp25["vision"]["patch_w"],
+                       hf25.state_dict()["model.visual.patch_embed.proj.weight"])
 
 
 def test_gemma3_text_resolves():

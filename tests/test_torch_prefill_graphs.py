@@ -425,7 +425,7 @@ def test_replayed_prefill_matches_jax_core(cache):
             np.testing.assert_array_equal(getattr(ts, f).numpy(),
                                           np.asarray(getattr(js, f)))
     keys = [k for k in tc.graphs.keys if k[0] == "prefill"]
-    assert keys == [("prefill", 32, "greedy", True, 8, True, id(tp))]
+    assert keys == [("prefill", 32, "greedy", True, 8, True, False, False, id(tp))]
 
 
 def _paged_dense(pool, n):
