@@ -177,11 +177,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    false). Images are seeded numpy pixels through the port's patchify
    step; the HTTP chat sends a PNG.
 
+14. gemma3 vision (after 13): Gemma-3 4B image inputs at full width, the
+   34-layer text model (random INT4 g64) under the 27-block SigLIP-So400m
+   tower (random bf16; 896 x 896 images, 4,096 patches pooled to 256
+   tokens): (a) card against CPU at 2 text layers (1 sliding + 1 global)
+   and 2 tower blocks (normalized error < 0.03): one image's tower
+   features and projected rows, the 276-token image prompt through
+   __call__ over the DualKVCache and 2 decode steps, a mixed step whose
+   rider is the prompt's embeddings (its lane against __call__ on the
+   card) and a paged decode step over an INT8 pool; (b) the single-stream
+   engine: the tower's ms per image (CUDA events) beside its bound (the
+   shapes' operations at the bf16 peak, and at the f32 one it computes
+   in), one counted image request (K1 238 per decoded token, K2 238 per
+   prefill chunk), the image prompt's TTFT split (tower, prefill device
+   and enqueue ms) for 276 tokens and for 1,300 (a 1,024-token head chunk
+   and a tail, both with embeddings), decode tok/s after an image, and the
+   captured image prefills (both prompts) and 16 decode steps against an
+   eager twin (equal tokens, logits within 1e-3, caches byte-equal); (c)
+   the paged engine (8 lanes, 2 of them image prompts, INT8 pages): tok/s,
+   K3 34 per device step, each image lane's first token equal to the
+   single stream's; (d) one image chat over HTTP through create_app
+   (needs Pillow).
+
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
 step), the 1B model check beside its reading before K2's single rounding
-(after phase 3b), a Gemma-3 summary, a prefill summary (TTFT beside one
+(after phase 3b), a Gemma-3 summary, a Gemma-3 vision summary, a prefill summary (TTFT beside one
 prefill's device and enqueue time, the prefill graphs' captures, capture
 seconds and the pool per geometry), then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
@@ -342,8 +364,8 @@ def prefill_times(engine, prompt, reps=5):
     sampling, pen = engine._sampling({"temperature": 0.0}), engine._penalties({})
 
     def run():
-        tail, first = engine._prefill_head_chunks(list(prompt), 0, sampling, pen,
-                                                  *engine._empty_bias, "greedy")
+        tail, first, _ = engine._prefill_head_chunks(list(prompt), 0, sampling, pen,
+                                                     *engine._empty_bias, "greedy")
         ids = np.zeros((1, engine._prefill_bucket(len(tail))), np.int32)
         ids[0, :len(tail)] = tail
         engine.state, _, _ = engine.core._prefill(
@@ -3081,30 +3103,46 @@ def qwen_word_tokenizer():
         CHATML)
 
 
-def qwen_image_ttft(engine, prompt, image):
+def image_ttft(engine, prompt, image):
     """One image request's first token, split: the tower and scatter (CUDA
-    events around ``_image_prompt``, which runs them eagerly), the
-    prefill's device ms (events around the replayed prefill graph) and the
-    host ms to queue it, and the request's TTFT on the host clock."""
+    events around ``_image_embeds``, which runs them eagerly over the whole
+    prompt, and, for Qwen2-VL, the host's M-RoPE positions), the prefill's
+    device ms (events around the replayed prefill graphs: a Gemma-3 prompt
+    past its window's head chunks, then the tail) and the host ms to queue
+    them (the head-chunk split, the tail's ids and padded embeddings, the
+    replays), and the request's TTFT on the host clock."""
     import numpy as np
 
-    slen = len(prompt)
-    ids = np.zeros((1, engine._prefill_bucket(slen)), np.int32)
-    ids[0, :slen] = prompt
-    out = {}
-    tower_ms = event_ms(lambda: out.setdefault(
-        "image", engine._image_prompt(ids, slen, image["pixel_values"],
-                                      image["image_kwargs"])))
-    emb, p3, delta = out["image"]
-    engine.core.set_pos_delta(engine._one(delta))
+    from pie_tpu_torch.models.qwen2_vl import image_positions
+
+    out = {"p3": None, "delta": 0}
+
+    def tower():
+        out["emb"] = engine._image_embeds(prompt, image["pixel_values"],
+                                          image.get("image_kwargs"))
+        if getattr(engine.model, "uses_mrope", False):  # Qwen2-VL: no head chunks
+            ids = np.zeros((1, engine._prefill_bucket(len(prompt))), np.int32)
+            ids[0, :len(prompt)] = prompt
+            out["p3"], out["delta"] = image_positions(
+                engine.model, ids, image["image_kwargs"]["grid_thw"], len(prompt))
+
+    tower_ms = event_ms(tower)
+    p3, delta = out["p3"], out["delta"]
+    if p3 is not None:
+        engine.core.set_pos_delta(engine._one(delta))
     sampling, pen = engine._sampling({"temperature": 0.0}), engine._penalties({})
     host = []
 
     def prefill():
         t0 = time.perf_counter()
+        tail, first, emb = engine._prefill_head_chunks(
+            list(prompt), 0, sampling, pen, *engine._empty_bias, "greedy", out["emb"])
+        ids = np.zeros((1, engine._prefill_bucket(len(tail))), np.int32)
+        ids[0, :len(tail)] = tail
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, ids.shape[1] - len(tail)))
         engine.state, _, _ = engine.core._prefill(
-            engine.params, engine.state, ids, engine._one(slen), engine._one(0), sampling,
-            pen, *engine._empty_bias, sampler_kind="greedy", inputs_embeds=emb,
+            engine.params, engine.state, ids, engine._one(len(tail)), engine._one(first),
+            sampling, pen, *engine._empty_bias, sampler_kind="greedy", inputs_embeds=emb,
             positions3=p3)
         host.append((time.perf_counter() - t0) * 1e3)
 
@@ -3116,7 +3154,9 @@ def qwen_image_ttft(engine, prompt, image):
     for _ in gen:
         pass
     return dict(tower_ms=tower_ms, prefill_event_ms=prefill_ms, prefill_enqueue_ms=host[0],
-                ttft_ms=ttft, pos_delta=delta, bucket=ids.shape[1], tokens=slen)
+                ttft_ms=ttft, pos_delta=delta, tokens=len(prompt),
+                chunks=-(-len(prompt) // (getattr(engine.model, "prefill_chunk_bound", None)
+                                           or len(prompt))))
 
 
 def qwen_engine(card):
@@ -3166,7 +3206,7 @@ def qwen_engine(card):
     px, grid = qwen_pixels(2)
     image = dict(pixel_values=px, image_kwargs={"grid_thw": grid})
     ttft(qwen_prompt(2), **image)  # the image prefill's capture
-    split = qwen_image_ttft(engine, qwen_prompt(3), image)
+    split = image_ttft(engine, qwen_prompt(3), image)
     image_tok_s = max(ttft(qwen_prompt(4), 129, **image)[1] for _ in range(2))
     text_tok_s = ttft(prompt, 129)[1]
 
@@ -3368,6 +3408,445 @@ def phase_qwen2vl(card):
                 http=http_out)
 
 
+# -- phase 14: Gemma-3 4B image inputs --------------------------------------------
+
+# google/gemma-3-4b-it config.json: the SigLIP-So400m tower (vision_config) at
+# 896 px (64 x 64 patches of 14 px: 4,096 tokens), 256 tokens an image after
+# the 4 x 4 pool, and the image tokens
+G4_VISION = dict(hidden_size=1152, intermediate_size=4304, num_hidden_layers=27,
+                 num_attention_heads=16, image_size=896, patch_size=14, num_channels=3,
+                 layer_norm_eps=1e-6)
+G4_IMAGE = dict(mm_tokens_per_image=256, image_token_id=262144)
+G4_BOI, G4_EOI = 255999, 256000  # <start_of_image>, <end_of_image>
+FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, data sheet
+
+
+def gemma_vlm(layers, blocks=None, seed=0, **extra):
+    """A Gemma-3 4B-wide VLM on the card: ``layers`` text layers (random INT4
+    g64) and a random bf16 SigLIP tower of ``blocks`` blocks (27: So400m)."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Model
+
+    vision = dict(G4_VISION, num_hidden_layers=blocks or G4_VISION["num_hidden_layers"])
+    model = Gemma3Model(gemma_config(G4, layers, vision=vision, **G4_IMAGE, **extra))
+    params = model.init_quantized_params(seed=seed)
+    params["vision"] = model.vision.init_params(seed=seed + 1)
+    return model, params
+
+
+def gemma_pixels(seed, n=1):
+    """``n`` seeded 896 x 896 RGB images as the SigLIP processor leaves
+    them (already square at its size: normalized with mean and std 0.5),
+    [n, 3, 896, 896] f32, with numpy alone."""
+    import numpy as np
+
+    from pie_tpu_torch.vision.utils import SiglipImageProcessor, normalize
+
+    proc, size = SiglipImageProcessor(), G4_VISION["image_size"]
+    rng = np.random.default_rng(seed)
+    return np.stack([normalize(rng.integers(0, 256, (size, size, 3)).astype(np.float32)
+                               / 255.0, proc.image_mean, proc.image_std)
+                     for _ in range(n)])
+
+
+def gemma_image_prompt(salt, before=9, after=9):
+    """Text, one image's 256 placeholders between <start_of_image> and
+    <end_of_image>, text (276 tokens at the defaults)."""
+    text = lambda n, o: [1 + (i * 37 + salt * 101 + o) % 100000 for i in range(n)]
+    return (text(before, 0) + [G4_BOI] + [G4_IMAGE["image_token_id"]] * 256 + [G4_EOI]
+            + text(after, 7))
+
+
+def tower_work(model, n=1) -> dict:
+    """Operations and bytes of the tower and projector on ``n`` images, from
+    the shapes: the patch embedding, per block q/k/v/o (4 D x D) and the MLP
+    (2 D x Di) over T tokens, attention's QK^T and PV (4 T^2 D), the
+    projector's product; weights (bf16) read once, pixels read and the
+    projected rows written once (f32). ``bound_ms`` at the bf16 tensor
+    cores' 989 TFLOP/s (the tower's work at bf16), ``bound_f32_ms`` at the
+    67 TFLOP/s of float32 outside them (how the port computes it)."""
+    v = model.vision
+    d, di, blocks, p = v.hidden_size, v.intermediate_size, v.num_layers, v.patch_size
+    t = v.patches ** 2
+    out = v.tokens_per_image * v.text_hidden
+    flops = n * (2 * t * 3 * p * p * d
+                 + blocks * (2 * t * (4 * d * d + 2 * d * di) + 4 * t * t * d)
+                 + 2 * v.tokens_per_image * d * v.text_hidden)
+    weights = (3 * p * p * d + d + t * d + 2 * d
+               + blocks * (4 * d * d + 2 * d * di + 9 * d + di) + d + d * v.text_hidden)
+    nbytes = 2 * weights + n * 4 * (3 * v.image_size ** 2 + out)
+    bb, bo = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(bb, bo),
+                bound_by="bytes" if bb >= bo else "operations",
+                bound_f32_ms=max(bb, flops / FP32_FLOP_PER_S * 1e3))
+
+
+def gemma_vision_check(label, layers=2, blocks=2):
+    """A cut Gemma-3 4B VLM at full width (2 text layers, 1 sliding + 1
+    global; ``blocks`` tower blocks), card against the CPU plain path on the
+    same random weights (INT4 g64 text, bf16 tower): one full 896 x 896
+    image through the tower (features) and the projector; the image prompt
+    (276 tokens) through ``__call__`` over the DualKVCache, two decode
+    steps; then over an INT8 paged pool one mixed step (the prompt's
+    embeddings as a rider for lane 1, which wakes on its last token in the
+    same step) and a paged decode step of both lanes; logits within 0.03
+    normalized. On the card alone: the mixed step's image lane against
+    ``__call__``'s last prompt position (0.03)."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.paged import PagedKVPool
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, gpu_params = gemma_vlm(layers, blocks, seed=3, sliding_window_pattern=2)
+    params = {"cpu": to_device(gpu_params, "cpu"), "cuda": gpu_params}
+    px = gemma_pixels(1)
+    prompt = gemma_image_prompt(1)
+    n = len(prompt)
+    errs, outs = {}, {}
+
+    def compare(what, run, rows=slice(None)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            with torch.no_grad():
+                out[dev] = run(dev).float().cpu()[rows]
+        err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+        if not (torch.isfinite(out["cuda"]).all() and err < 0.03):
+            raise AssertionError(f"{label} model check, {what}: err {err}")
+        errs[what] = err
+        outs[what] = out["cuda"]
+
+    qmc.reset_counts()
+    vp = lambda d: params[d]["vision"]
+    feats = {d: model.vision.forward(vp(d), torch.from_numpy(px).to(d)) for d in ("cpu", "cuda")}
+    compare("tower", lambda d: feats[d])
+    compare("projector", lambda d: model.vision.project(vp(d), feats[d]))
+    del feats
+    ids = {d: torch.tensor([prompt], dtype=torch.int32, device=d) for d in ("cpu", "cuda")}
+    emb = {d: model.embed_with_images(params[d], ids[d], torch.from_numpy(px).to(d))
+           for d in ("cpu", "cuda")}
+    t = lambda a, d: torch.from_numpy(np.asarray(a, np.int32)).to(d)
+    caches = {d: model.make_cache(1, 512, torch.bfloat16, device=d) for d in ("cpu", "cuda")}
+
+    def call(dev, start, count, **kw):
+        first = torch.tensor([start], dtype=torch.int32, device=dev)
+        pos = first[:, None] + torch.arange(count, dtype=torch.int32, device=dev)[None]
+        caches[dev] = caches[dev].advance(first, count)
+        logits, caches[dev] = model(params[dev], kw.pop("ids", ids[dev]), caches[dev],
+                                    pos, **kw)
+        return logits
+
+    compare("call image prefill", lambda d: call(d, 0, n, inputs_embeds=emb[d]))
+    tok = int(outs["call image prefill"][0, -1].argmax())
+    for i in range(2):
+        compare(f"call decode {i}", lambda d: call(d, n + i, 1, ids=t([[tok]], d)))
+        tok = int(outs[f"call decode {i}"][0, -1].argmax())
+    maxp = 6
+    tables = np.arange(2 * maxp, dtype=np.int32).reshape(2, maxp)[:, ::-1].copy()
+    pools = {d: PagedKVPool.create(layers, 2 * maxp, G4["num_key_value_heads"],
+                                   G4["head_dim"], torch.bfloat16, True, device=d)
+             for d in ("cpu", "cuda")}
+    cs = 288
+    rider, rpos = np.full(cs, -1), np.full(cs, -1)
+    rider[:n - 1], rpos[:n - 1] = prompt[:-1], np.arange(n - 1)
+
+    def rider_embeds(d):
+        e = torch.zeros((cs, emb[d].shape[-1]), dtype=emb[d].dtype, device=d)
+        e[:n - 1] = emb[d][0, :n - 1]
+        return e
+
+    compare("mixed image rider", lambda d: model.mixed_forward(
+        params[d], pools[d], t([11, prompt[-1]], d), t([0, n - 1], d), t([1, n], d),
+        t(tables, d), t(rider, d), t(rpos, d), t([1], d), t([n - 1], d),
+        pf_embeds=rider_embeds(d))[0])
+    lane = outs["mixed image rider"][1]
+    want = outs["call image prefill"][0, -1]
+    card_err = ((lane - want).abs().max() / want.abs().max()).item()
+    if not card_err < 0.03:
+        raise AssertionError(f"{label}: mixed image lane vs __call__ err {card_err}")
+    nxt = [int(a.argmax()) for a in outs["mixed image rider"]]
+    compare("paged decode", lambda d: model.paged_forward(
+        params[d], t([[nxt[0]], [nxt[1]]], d), pools[d], t(tables, d), t([[1], [n]], d),
+        t([2, n + 1], d))[0][:, 0])
+    counts = dict(qmc.launch_counts)
+    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
+        raise AssertionError(f"{label} model check did not run every kernel: {counts}")
+    row = dict(phase="gemma3 vision", part="a: model vs CPU", geometry=label, layers=layers,
+               tower_blocks=blocks, image_px=G4_VISION["image_size"], prompt_tokens=n,
+               kv="bf16 dual / int8 paged", norm_err=max(errs.values()),
+               norm_err_per_step=errs, tower_norm_err=errs["tower"],
+               projector_norm_err=errs["projector"], mixed_image_lane_vs_call=card_err,
+               launches=counts)
+    emit(row)
+    del params, gpu_params, pools, caches, emb
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemma_long_image_prompt(salt):
+    """1,300 tokens: 700 of text, the image (258), 342 of text: a head chunk
+    of 1,024 (the window), the image across its end, and a 276-token
+    tail."""
+    return gemma_image_prompt(salt, before=700, after=342)
+
+
+def gemma_vision_engine(card):
+    """The 34-layer Gemma-3 4B single-stream engine with the 27-block So400m
+    tower (random INT4 g64 text, bf16 tower): the tower's ms per image
+    (CUDA events, median of 3) beside its bound; one counted image request
+    (276-token prompt, 128 decoded tokens: K1 238 per decoded token, K2 238
+    for its one prefill chunk, no K3 or K4); the image prompt's TTFT split
+    (tower, prefill device and enqueue ms) and that of a 1,300-token image
+    prompt (two prefill chunks, 476 K2 launches); decode tok/s after an
+    image; then the captured image prefills (the short prompt's, and the
+    long one's head chunk and tail) and 16 decode steps against an eager
+    twin (equal tokens, logits within 1e-3 normalized, caches byte-equal)."""
+    from pie_tpu_torch.cache.kv_cache import cache_tensors
+    from pie_tpu_torch.engine import InferenceEngine
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, params = gemma_vlm(G4_LAYERS)
+    engine = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                             decode_chunk=128)
+    image = dict(pixel_values=gemma_pixels(2))
+    vp = params["vision"]
+    px = torch.from_numpy(image["pixel_values"]).cuda()
+
+    def tower():
+        with torch.no_grad():
+            model.vision.project(vp, model.vision.forward(vp, px))
+
+    tower()
+    tower_ms = sorted(event_ms(tower) for _ in range(3))
+    work = tower_work(model)
+
+    def ttft(p, new=2, **kw):
+        gen = engine.generate_stream(p, max_completion_tokens=new, temperature=0.0, **kw)
+        t0 = time.perf_counter()
+        next(gen)
+        dt = time.perf_counter() - t0
+        n, t1 = 0, time.perf_counter()
+        for _ in gen:
+            n += 1
+        return dt, (n / (time.perf_counter() - t1) if n else None)
+
+    ttft(gemma_image_prompt(2), 9, **image)  # warm up: the image prefill's capture
+    qmc.reset_counts()
+    res = engine.generate(gemma_image_prompt(3), max_completion_tokens=129,
+                          temperature=0.0, **image)
+    torch.cuda.synchronize()
+    launches = dict(qmc.launch_counts)
+    decoded = res.completion_tokens - 1
+    per = G_PROJ * G4_LAYERS
+    if (decoded != 128 or launches["K1"] != per * decoded or launches["K2"] != per
+            or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"Gemma-3 image path launches {launches} for {decoded} tokens")
+    split = image_ttft(engine, gemma_image_prompt(4), image)
+    image_tok_s = max(ttft(gemma_image_prompt(5), 129, **image)[1] for _ in range(2))
+    ttft(gemma_long_image_prompt(6), 2, **image)  # the 1,024 bucket's embeds capture
+    qmc.reset_counts()
+    long_split = image_ttft(engine, gemma_long_image_prompt(7), image)
+    long_k2 = qmc.launch_counts["K2"]
+    if long_split["chunks"] != 2 or long_k2 != 2 * 2 * per:  # split's prefill, TTFT's
+        raise AssertionError(f"1,300-token image prompt: {long_split['chunks']} chunks, "
+                             f"{long_k2} K2 launches (want 2 x 2 x {per})")
+
+    twin = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                           decode_chunk=16, prompt_cache=False)
+    twin.core.graphs = eager_steps(twin.core.graphs)
+    graphed = InferenceEngine(model=model, params=params, max_seq_len=4096,
+                              decode_chunk=16, prompt_cache=False)
+    checks = {}
+    taps = []
+    for e in (graphed, twin):
+        for salt in (8, 9):  # the captures of both prompts' buckets
+            e.generate(gemma_image_prompt(salt) if salt == 8 else
+                       gemma_long_image_prompt(salt), max_completion_tokens=17,
+                       temperature=0.0, **image)
+        e.core.graphs = Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    for name, prompt in (("276-token image prompt", gemma_image_prompt(10)),
+                         ("1,300-token image prompt (2 chunks)",
+                          gemma_long_image_prompt(11))):
+        for tap in taps:
+            tap.logits.clear()
+        streams = [e.generate(prompt, max_completion_tokens=17, temperature=0.0,
+                              **image).token_ids for e in (graphed, twin)]
+        errs = [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(taps[0].logits, taps[1].logits)]
+        caches = [cache_tensors(e.state.cache) for e in (graphed, twin)]
+        cache_equal = all(torch.equal(t, caches[1][k]) for k, t in caches[0].items())
+        if not (streams[0] == streams[1] and len(streams[0]) == 17 and max(errs) < 1e-3
+                and cache_equal):
+            raise AssertionError(f"Gemma image graphs vs eager ({name}): {streams} "
+                                 f"{max(errs)} {cache_equal}")
+        checks[name] = dict(tokens_equal=True, steps=len(errs), max_norm_err=max(errs),
+                            cache_byte_equal=cache_equal)
+    replays = taps[0].inner.replays
+    embeds_keys = sorted(k[1] for k in taps[0].inner.keys if k[0] == "prefill" and k[6])
+    if not (replays >= 2 * 17 and 1024 in embeds_keys and 512 in embeds_keys):
+        raise AssertionError(f"Gemma image graphs: {replays} replays, embeds-on prefill "
+                             f"buckets {embeds_keys}")
+    del twin, graphed, taps, caches
+    row = dict(phase="gemma3 vision", part="b: engine", geometry="gemma3-4b int4 g64 "
+               "+ so400m bf16", layers=G4_LAYERS, tower_blocks=G4_VISION["num_hidden_layers"],
+               image_px=G4_VISION["image_size"], tower_ms=tower_ms[1], tower_ms_runs=tower_ms,
+               tower_flops=work["flops"], tower_bytes=work["bytes"],
+               tower_bound_ms=work["bound_ms"], tower_bound_by=work["bound_by"],
+               tower_bound_f32_ms=work["bound_f32_ms"],
+               tower_tflop_s=work["flops"] / tower_ms[1] / 1e9,
+               image=split, image_2chunks=long_split, image_decode_tok_s=image_tok_s,
+               k1_per_decoded_token=launches["K1"] / decoded, k2_per_prefill=launches["K2"],
+               k2_long_prompt=long_k2 // 2, launches=launches,
+               graphs_vs_eager=dict(checks, replays=replays,
+                                    embeds_prefill_buckets=embeds_keys),
+               graphs=engine.core.graphs.stats(), card=card)
+    emit(row)
+    return engine, row
+
+
+def gemma_vision_paged(engine1, card):
+    """The 34-layer paged engine (8 lanes, INT8 pages, 8-step chunks): one
+    counted run of 6 text lanes (64-token prompts) and 2 image lanes (276
+    tokens: their embeddings ride mixed steps), 128 new tokens each (K3 34
+    per device step, counted under replay) as aggregate tok/s; each image
+    lane's first token equals the single-stream engine's on the same
+    request."""
+    import gc
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    model, params = engine1.model, engine1.params
+    lanes = 8
+    engine = PagedEngine(model, params, num_lanes=lanes, num_pages=112,
+                         max_pages_per_seq=12, kv_quantized=True)
+    sched = Scheduler(engine, decode_steps=8)
+    images = []
+    for seed in (11, 12, 13):
+        px = gemma_pixels(seed)
+        prompt = gemma_image_prompt(seed)
+        with torch.no_grad():
+            emb = model.embed_with_images(
+                params, torch.tensor([prompt], dtype=torch.int32, device="cuda"),
+                torch.from_numpy(px).cuda())[0]
+        images.append(dict(prompt=prompt, emb=emb, image=dict(pixel_values=px)))
+    text = list(range(1, 65))
+    sched.add_request(images[2]["prompt"], max_new_tokens=9, temperature=0.0,
+                      prompt_embeds=images[2]["emb"])  # warm up: the embeds graphs
+    sched.add_request(text, max_new_tokens=17, temperature=0.0)
+    sched.run_to_completion()
+    qmc.reset_counts()
+    steps0 = engine.device_steps
+    seqs = [sched.add_request([t + i for t in text], max_new_tokens=128, temperature=0.0)
+            for i in range(lanes - 2)]
+    seqs += [sched.add_request(im["prompt"], max_new_tokens=128, temperature=0.0,
+                               prompt_embeds=im["emb"]) for im in images[:2]]
+    t0 = time.perf_counter()
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    tok_s = sum(len(s.output_ids) for s in seqs) / (time.perf_counter() - t0)
+    launches = dict(qmc.launch_counts)
+    steps = engine.device_steps - steps0
+    if not (steps > 0 and launches["K3"] == G4_LAYERS * steps and launches["K1"] > 0
+            and launches["K2"] > 0 and all(len(s.output_ids) == 128 for s in seqs)):
+        raise AssertionError(f"Gemma-3 image paged path: {launches} over {steps} steps")
+    first = [engine1.generate(im["prompt"], max_completion_tokens=1, temperature=0.0,
+                              **im["image"]).token_ids[0] for im in images[:2]]
+    lane_first = [s.output_ids[0] for s in seqs[-2:]]
+    if lane_first != first:
+        raise AssertionError(f"image lanes' first tokens {lane_first}, single stream {first}")
+    if not any(k[0] == "mixed" and k[5] for k in engine.graphs.keys):
+        raise AssertionError(f"no image rider step among {engine.graphs.keys}")
+    graph_stats = engine.graphs.stats()
+    del sched, engine, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(phase="gemma3 vision", part="c: paged engine",
+               geometry="gemma3-4b int4 g64 + so400m bf16", layers=G4_LAYERS, lanes=lanes,
+               image_lanes=2, kv="int8 paged", decode_tok_s=tok_s, device_steps=steps,
+               k3_per_step=launches["K3"] / steps, image_lane_first_tokens=lane_first,
+               single_stream_first_tokens=first, launches=launches, graphs=graph_stats,
+               card=card)
+    emit(row)
+    return row
+
+
+def gemma_vision_http(engine1):
+    """One chat with an image (the OpenAI image_url part, a 384 x 384 PNG
+    data URI, which the SigLIP processor resizes to 896 x 896; a noise PNG
+    at 896 px would pass the server's 1 MiB request limit) over HTTP
+    through create_app on the single-stream engine: 200, usage, the
+    prompt's 256 placeholders counted. Needs Pillow to decode the PNG;
+    without it the line says "pillow": false."""
+    import asyncio
+    import base64
+    import io
+
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from pie_tpu_torch.server.app import create_app
+    from pie_tpu_torch.server.config import Settings
+
+    try:
+        from PIL import Image
+    except ImportError:
+        emit(dict(phase="gemma3 vision", part="d: HTTP image chat", pillow=False))
+        return None
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(22).integers(
+        0, 256, (384, 384, 3), dtype=np.uint8)).save(buf, format="PNG")
+    uri = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+    engine1.tokenizer = tok = gemma_word_tokenizer()
+    chat = [{"role": "user", "text": "hello world", "num_images": 1}]
+    want_prompt = len(tok.apply_chat_template(
+        chat, add_generation_prompt=True, image_token_id=G4_IMAGE["image_token_id"],
+        tokens_per_image=G4_IMAGE["mm_tokens_per_image"]))
+
+    async def ask():
+        runner = web.AppRunner(create_app(engine=engine1, settings=Settings(),
+                                          device=engine1.device))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        port = site._server.sockets[0].getsockname()[1]
+        try:
+            async with aiohttp.ClientSession() as s:
+                t0 = time.perf_counter()
+                async with s.post(f"http://127.0.0.1:{port}/v1/chat/completions", json=dict(
+                        messages=[{"role": "user", "content": [
+                            {"type": "text", "text": "hello world"},
+                            {"type": "image_url", "image_url": {"url": uri}}]}],
+                        max_tokens=8, temperature=0.0)) as r:
+                    return r.status, await r.json(), (time.perf_counter() - t0) * 1e3
+        finally:
+            await runner.cleanup()
+
+    status, body, ms = asyncio.run(ask())
+    if (status != 200 or body["usage"]["completion_tokens"] < 1
+            or body["usage"]["prompt_tokens"] != want_prompt):
+        raise AssertionError(f"Gemma HTTP image chat: {status} {body} "
+                             f"(prompt of {want_prompt} tokens)")
+    out = dict(status=status, ms=ms, usage=body["usage"])
+    emit(dict(phase="gemma3 vision", part="d: HTTP image chat", pillow=True,
+              image_tokens=G4_IMAGE["mm_tokens_per_image"], **out))
+    return out
+
+
+def phase_gemma3_vision(card):
+    """Phase 14 (module docstring)."""
+    import gc
+
+    check = gemma_vision_check("gemma3-4b (2 layers) + so400m (2 blocks)")
+    engine, eng = gemma_vision_engine(card)
+    paged = gemma_vision_paged(engine, card)
+    http_out = gemma_vision_http(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(check=check, engine=eng, paged=paged, http=http_out)
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3430,6 +3909,7 @@ def main() -> int:
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
     gemma = timed("gemma3", phase_gemma3, card)
     qwen = timed("qwen2.5-vl", phase_qwen2vl, card)
+    gvis = timed("gemma3 vision", phase_gemma3_vision, card)
 
     summary = []
     for kname, src, what, per_rows, launches in (
@@ -3574,6 +4054,19 @@ def main() -> int:
               paged_tok_s=qwen["paged"]["decode_tok_s"],
               k3_per_paged_step=qwen["paged"]["k3_per_step"],
               http=qwen["http"] is not None))
+    ge = gvis["engine"]
+    emit(dict(phase="summary gemma3 vision", card=card,
+              model_check=gvis["check"]["norm_err"],
+              tower_norm_err=gvis["check"]["tower_norm_err"],
+              projector_norm_err=gvis["check"]["projector_norm_err"],
+              tower_ms=ge["tower_ms"], tower_bound_ms=ge["tower_bound_ms"],
+              tower_bound_f32_ms=ge["tower_bound_f32_ms"], image=ge["image"],
+              image_2chunks=ge["image_2chunks"], image_decode_tok_s=ge["image_decode_tok_s"],
+              paged_tok_s=gvis["paged"]["decode_tok_s"],
+              launches=dict(k1_per_decoded_token=ge["k1_per_decoded_token"],
+                            k2_per_prefill=ge["k2_per_prefill"],
+                            k3_per_paged_step=gvis["paged"]["k3_per_step"]),
+              graphs_vs_eager=ge["graphs_vs_eager"], http=gvis["http"] is not None))
     emit(dict(phase="summary prefill graphs", card=card, geometries={
         label: dict(ttft_p50_ms=row["ttft_p50_ms"],
                     **{k: row[k] for k in ("prefill_512", "prefill_2048") if k in row},

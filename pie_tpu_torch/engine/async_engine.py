@@ -11,13 +11,14 @@ scheduler, which decodes it beside the other lanes. Only the scheduler
 thread touches CUDA: it runs every device program, so the step graphs are
 captured there (a request thread only queues and reads host objects, and
 ``capture_error_mode="thread_local"`` would let it touch CUDA anyway). An
-image request (``pixel_values`` with ``image_kwargs={"grid_thw": ...}``, or
-images attached to chat messages) computes its M-RoPE streams and decode
-offset on the request thread (host arrays); the scheduler thread runs the
-vision tower before it queues the sequence, whose embeddings then prefill
-as rider slices beside the other lanes. Not ported yet, and refused with
-``InferenceError``: the native scheduler (``scheduler_impl="native"``,
-ROADMAP A7) and Gemma-3 image inputs (A9c-2).
+image request (``pixel_values``, with ``image_kwargs={"grid_thw": ...}`` for
+Qwen2-VL, or images attached to chat messages) computes a Qwen2-VL
+prompt's M-RoPE streams and decode offset on the request thread (host
+arrays); the scheduler thread runs the vision tower (Qwen2-VL's or
+Gemma-3's SigLIP) before it queues the sequence, whose embeddings then
+prefill as rider slices beside the other lanes. Not ported yet, and
+refused with ``InferenceError``: the native scheduler
+(``scheduler_impl="native"``, ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from pie_tpu_torch.engine.engine import (
     StreamedToken,
     _chat_run,
     masked_text,
+    tower_kwargs,
 )
 from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, Sequence
 from pie_tpu_torch.utils.device import resolve_device
@@ -150,14 +152,14 @@ class BatchedInferenceEngine:
         pixel inputs, eagerly, and keep the prompt's embeddings [plen, D]
         on the device for its rider slices. False (and the sequence
         finished with an error) when the tower fails."""
-        pixels, grid = seq.image_inputs
+        pixels, kw = seq.image_inputs
         seq.image_inputs = None
         try:
             ids = torch.as_tensor(seq.prompt_ids, dtype=torch.int32,
                                   device=self.device)[None]
             with torch.no_grad():
                 seq.prompt_embeds = self.model.embed_with_images(
-                    self.params, ids, torch.as_tensor(pixels).to(self.device), grid)[0]
+                    self.params, ids, torch.as_tensor(pixels).to(self.device), **kw)[0]
         except Exception as e:
             logger.exception("vision tower failed")
             self.scheduler._finish(seq, f"error: image inputs: {e}")
@@ -232,20 +234,17 @@ class BatchedInferenceEngine:
         )
 
     def _image_request(self, prompt_ids, pixel_values, image_kwargs) -> tuple:
-        """((pixel_values, grid_thw), positions3 [3, plen], pos_delta) of an
-        image request, on the host."""
-        grid = (image_kwargs or {}).get("grid_thw")
-        if getattr(self.model, "vision", None) is None:
-            raise InferenceError("image inputs need a model with a vision tower")
-        if grid is None or not getattr(self.model, "uses_mrope", False):
-            raise InferenceError("image inputs need an M-RoPE model (Qwen2-VL) and "
-                                 "image_kwargs={'grid_thw': ...}; Gemma-3's are "
-                                 "ROADMAP A9c-2")
+        """((pixel_values, the tower's keyword arguments), positions3
+        [3, plen], pos_delta) of an image request, on the host: a Qwen2-VL
+        one carries its grid, streams and offset; a Gemma-3 one none."""
+        kw = tower_kwargs(self.model, image_kwargs)
+        if not kw:
+            return (pixel_values, kw), None, 0
         from pie_tpu_torch.models.qwen2_vl import image_positions
 
-        p3, delta = image_positions(self.model, [list(prompt_ids)], grid,
+        p3, delta = image_positions(self.model, [list(prompt_ids)], kw["grid_thw"],
                                     len(prompt_ids))
-        return (pixel_values, grid), p3[:, 0], delta
+        return (pixel_values, kw), p3[:, 0], delta
 
     def generate(self, prompt_ids, **kw) -> GenerationResult:
         gen = self.generate_stream(prompt_ids, **kw)

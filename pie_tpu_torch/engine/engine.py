@@ -10,15 +10,16 @@ prefill per choice point, forced runs encoded on the host); the chat API
 into head chunks for a model that bounds its prefill chunk (Gemma-3:
 ``_prefill_head_chunks``); loading a checkpoint (``model_path``:
 ``models/loader.py`` and the snapshot's tokenizer); image prompts
-(``pixel_values`` with ``image_kwargs={"grid_thw": ...}``, or images
-attached to chat messages): the vision tower runs eagerly, then the
-prompt's embeddings and M-RoPE streams ride the captured prefill and the
-decode steps turn rope at the prompt's offset (``pos_delta``). Every
-prefill (the prompt, its head chunks, ``cache_prompt``, each constrained
-extend) runs through the core's prefill step, a captured CUDA graph per
-bucket on the card (``EngineCore._prefill``). An image prompt skips the
-prompt cache and leaves it claiming nothing. Not ported yet, and refused
-with ``InferenceError``: Gemma-3 image inputs (ROADMAP A9c-2) and
+(``pixel_values``, with ``image_kwargs={"grid_thw": ...}`` for Qwen2-VL,
+or images attached to chat messages): the vision tower runs eagerly over
+the whole prompt, then the prompt's embeddings (and a Qwen2-VL prompt's
+M-RoPE streams) ride the captured prefill, every head chunk of a Gemma-3
+prompt longer than its window included, and a Qwen2-VL prompt's decode
+steps turn rope at its offset (``pos_delta``). Every prefill (the
+prompt, its head chunks, ``cache_prompt``, each constrained extend) runs
+through the core's prefill step, a captured CUDA graph per bucket on the
+card (``EngineCore._prefill``). An image prompt skips the prompt cache
+and leaves it claiming nothing. Refused with ``InferenceError``:
 constrained decoding on an image prompt.
 """
 
@@ -33,6 +34,7 @@ import torch
 
 from pie_tpu_torch.cache.kv_cache import cache_kind, cache_tensors
 from pie_tpu_torch.engine.core import PAD_TOKEN, EngineCore, PenaltyParams
+from pie_tpu_torch.errors import InferenceError
 from pie_tpu_torch.ops.sampling import SamplingParams, sampler_kind_for
 from pie_tpu_torch.utils.device import host_tensor, resolve_device
 
@@ -43,8 +45,19 @@ PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 LOOKAHEAD = 3
 
 
-class InferenceError(Exception):
-    """Engine-level error surfaced to API handlers."""
+def tower_kwargs(model, image_kwargs) -> dict:
+    """``embed_with_images``' keyword arguments for an image request on
+    ``model``: a Qwen2-VL (M-RoPE) model's ``grid_thw``, which it needs;
+    Gemma-3's tower takes none."""
+    if getattr(model, "vision", None) is None:
+        raise InferenceError("image inputs need a model with a vision tower")
+    grid = (image_kwargs or {}).get("grid_thw")
+    mrope = getattr(model, "uses_mrope", False)
+    if mrope != (grid is not None):
+        raise InferenceError("an M-RoPE model's (Qwen2-VL) image inputs need "
+                             "image_kwargs={'grid_thw': ...}; other towers take "
+                             "no grid_thw")
+    return {"grid_thw": grid} if mrope else {}
 
 
 @dataclasses.dataclass
@@ -285,7 +298,7 @@ class InferenceEngine:
         if len(prompt_ids) > self.core.max_seq_len:
             raise InferenceError("prompt exceeds engine max_seq_len")
         first_pos = self._reuse_prefix(prompt_ids)
-        suffix, first_pos = self._prefill_head_chunks(
+        suffix, first_pos, _ = self._prefill_head_chunks(
             prompt_ids[first_pos:], first_pos, self._sampling({}),
             self._penalties({}), *self._empty_bias, "greedy")
         slen = len(suffix)
@@ -317,17 +330,19 @@ class InferenceEngine:
         return first_pos
 
     def _prefill_head_chunks(self, suffix, first_pos, sampling, penalties,
-                             bias_ids, bias_vals, skind):
+                             bias_ids, bias_vals, skind, embeds=None):
         """Split a long prompt into sequential prefill chunks when the model
         bounds how many tokens one forward may write (Gemma-3's rotating
         sliding-window store: a longer chunk would evict KV its own earlier
         queries need; ``prefill_chunk_bound``). Runs every chunk but the
         tail, whose sampling the caller owns, each at the largest prefill
         bucket within the bound (the bound itself when no bucket fits), and
-        returns the tail and its first position."""
+        returns the tail, its first position and its embeddings: an image
+        prompt's ``embeds`` [1, len(suffix), D] are sliced per chunk, which
+        replays the prefill keyed "embeds on"."""
         bound = getattr(self.model, "prefill_chunk_bound", None)
         if bound is None or len(suffix) <= bound:
-            return suffix, first_pos
+            return suffix, first_pos, embeds
         csize = max((b for b in PREFILL_BUCKETS if b <= bound), default=bound)
         off = 0
         while len(suffix) - off > csize:
@@ -336,9 +351,10 @@ class InferenceEngine:
                 np.asarray([suffix[off:off + csize]], np.int32),
                 self._one(csize), self._one(first_pos + off), sampling,
                 penalties, bias_ids, bias_vals, sampler_kind=skind,
+                inputs_embeds=None if embeds is None else embeds[:, off:off + csize],
             )
             off += csize
-        return suffix[off:], first_pos + off
+        return suffix[off:], first_pos + off, None if embeds is None else embeds[:, off:]
 
     def _cache_compatible(self, loaded) -> bool:
         """A disk hit is keyed by token ids only; a file from another model
@@ -350,24 +366,14 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
 
-    def _image_prompt(self, ids: np.ndarray, slen: int, pixel_values, image_kwargs):
-        """(inputs_embeds [1, bucket, D], positions3 [3, 1, bucket],
-        pos_delta) of an image prompt padded to its bucket: the vision
-        tower's features over the placeholders (run eagerly, now), the t/h/w
-        streams and the decode offset."""
-        grid = (image_kwargs or {}).get("grid_thw")
-        if getattr(self.model, "vision", None) is None:
-            raise InferenceError("image inputs need a model with a vision tower")
-        if grid is None or not getattr(self.model, "uses_mrope", False):
-            raise InferenceError("image inputs need an M-RoPE model (Qwen2-VL) and "
-                                 "image_kwargs={'grid_thw': ...}; Gemma-3's are "
-                                 "ROADMAP A9c-2")
-        from pie_tpu_torch.models.qwen2_vl import image_positions
-
+    def _image_embeds(self, prompt_ids, pixel_values, image_kwargs) -> torch.Tensor:
+        """The whole prompt's embeddings [1, len, D] with the vision tower's
+        features over its placeholders (the tower runs eagerly, now). A
+        Qwen2-VL model needs ``image_kwargs={"grid_thw": ...}``; Gemma-3's
+        tower takes no grid."""
+        kw = tower_kwargs(self.model, image_kwargs)
         px = torch.as_tensor(pixel_values).to(self.device)
-        embeds = self.model.embed_with_images(self.params, self._ids(ids), px, grid)
-        positions3, delta = image_positions(self.model, ids, grid, slen)
-        return embeds, positions3, delta
+        return self.model.embed_with_images(self.params, self._ids([prompt_ids]), px, **kw)
 
     def _run(self, prompt_ids, max_tokens, stop_token_ids, logprobs, kw,
              pixel_values=None, image_kwargs=None):
@@ -416,18 +422,27 @@ class InferenceEngine:
             kw.get("temperature", 1.0), kw.get("top_p", 1.0),
             kw.get("min_p", 0.0), kw.get("top_k", -1),
         )
-        suffix, first_pos = self._prefill_head_chunks(
+        # an image prompt is embedded whole (first_pos is 0): its head chunks
+        # and its tail take their slices
+        embeds = (self._image_embeds(prompt_ids, pixel_values, image_kwargs)
+                  if image else None)
+        suffix, first_pos, embeds = self._prefill_head_chunks(
             prompt_ids[first_pos:], first_pos, sampling, penalties, bias_ids,
-            bias_vals, skind)
+            bias_vals, skind, embeds)
         slen = len(suffix)
         ids = np.zeros((1, self._prefill_bucket(slen)), np.int32)
         ids[0, :slen] = suffix
-        embeds = positions3 = None
+        positions3 = None
         delta = 0
+        mrope = getattr(self.model, "uses_mrope", False)
         if image:
-            embeds, positions3, delta = self._image_prompt(ids, slen, pixel_values,
-                                                           image_kwargs)
-        if getattr(self.model, "uses_mrope", False):
+            embeds = torch.nn.functional.pad(embeds, (0, 0, 0, ids.shape[1] - slen))
+            if mrope:
+                from pie_tpu_torch.models.qwen2_vl import image_positions
+
+                positions3, delta = image_positions(self.model, ids,
+                                                    image_kwargs["grid_thw"], slen)
+        if mrope:
             self.core.set_pos_delta(self._one(delta))
         stop = np.full((_pow2_width(len(stop_token_ids)),), PAD_TOKEN, np.int32)
         stop[:len(stop_token_ids)] = list(stop_token_ids)
@@ -673,7 +688,7 @@ class InferenceEngine:
         if plen > self.core.max_seq_len - 1:
             raise InferenceError("prompt exceeds engine max_seq_len")
         # the prompt prefill is the first choice point
-        head, head_pos = self._prefill_head_chunks(
+        head, head_pos, _ = self._prefill_head_chunks(
             prompt_ids, 0, sampling, penalties, bias_ids, bias_vals, skind)
         tok, aux = dispatch(head, head_pos, build_mask(),
                             self._prefill_bucket(len(head)))
@@ -808,15 +823,21 @@ def _chat_run(
     image_token_id, tokens_per_image, image = None, 0, {}
     if sources:
         proc = getattr(engine, "image_processor", None)
-        image_token_id = getattr(engine.model.config, "image_token_id", None)
+        cfg = engine.model.config
+        image_token_id = getattr(cfg, "image_token_id", None)
         if proc is None or image_token_id is None:
             raise InferenceError("image inputs need a model with a vision tower")
         try:
-            pixels, grid = proc.batch(sources)
+            pixels = proc.batch(sources)
         except Exception as e:
             raise InferenceError(f"unreadable image: {e}") from e
-        image = {"pixel_values": pixels, "image_kwargs": {"grid_thw": grid}}
-        tokens_per_image = proc.tokens_per_image
+        if getattr(proc, "returns_grid", False):  # Qwen2-VL: patches and their grid
+            pixels, grid = pixels
+            image = {"pixel_values": pixels, "image_kwargs": {"grid_thw": grid}}
+            tokens_per_image = proc.tokens_per_image
+        else:  # Gemma-3: square images, mm_tokens_per_image placeholders each
+            image = {"pixel_values": pixels}
+            tokens_per_image = cfg.mm_tokens_per_image
 
     prompt_ids = tok.apply_chat_template(
         interactions, add_generation_prompt=True, tools=tools,

@@ -40,13 +40,14 @@ truth past it, and re-arms forced-token runs through the prefill rider or
 a direct prefill. A chunk with a mask runs the steps keyed by ``use_mask``;
 chunks without one keep their own steps and upload no mask.
 
-Image prompts (Qwen2-VL): a sequence carries its prompt's embeddings on
-the device (``prompt_embeds``, the vision tower's features over the
-placeholders), its M-RoPE streams (``positions3``) and its decode offset
-(``pos_delta``). It always prefills as rider slices (never a direct
-prefill, never the prefix store): a step whose slice carries embeddings
-copies them into the static rider-embeddings buffer before it runs and
-takes the graph keyed "embeds on". For an M-RoPE model every mixed step
+Image prompts (Qwen2-VL, Gemma-3): a sequence carries its prompt's
+embeddings on the device (``prompt_embeds``, the vision tower's features
+over the placeholders) and, for Qwen2-VL, its M-RoPE streams
+(``positions3``) and its decode offset (``pos_delta``). It always
+prefills as rider slices (never a direct prefill, never the prefix
+store): a step whose slice carries embeddings copies them into the static
+rider-embeddings buffer before it runs and takes the graph keyed "embeds
+on". For an M-RoPE model every mixed step
 reads the slice's streams from a static [3, Cs] buffer (text slices carry
 their positions) and every step reads the lanes' offsets from a static
 [B] buffer (zeros for text), so text and image lanes share the graphs.
@@ -160,8 +161,9 @@ class Sequence:
     prompt_embeds: Any = None
     positions3: Any = None
     pos_delta: int = 0
-    # pixel inputs not yet through the vision tower: (pixel_values,
-    # grid_thw), embedded by the batching service's scheduler thread
+    # pixel inputs not yet through the vision tower: (pixel_values, the
+    # tower's keyword arguments), embedded by the batching service's
+    # scheduler thread
     image_inputs: Any = None
 
     @property

@@ -23,10 +23,23 @@ product against the embedding table, as JAX leaves it to XLA: f32 on the
 CPU (JAX's ``preferred_element_type``), a bf16 GEMM with f32 accumulation
 on the card.
 
+``SigLipVision`` is the VLM's image half: the SigLIP encoder (a 14 x 14
+stride-14 patch embedding written as unfold plus a product, its bias and
+the learned position table, pre-LN blocks with biased q/k/v/o and the
+tanh-GELU MLP, the post-LN) and Gemma-3's projector (a 4 x 4 average pool
+of the patch grid, the (1 + w) RMS norm, the product into the text width).
+Its products are plain large matmuls in the promoted dtype of the pixels
+and the weights, f32 for f32 pixels as in JAX; it stays dense (never
+quantized) and runs eagerly, before the prefill. ``embed_with_images``
+writes the projected rows over the image placeholders in order (unscaled;
+the text rows carry sqrt(hidden)) and refuses a placeholder count other
+than images x ``mm_tokens_per_image``; ``__call__`` and ``mixed_forward``
+take the prompt's embeddings in place of its ids' (``inputs_embeds``,
+``pf_embeds``).
+
 The JAX package's Gemma-3 params carry across unchanged through
 ``models.llama.from_jax_params`` (same keys, stacked layers, quantized
-tensors repacked). The vision tower and image inputs are not ported yet
-(ROADMAP A9c-2): a config with a vision tower raises.
+tensors repacked, the tower under ``vision``).
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from pie_tpu_torch.cache.kv_cache import (
     scatter_drop,
 )
 from pie_tpu_torch.cache.paged import page_slots, scatter_tokens
+from pie_tpu_torch.errors import InferenceError
 from pie_tpu_torch.models.config import BaseConfig, _filter_kwargs
 from pie_tpu_torch.models.llama import (
     _f32_dot,
@@ -53,6 +67,12 @@ from pie_tpu_torch.models.llama import (
     linear,
 )
 from pie_tpu_torch.models.registry import register_model
+from pie_tpu_torch.models.vision_common import (
+    as_tensor,
+    layer_norm,
+    matmul_promoted,
+    scatter_image_features,
+)
 from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import QuantizedTensor, quantize
@@ -79,8 +99,10 @@ class Gemma3Config(BaseConfig):
     query_pre_attn_scalar: float = 256.0
     tie_word_embeddings: bool = True
     max_position_embeddings: int = 131072
-    # the vision tower's config (None: text only; a tower is not ported)
+    # the SigLIP tower's config (None: text only)
     vision: Optional[dict] = None
+    mm_tokens_per_image: int = 256
+    image_token_id: int = 262144  # <image_soft_token>; the VLM config sets it
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Gemma3Config":
@@ -88,6 +110,9 @@ class Gemma3Config(BaseConfig):
             td = dict(d["text_config"])
             td["model_type"] = "gemma3"
             td["vision"] = d.get("vision_config")
+            td["mm_tokens_per_image"] = d.get("mm_tokens_per_image", 256)
+            td["image_token_id"] = d.get("image_token_index",
+                                         d.get("image_token_id", 262144))
             if "tie_word_embeddings" in d:
                 td["tie_word_embeddings"] = d["tie_word_embeddings"]
             return cls(**_filter_kwargs(cls, td))
@@ -134,11 +159,10 @@ class Gemma3Model:
     }
 
     def __init__(self, config: Gemma3Config):
-        if config.vision:
-            raise ValueError("the Gemma-3 vision tower and image inputs are not "
-                             "ported yet (ROADMAP A9c-2); a text-only (gemma3_text) "
-                             "config is served")
         self.config = config
+        self.vision = (SigLipVision(config.vision, config.hidden_size,
+                                    config.mm_tokens_per_image)
+                       if config.vision else None)
         dh = config.head_dim
         inv_g = make_inv_freq(dh, config.rope_theta)
         rs = config.rope_scaling or {}
@@ -198,7 +222,7 @@ class Gemma3Model:
 
     def init_params(self, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> dict:
         """Random dense params (tests / synthetic runs); norms at zero (a
-        unit (1 + w) scale)."""
+        unit (1 + w) scale). The tower's come from ``vision.init_params``."""
         dev = resolve_device(device)
         cfg = self.config
         d, dh, di, l = (cfg.hidden_size, cfg.head_dim, cfg.intermediate_size,
@@ -227,7 +251,8 @@ class Gemma3Model:
                               device="cuda") -> dict:
         """Random params built directly in quantized form on ``device``
         (random codes, scales that keep each projection's output near unit
-        scale), for geometries whose dense init would not fit."""
+        scale), for geometries whose dense init would not fit. The tower's
+        come from ``vision.init_params``."""
         dev = resolve_device(device)
         cfg = self.config
         d, dh, di, l = (cfg.hidden_size, cfg.head_dim, cfg.intermediate_size,
@@ -266,9 +291,9 @@ class Gemma3Model:
         numpy arrays, linear weights [N, K]): linear weights turn to [K, N]
         and every per-layer weight stacks over layers. A VLM checkpoint's
         text model (``model.language_model.`` / ``language_model.model.``)
-        is found too."""
+        is found too, and its tower and projector go under ``vision``."""
         cfg = self.config
-        as_t = lambda a: a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        as_t = as_tensor
         prefix = "model.layers.{i}."
         if not any(k.startswith("model.layers.0.") for k in weights):
             prefix = "model.language_model.layers.{i}."
@@ -282,16 +307,19 @@ class Gemma3Model:
                 m = as_t(weights[prefix.format(i=i) + suffix]).to(dtype)
                 mats.append(m.T if name in self.LINEAR_KEYS else m)
             layers[name] = torch.stack(mats).contiguous()
-        return {
+        params = {
             "embed": as_t(weights[top + "embed_tokens.weight"]).to(dtype).contiguous(),
             "layers": layers,
             "norm": as_t(weights[top + "norm.weight"]).to(dtype).contiguous(),
         }
+        if self.vision is not None:
+            params["vision"] = self.vision.from_hf_state_dict(weights, dtype)
+        return params
 
     def quantize_params(self, params: dict, group_size: int = 64, bits: int = 4) -> dict:
         """Group-wise quantize every linear weight (eagerly; each projection
-        stays apart, as in JAX). The embedding stays dense: it is also the
-        unembedding."""
+        stays apart, as in JAX). The embedding stays dense (it is also the
+        unembedding), and so does the vision tower."""
         out = dict(params)
         layers = dict(params["layers"])
         for name in self.LINEAR_KEYS:
@@ -315,6 +343,30 @@ class Gemma3Model:
         if h.device.type == "cpu":
             return _f32_dot(h, e.T)
         return torch.matmul(h, e.T).to(torch.float32)
+
+    def embed_with_images(self, params: dict, input_ids: torch.Tensor,
+                          pixel_values=None) -> torch.Tensor:
+        """Token embeddings [B, T, D] with the projected image rows written
+        over the image placeholders in order (the n-th placeholder takes the
+        n-th row, across every image), unscaled and cast to the embedding's
+        dtype. Runs the tower eagerly. pixel_values [N, 3, H, W] (a tensor
+        or a host array). A placeholder count other than N x
+        ``mm_tokens_per_image`` raises ``InferenceError`` before the tower
+        runs (JAX clips the row index and repeats a row)."""
+        h = self.embed(params, input_ids)
+        if pixel_values is None or self.vision is None:
+            return h
+        cfg = self.config
+        n = int(pixel_values.shape[0])
+        have = int((input_ids == cfg.image_token_id).sum())
+        if have != n * cfg.mm_tokens_per_image:
+            raise InferenceError(
+                f"{have} image placeholders for {n} image(s) of "
+                f"{cfg.mm_tokens_per_image} tokens each")
+        vp = params["vision"]
+        proj = self.vision.project(vp, self.vision.forward(vp, pixel_values))
+        return scatter_image_features(h, input_ids, proj.reshape(-1, proj.shape[-1]),
+                                      (cfg.image_token_id,))
 
     # -- one decoder layer, around its attention ------------------------------
 
@@ -357,17 +409,16 @@ class Gemma3Model:
 
     def __call__(self, params: dict, input_ids: torch.Tensor, cache,
                  positions: torch.Tensor, inputs_embeds: Optional[torch.Tensor] = None,
-                 valid_lens: Optional[torch.Tensor] = None):
+                 pixel_values=None, valid_lens: Optional[torch.Tensor] = None):
         """Forward writing this chunk's K/V into the cache IN PLACE.
 
         input_ids [B, T]; cache a KVCache / QuantizedKVCache (every layer at
         full length, windows by mask) or a DualKVCache, already advanced for
-        these positions; positions [B, T]. Returns (logits [B, T, V] f32,
-        cache)."""
-        if inputs_embeds is not None:
-            raise NotImplementedError("Gemma-3 image inputs are not ported yet "
-                                      "(ROADMAP A9c-2)")
-        h = self.embed(params, input_ids)
+        these positions; positions [B, T]; inputs_embeds [B, T, D] (an image
+        prompt's embeddings) or pixel_values (the tower runs here). Returns
+        (logits [B, T, V] f32, cache)."""
+        h = (inputs_embeds if inputs_embeds is not None
+             else self.embed_with_images(params, input_ids, pixel_values))
         if isinstance(cache, DualKVCache):
             return self._dual_forward(params, h, cache, positions, valid_lens)
         cfg = self.config
@@ -518,19 +569,24 @@ class Gemma3Model:
         pf_ctx: torch.Tensor,  # [1] int32: rider-lane tokens in the pool AFTER
         #          this slice
         pf_any: bool = True,  # the rider carries a token
+        pf_embeds: Optional[torch.Tensor] = None,  # [Cs, D] the rider's image-
+        #          prompt embeddings, in place of its ids' embeddings
     ):
         """One mixed continuous-batching step (the contract of
         ``LlamaModel.mixed_forward``): every decode lane advances one token
         through the paged decode-attention kernel with its layer's window,
-        and a rider slice of prefill tokens writes its K/V through the same
-        pass over the weights, attending by a masked (windowed on sliding
-        layers) dense attention over its lane's gathered pages. Returns
-        (decode logits [B, V] f32, pool)."""
+        and a rider slice of prefill tokens (or of an image prompt's
+        embeddings) writes its K/V through the same pass over the weights,
+        attending by a masked (windowed on sliding layers) dense attention
+        over its lane's gathered pages. Returns (decode logits [B, V] f32,
+        pool)."""
         cfg = self.config
         b = dec_tokens.shape[0]
         cs = pf_ids.shape[0]
         positions = torch.cat([dec_positions, pf_positions])  # [M]
         h = self.embed(params, torch.clamp(torch.cat([dec_tokens, pf_ids]), min=0)[None])
+        if pf_embeds is not None:
+            h = torch.cat([h[:, :b], pf_embeds.to(h.dtype)[None]], dim=1)
         pf_table = block_tables[pf_lane.long()]  # [1, maxP]
         dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
                                         pool.num_pages)
@@ -559,3 +615,157 @@ class Gemma3Model:
                                       device=q.device)
             h = self._block_out(p, h, torch.cat([attn_dec, attn_pf])[None], i)
         return self._logits(params, h[:, :b])[0], pool
+
+
+# ---------------------------------------------------------------------------
+# SigLIP vision tower + projector
+# ---------------------------------------------------------------------------
+
+
+class SigLipVision:
+    """The SigLIP encoder and Gemma-3's multimodal projector (module
+    docstring), over a plain dict of tensors: ``patch_w`` [D, C, P, P],
+    ``patch_b``, ``pos`` [patches, D], ``post_ln_w`` / ``post_ln_b``,
+    ``encoder`` (per-block weights stacked over blocks, linear ones [K, N])
+    and the projector's ``proj_norm`` [D] and ``proj_w`` [D, text hidden]."""
+
+    HF_PREFIXES = ("model.vision_tower.vision_model.", "vision_tower.vision_model.")
+    HF_BLOCK_MAP = {
+        "ln1_w": "layer_norm1.weight", "ln1_b": "layer_norm1.bias",
+        "ln2_w": "layer_norm2.weight", "ln2_b": "layer_norm2.bias",
+        "wq": "self_attn.q_proj.weight", "bq": "self_attn.q_proj.bias",
+        "wk": "self_attn.k_proj.weight", "bk": "self_attn.k_proj.bias",
+        "wv": "self_attn.v_proj.weight", "bv": "self_attn.v_proj.bias",
+        "wo": "self_attn.out_proj.weight", "bo": "self_attn.out_proj.bias",
+        "fc1_w": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+        "fc2_w": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias",
+    }
+    # the projector lives beside the tower, under one of three names
+    PROJ_PREFIXES = ("model.multi_modal_projector.", "multi_modal_projector.")
+
+    def __init__(self, vcfg: dict, text_hidden: int, tokens_per_image: int):
+        self.hidden_size = vcfg.get("hidden_size", 1152)
+        self.image_size = vcfg.get("image_size", 224)
+        self.patch_size = vcfg.get("patch_size", 14)
+        self.num_layers = vcfg.get("num_hidden_layers", 27)
+        self.num_heads = vcfg.get("num_attention_heads", 16)
+        self.intermediate_size = vcfg.get("intermediate_size", 4304)
+        self.in_channels = vcfg.get("num_channels", 3)
+        self.eps = vcfg.get("layer_norm_eps", 1e-6)
+        self.patches = self.image_size // self.patch_size
+        self.text_hidden = text_hidden
+        self.tokens_per_image = tokens_per_image
+
+    def from_hf_state_dict(self, weights: dict, dtype=torch.bfloat16) -> dict:
+        """The tower's and the projector's params from an HF state dict
+        (either tower prefix; linear weights turn to [K, N] and stack over
+        blocks); {} when the dict holds no tower."""
+        pre = next((p for p in self.HF_PREFIXES if any(k.startswith(p) for k in weights)),
+                   None)
+        if pre is None:
+            return {}
+        g = lambda k: as_tensor(weights[pre + k]).to(dtype).contiguous()
+        enc = {}
+        for ours, theirs in self.HF_BLOCK_MAP.items():
+            mats = []
+            for i in range(self.num_layers):
+                m = as_tensor(weights[pre + f"encoder.layers.{i}." + theirs]).to(dtype)
+                mats.append(m.T if m.dim() == 2 else m)
+            enc[ours] = torch.stack(mats).contiguous()
+        top = pre.replace("vision_tower.vision_model.", "")
+
+        def gp(k):
+            for cand in (top + "multi_modal_projector." + k,
+                         *(p + k for p in self.PROJ_PREFIXES)):
+                if cand in weights:
+                    return as_tensor(weights[cand]).to(dtype).contiguous()
+            raise KeyError(k)
+
+        return {
+            "patch_w": g("embeddings.patch_embedding.weight"),  # [D, C, P, P]
+            "patch_b": g("embeddings.patch_embedding.bias"),
+            "pos": g("embeddings.position_embedding.weight"),
+            "post_ln_w": g("post_layernorm.weight"),
+            "post_ln_b": g("post_layernorm.bias"),
+            "encoder": enc,
+            "proj_norm": gp("mm_soft_emb_norm.weight"),
+            "proj_w": gp("mm_input_projection_weight"),
+        }
+
+    def init_params(self, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> dict:
+        """Random tower and projector params (synthetic runs): weights at
+        1/sqrt(fan-in), layer norms at one, biases and the position table
+        small, the projector's (1 + w) norm at zero."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d, l, di = self.hidden_size, self.num_layers, self.intermediate_size
+        pdim = self.in_channels * self.patch_size ** 2
+
+        def w(*shape, fan_in=None):
+            std = 1.0 / np.sqrt(fan_in or shape[-2])
+            return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+        def small(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
+        ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)
+        return {
+            "patch_w": w(d, self.in_channels, self.patch_size, self.patch_size,
+                         fan_in=pdim),
+            "patch_b": small(d), "pos": small(self.patches ** 2, d),
+            "post_ln_w": ones(d), "post_ln_b": small(d),
+            "encoder": {
+                "ln1_w": ones(l, d), "ln1_b": small(l, d),
+                "ln2_w": ones(l, d), "ln2_b": small(l, d),
+                "wq": w(l, d, d), "bq": small(l, d), "wk": w(l, d, d), "bk": small(l, d),
+                "wv": w(l, d, d), "bv": small(l, d), "wo": w(l, d, d), "bo": small(l, d),
+                "fc1_w": w(l, d, di), "fc1_b": small(l, di),
+                "fc2_w": w(l, di, d), "fc2_b": small(l, d),
+            },
+            "proj_norm": torch.zeros((d,), dtype=dtype, device=dev),
+            "proj_w": w(d, self.text_hidden),
+        }
+
+    def forward(self, vp: dict, pixel_values) -> torch.Tensor:
+        """pixel_values [N, C, H, W] (a tensor or a host array; moved to the
+        tower's device) -> the post-LN features [N, patches^2, D], in the
+        promoted dtype of the pixels and the weights."""
+        x = torch.as_tensor(pixel_values, device=vp["patch_w"].device)
+        n, c = x.shape[0], x.shape[1]
+        p = self.patch_size
+        gh, gw = x.shape[2] // p, x.shape[3] // p
+        # the stride-P convolution as unfold + product (VALID: a ragged edge
+        # is dropped)
+        x = x[:, :, :gh * p, :gw * p].reshape(n, c, gh, p, gw, p)
+        x = x.permute(0, 2, 4, 1, 3, 5).reshape(n, gh * gw, c * p * p)
+        d = vp["patch_w"].shape[0]
+        h = matmul_promoted(x, vp["patch_w"].reshape(d, -1).T, vp["patch_b"])
+        h = h + vp["pos"][: gh * gw].to(h.dtype)
+        t = gh * gw
+        heads = self.num_heads
+        hd = d // heads
+        enc = vp["encoder"]
+        for i in range(enc["wq"].shape[0]):
+            lp = {k: a[i] for k, a in enc.items()}
+            x = layer_norm(h, lp["ln1_w"], lp["ln1_b"], self.eps)
+            q = matmul_promoted(x, lp["wq"], lp["bq"]).reshape(n, t, heads, hd)
+            k = matmul_promoted(x, lp["wk"], lp["bk"]).reshape(n, t, heads, hd)
+            v = matmul_promoted(x, lp["wv"], lp["bv"]).reshape(n, t, heads, hd)
+            attn = sdpa(q, k, v, None, hd ** -0.5)
+            h = h + matmul_promoted(attn.reshape(n, t, d), lp["wo"], lp["bo"])
+            x = layer_norm(h, lp["ln2_w"], lp["ln2_b"], self.eps)
+            y = _gelu_tanh(matmul_promoted(x, lp["fc1_w"], lp["fc1_b"]))
+            h = h + matmul_promoted(y, lp["fc2_w"], lp["fc2_b"])
+        return layer_norm(h, vp["post_ln_w"], vp["post_ln_b"], self.eps)
+
+    def project(self, vp: dict, feats: torch.Tensor) -> torch.Tensor:
+        """[N, patches^2, D] features -> [N, mm_tokens_per_image, text hidden]:
+        the k x k average pool of the patch grid, the (1 + w) RMS norm (eps
+        1e-6), the product, in the features' dtype."""
+        n, t, d = feats.shape
+        side = int(round(t ** 0.5))
+        ts = int(round(self.tokens_per_image ** 0.5))
+        k = side // ts
+        x = feats.reshape(n, ts, k, ts, k, d).mean(dim=(2, 4)).reshape(n, ts * ts, d)
+        x = _gemma_rms(x, vp["proj_norm"], 1e-6)
+        return torch.matmul(x, vp["proj_w"].to(x.dtype))

@@ -54,6 +54,12 @@ from pie_tpu_torch.models.llama import (
     rms_norm,
 )
 from pie_tpu_torch.models.registry import register_model
+from pie_tpu_torch.models.vision_common import (
+    as_tensor,
+    layer_norm,
+    matmul_promoted,
+    scatter_image_features,
+)
 from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import QuantizedTensor, quantize
@@ -121,20 +127,6 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, inv_freq: torch.Tenso
 def text_positions3(positions: torch.Tensor) -> torch.Tensor:
     """Text tokens: all three streams share the position."""
     return positions[None].expand((3,) + tuple(positions.shape))
-
-
-def scatter_image_features(h: torch.Tensor, input_ids: torch.Tensor,
-                           feats: torch.Tensor, image_ids) -> torch.Tensor:
-    """Token embeddings h [B, T, D] with the merged vision features [N, D]
-    written over the image / video placeholders in order (a cumsum
-    scatter, no host read)."""
-    is_img = torch.zeros_like(input_ids, dtype=torch.bool)
-    for tid in image_ids:
-        is_img |= input_ids == tid
-    idx = torch.clamp(torch.cumsum(is_img.reshape(-1).to(torch.int64), 0) - 1,
-                      0, feats.shape[0] - 1)
-    img = feats[idx].reshape(h.shape).to(h.dtype)
-    return torch.where(is_img[..., None], img, h)
 
 
 def mrope_positions(input_ids: np.ndarray, image_token_id: int,
@@ -310,7 +302,7 @@ class Qwen2VLModel:
         linear weights turn to [K, N], per-layer weights stack over layers,
         the tower's under ``vision``."""
         cfg = self.config
-        as_t = _as_tensor
+        as_t = as_tensor
         prefix, top = "model.layers.{i}.", "model."
         if not any(k.startswith("model.layers.0.") for k in weights):
             prefix, top = "model.language_model.layers.{i}.", "model.language_model."
@@ -566,35 +558,15 @@ class Qwen2VLModel:
         return self._logits(params, h[:, :b])[0], pool
 
 
-def _as_tensor(a) -> torch.Tensor:
-    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
-
-
 # ---------------------------------------------------------------------------
 # vision tower
 # ---------------------------------------------------------------------------
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
-    """``x @ w + b`` in the promoted dtype of x and w (JAX's promotion:
-    bf16 weights on f32 pixels compute in f32)."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    y = torch.matmul(x.to(dt), w.to(dt))
-    return y if b is None else y + b.to(dt)
 
 
 def _rms(x, w, eps):
     xf = x.to(torch.float32)
     inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * inv * w.to(torch.float32)).to(x.dtype)
-
-
-def _ln(x, w, b, eps):
-    xf = x.to(torch.float32)
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
 
 
 def _gelu(x):
@@ -654,12 +626,12 @@ class Qwen2VisionTower:
     def from_hf_state_dict(self, weights: dict, dtype=torch.bfloat16) -> dict:
         pre = ("visual." if any(k.startswith("visual.") for k in weights)
                else "model.visual.")
-        g = lambda k: _as_tensor(weights[pre + k]).to(dtype).contiguous()
+        g = lambda k: as_tensor(weights[pre + k]).to(dtype).contiguous()
         blocks = {}
         for ours, theirs in self._names().items():
             mats = []
             for i in range(self.depth):
-                m = _as_tensor(weights[pre + f"blocks.{i}." + theirs]).to(dtype)
+                m = as_tensor(weights[pre + f"blocks.{i}." + theirs]).to(dtype)
                 mats.append(m.T if m.dim() == 2 else m)
             blocks[ours] = torch.stack(mats).contiguous()
         out = {
@@ -776,7 +748,7 @@ class Qwen2VisionTower:
         dev = vp["patch_w"].device
         x = torch.as_tensor(pixel_values, device=dev)
         d = vp["patch_w"].shape[0]
-        h = _mm(x, vp["patch_w"].reshape(d, -1).T)  # patch embedding
+        h = matmul_promoted(x, vp["patch_w"].reshape(d, -1).T)  # patch embedding
         grid = np.asarray(grid_thw)
         hw = self._rot_pos(grid)  # [N, 2]
         n = h.shape[0]
@@ -806,29 +778,31 @@ class Qwen2VisionTower:
             if self.windowed:
                 x = _rms(h, p["ln1_w"], 1e-6)
             else:
-                x = _ln(h, p["ln1_w"], p["ln1_b"], 1e-6)
-            qkv = _mm(x, p["qkv_w"], p["qkv_b"]).reshape(n, 3, heads, head_dim)
+                x = layer_norm(h, p["ln1_w"], p["ln1_b"], 1e-6)
+            qkv = matmul_promoted(x, p["qkv_w"], p["qkv_b"]).reshape(n, 3, heads, head_dim)
             q = apply_rope_tables(qkv[None, :, 0], cos, sin)
             k = apply_rope_tables(qkv[None, :, 1], cos, sin)
             attn = sdpa(q, k, qkv[None, :, 2], mask_full if i in is_full else mask_win,
                         head_dim ** -0.5)[0]
-            h = h + _mm(attn.reshape(n, -1), p["proj_w"], p["proj_b"])
+            h = h + matmul_promoted(attn.reshape(n, -1), p["proj_w"], p["proj_b"])
             if self.windowed:  # gated SiLU
                 x = _rms(h, p["ln2_w"], 1e-6)
-                y = _mm(self.act(_mm(x, p["gate_w"], p["gate_b"]))
-                        * _mm(x, p["up_w"], p["up_b"]), p["down_w"], p["down_b"])
+                y = (self.act(matmul_promoted(x, p["gate_w"], p["gate_b"]))
+                     * matmul_promoted(x, p["up_w"], p["up_b"]))
+                y = matmul_promoted(y, p["down_w"], p["down_b"])
             else:
-                x = _ln(h, p["ln2_w"], p["ln2_b"], 1e-6)
-                y = _mm(self.act(_mm(x, p["fc1_w"], p["fc1_b"])), p["fc2_w"], p["fc2_b"])
+                x = layer_norm(h, p["ln2_w"], p["ln2_b"], 1e-6)
+                y = self.act(matmul_promoted(x, p["fc1_w"], p["fc1_b"]))
+                y = matmul_promoted(y, p["fc2_w"], p["fc2_b"])
             h = h + y
         # PatchMerger: norm, group each merge unit, MLP
         if self.windowed:
             h = _rms(h, vp["merger_ln_w"], 1e-6)
         else:
-            h = _ln(h, vp["merger_ln_w"], vp["merger_ln_b"], 1e-6)
+            h = layer_norm(h, vp["merger_ln_w"], vp["merger_ln_b"], 1e-6)
         h = h.reshape(-1, m2 * self.embed_dim)
-        y = _gelu(_mm(h, vp["merger_fc1_w"], vp["merger_fc1_b"]))
-        out = _mm(y, vp["merger_fc2_w"], vp["merger_fc2_b"])
+        y = _gelu(matmul_promoted(h, vp["merger_fc1_w"], vp["merger_fc1_b"]))
+        out = matmul_promoted(y, vp["merger_fc2_w"], vp["merger_fc2_b"])
         if order is not None:  # undo the window permutation
             out = out[torch.from_numpy(np.argsort(order)).to(dev)]
         return out

@@ -845,6 +845,139 @@ def test_qwen_image_graphs_replay_the_eager_steps(cuda):
         assert _norm_err(got, want) < 1e-3
 
 
+GEMMA_IMAGE = 1000  # the small Gemma-3 VLM's image token
+
+
+def _to(tree, device):
+    """A params tree (quantized leaves included) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _gemma_vlm_graph_model(dev):
+    """``_gemma_graph_model``'s decoder with a random 2-block SigLIP tower
+    (width 128, 112-px images: 8 x 8 patches pooled 2 x 2 to 16 tokens)."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+
+    model = Gemma3Model(Gemma3Config(
+        hidden_size=1152, intermediate_size=6912, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=1, head_dim=256,
+        vocab_size=1024, sliding_window=64, sliding_window_pattern=2,
+        vision=dict(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                    num_attention_heads=2, image_size=112, patch_size=14),
+        mm_tokens_per_image=16, image_token_id=GEMMA_IMAGE))
+    params = model.init_quantized_params(seed=0, device=dev)
+    params["vision"] = model.vision.init_params(seed=1, device=dev)
+    return model, params
+
+
+def _gemma_image(model, params, dev, seed=0):
+    """(prompt, pixels, embeddings [plen, D]) of a 100-token prompt whose
+    one image (16 placeholders at 50-65) straddles the first 64-token head
+    chunk's end."""
+    import numpy as np
+
+    prompt = list(range(3, 53)) + [GEMMA_IMAGE] * 16 + list(range(60, 94))
+    px = np.random.default_rng(seed).standard_normal((1, 3, 112, 112)).astype(np.float32)
+    with torch.no_grad():
+        emb = model.embed_with_images(params, torch.tensor([prompt], device=dev),
+                                      torch.from_numpy(px).to(dev))[0]
+    return prompt, px, emb
+
+
+def test_gemma3_image_graphs_replay_the_eager_steps(cuda):
+    """Gemma-3's captured image prefill, a prompt past the window whose
+    head chunk and tail both carry their slices of the prompt's embeddings
+    (key "embeds on"), and its decode steps, and the paged mixed steps
+    with an image rider beside text lanes, give the tokens of the same
+    steps run eagerly on the card, logits within 1e-3 normalized, the
+    single stream's caches byte-equal; K3 runs once per layer per paged
+    step."""
+    from pie_tpu_torch.cache.kv_cache import cache_tensors
+
+    engines = _single_pair(cuda, _gemma_vlm_graph_model)
+    model, params = engines[0].model, engines[0].params
+    prompt, px, emb = _gemma_image(model, params, cuda)
+    taps = []
+    for e in engines:
+        e.core.graphs = _Tap(e.core.graphs)
+        taps.append(e.core.graphs)
+    outs = [e.generate(prompt, max_completion_tokens=24, temperature=0.0, pixel_values=px)
+            for e in engines]
+    assert outs[0].token_ids == outs[1].token_ids and len(outs[0].token_ids) == 24
+    embeds_on = [k for k in taps[0].inner.keys if k[0] == "prefill" and k[6]]
+    assert {k[1] for k in embeds_on} == {64}  # the head chunk and the tail's bucket
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+    caches = [cache_tensors(e.state.cache) for e in engines]
+    for name, t in caches[0].items():
+        assert torch.equal(t, caches[1][name]), name
+    again = engines[0].generate(prompt, max_completion_tokens=24, temperature=0.0,
+                                pixel_values=px)  # replays both image prefills
+    assert again.token_ids == outs[0].token_ids
+
+    scheds = _paged_pair(cuda, _gemma_vlm_graph_model)
+    taps, streams = [], []
+    for s in scheds:
+        s.engine.graphs = _Tap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+        qmc.reset_counts()
+        steps0 = s.engine.device_steps
+        seqs = [s.add_request(p, max_new_tokens=12, temperature=0.0)
+                for p in PAGED_PROMPTS[1:3]]
+        seqs.append(s.add_request(prompt, max_new_tokens=12, temperature=0.0,
+                                  prompt_embeds=emb))
+        s.run_to_completion(max_steps=200)
+        assert qmc.launch_counts["K3"] == 2 * (s.engine.device_steps - steps0) > 0
+        streams.append([q.output_ids for q in seqs])
+    assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
+    assert streams[0][2][0] == outs[0].token_ids[0]
+    assert any(k[0] == "mixed" and k[5] for k in taps[0].inner.keys)
+    for got, want in zip(taps[0].logits, taps[1].logits):
+        assert _norm_err(got, want) < 1e-3
+
+
+def test_gemma3_mixed_step_with_pf_embeds(cuda):
+    """Gemma-3's mixed step with an image rider (pf_embeds: the prompt's
+    first 40 embeddings, the image inside) on the card against the same
+    step's plain version on the CPU, over INT8 pools (normalized 0.03), and
+    the rider lane's K3-attended wake step against ``__call__``'s logits at
+    the same position on the card."""
+    import numpy as np
+
+    from pie_tpu_torch.cache.paged import PagedKVPool
+
+    model, params = _gemma_vlm_graph_model(cuda)
+    prompt = [3, 4] + [GEMMA_IMAGE] * 16 + list(range(5, 27))  # 40 tokens
+    px = np.random.default_rng(2).standard_normal((1, 3, 112, 112)).astype(np.float32)
+    cpu_params = _to(params, "cpu")
+    t = lambda a, d: torch.tensor(np.asarray(a), dtype=torch.int32, device=d)
+    out = {}
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        with torch.no_grad():
+            emb = model.embed_with_images(p, t([prompt], dev), torch.from_numpy(px).to(dev))[0]
+            pool = PagedKVPool.create(2, 8, 1, 256, torch.bfloat16, True, device=dev)
+            cs = 44
+            rider, rpos = np.full(cs, -1), np.full(cs, -1)
+            rider[:39], rpos[:39] = prompt[:39], np.arange(39)
+            pemb = torch.zeros((cs, emb.shape[-1]), dtype=emb.dtype, device=dev)
+            pemb[:39] = emb[:39]
+            tables = t([[3, 2, 1, 0], [7, 6, 5, 4]], dev)
+            logits, _ = model.mixed_forward(
+                p, pool, t([11, prompt[-1]], dev), t([0, 39], dev), t([1, 40], dev),
+                tables, t(rider, dev), t(rpos, dev), t([1], dev), t([39], dev),
+                pf_embeds=pemb)
+        out[dev] = logits.float().cpu()
+    assert _norm_err(out[cuda], out["cpu"]) < 0.03
+    cache = model.make_cache(1, 64, torch.bfloat16, device=cuda)
+    with torch.no_grad():
+        emb = model.embed_with_images(params, t([prompt], cuda), torch.from_numpy(px).to(cuda))
+        want, _ = model(params, t([prompt], cuda), cache.advance(t([0], cuda), 40),
+                        t([np.arange(40)], cuda), inputs_embeds=emb)
+    assert _norm_err(out[cuda][1], want[0, -1].float().cpu()) < 0.03
+
+
 class _PieceTokenizer:
     """A tokenizer of a few JSON pieces (id -> string): enough for the
     constrained lanes' masker, with no tokenizer package."""

@@ -168,16 +168,36 @@ def test_bf16_snapshot_loads_exactly(tmp_path):
 
 
 def test_other_families_name_the_roadmap(tmp_path):
-    """A Gemma-3 config with a vision tower (A9c) is refused before any
-    weight is read, naming its ROADMAP item; Qwen2-VL (A9b, ported) and
-    Qwen2.5-VL configs build their model."""
+    """A Gemma-3 snapshot with a vision tower (HF
+    Gemma3ForConditionalGeneration names, bf16, an INT4 g64 quantization
+    block) loads: the text decoder's projections INT4 g64, the SigLIP tower
+    and its projector bf16 and dense, bit for bit the snapshot's, the image
+    token and tokens per image read; Qwen2-VL and Qwen2.5-VL configs build
+    their model."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Model, SigLipVision
     from pie_tpu_torch.models.qwen2_vl import Qwen2VLModel
 
-    cfg = {"model_type": "gemma3", "text_config": {"hidden_size": 64},
-           "vision_config": {"hidden_size": 32}}
-    (tmp_path / "config.json").write_text(json.dumps(cfg))
-    with pytest.raises(ValueError, match="A9c"):
-        loader.load_model(tmp_path, device="cpu")
+    from test_torch_gemma3_vision import VLM_TINY
+
+    torch.manual_seed(0)
+    hf = transformers.Gemma3ForConditionalGeneration(transformers.Gemma3Config(**VLM_TINY))
+    snap = save_snapshot(tmp_path / "snap", hf, quant=QUANT, dtype=torch.bfloat16)
+    model, params = loader.load_model(snap, device="cpu")
+    assert isinstance(model, Gemma3Model) and isinstance(model.vision, SigLipVision)
+    assert (model.config.image_token_id, model.config.mm_tokens_per_image) == (260, 4)
+    for name in Gemma3Model.LINEAR_KEYS:
+        q = params["layers"][name]
+        assert isinstance(q, QuantizedTensor) and (q.bits, q.group_size) == (4, 64)
+    sd = hf.state_dict()
+    tower = "model.vision_tower.vision_model."
+    vp = params["vision"]
+    for got, key in ((vp["patch_w"], "embeddings.patch_embedding.weight"),
+                     (vp["pos"], "embeddings.position_embedding.weight"),
+                     (vp["encoder"]["wq"][1].T, "encoder.layers.1.self_attn.q_proj.weight"),
+                     (vp["encoder"]["fc2_b"][0], "encoder.layers.0.mlp.fc2.bias")):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, sd[tower + key])
+    assert torch.equal(vp["proj_w"],
+                       sd["model.multi_modal_projector.mm_input_projection_weight"])
     for model_type in ("qwen2_vl", "qwen2_5_vl"):
         model = loader.build_model({"model_type": model_type, "hidden_size": 64,
                                     "num_attention_heads": 4})

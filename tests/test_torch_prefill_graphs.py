@@ -147,14 +147,29 @@ def _is_bool_index(index) -> bool:
     return any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in items)
 
 
+class _RefuseBoolIndex(torch.overrides.TorchFunctionMode):
+    """Indexing, or assigning through an index, by a boolean tensor raises.
+    A function mode sees every ``Tensor.__getitem__`` / ``__setitem__``
+    call without touching the class: replacing ``torch.Tensor.__getitem__``
+    and setting it back leaves CPython's sequence slot filled, which
+    changes later indexing in the same process (HF's Qwen2-VL
+    ``get_rope_index`` then fails with "len() of a 0-d tensor")."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__getitem__ and _is_bool_index(args[1]):
+            raise AssertionError("boolean-mask indexing inside a step")
+        if func is torch.Tensor.__setitem__ and _is_bool_index(args[1]):
+            raise AssertionError("boolean-mask index assignment inside a step")
+        return func(*args, **(kwargs or {}))
+
+
 @contextlib.contextmanager
 def _strict_reads():
     """test_torch_compiled_steps's guard (``__bool__``, ``item``, ``cpu``
     ...) plus what reads a count back on the card without those methods:
     ``nonzero``, ``masked_select``, one-argument ``torch.where`` and
     indexing by a boolean tensor raise."""
-    t_saved = {n: getattr(torch.Tensor, n) for n in
-               ("nonzero", "masked_select", "__getitem__", "__setitem__")}
+    t_saved = {n: getattr(torch.Tensor, n) for n in ("nonzero", "masked_select")}
     f_saved = {n: getattr(torch, n) for n in ("nonzero", "masked_select", "where")}
 
     def refuse(name):
@@ -162,28 +177,16 @@ def _strict_reads():
             raise AssertionError(f"{name} inside a step")
         return call
 
-    def getitem(self, index):
-        if _is_bool_index(index):
-            raise AssertionError("boolean-mask indexing inside a step")
-        return t_saved["__getitem__"](self, index)
-
-    def setitem(self, index, value):
-        if _is_bool_index(index):
-            raise AssertionError("boolean-mask index assignment inside a step")
-        return t_saved["__setitem__"](self, index, value)
-
     def where(condition, *args, **kwargs):
         if not args and not kwargs:
             raise AssertionError("torch.where(condition) inside a step")
         return f_saved["where"](condition, *args, **kwargs)
 
     try:
-        with _no_host_reads():
+        with _no_host_reads(), _RefuseBoolIndex():
             for n in ("nonzero", "masked_select"):
                 setattr(torch.Tensor, n, refuse(f"Tensor.{n}"))
                 setattr(torch, n, refuse(f"torch.{n}"))
-            torch.Tensor.__getitem__ = getitem
-            torch.Tensor.__setitem__ = setitem
             torch.where = where
             yield
     finally:

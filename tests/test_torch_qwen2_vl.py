@@ -622,10 +622,20 @@ def test_qwen_entry_points_default_to_cuda():
 
 
 def test_gemma3_vision_still_refused():
-    """A Gemma-3 config with a vision tower raises, naming ROADMAP A9c."""
-    from pie_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+    """A Gemma-3 config with a vision tower builds its SigLIP tower (no
+    longer refused): the tower's geometry from vision_config, the
+    projector's from the text width and mm_tokens_per_image, the image
+    token from image_token_index, and the square SigLIP processor."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model, SigLipVision
+    from pie_tpu_torch.vision.utils import SiglipImageProcessor, make_image_processor
 
     cfg = Gemma3Config.from_dict({"model_type": "gemma3", "text_config": {"hidden_size": 64},
-                                  "vision_config": {"hidden_size": 32}})
-    with pytest.raises(ValueError, match="A9c"):
-        Gemma3Model(cfg)
+                                  "vision_config": {"hidden_size": 32, "image_size": 56},
+                                  "mm_tokens_per_image": 4, "image_token_index": 260})
+    model = Gemma3Model(cfg)
+    assert isinstance(model.vision, SigLipVision)
+    assert (model.vision.hidden_size, model.vision.patches, model.vision.text_hidden,
+            model.vision.tokens_per_image) == (32, 4, 64, 4)
+    assert cfg.image_token_id == 260
+    proc = make_image_processor(model)
+    assert isinstance(proc, SiglipImageProcessor) and proc.image_size == 56
