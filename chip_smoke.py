@@ -199,13 +199,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    single stream's; (d) one image chat over HTTP through create_app
    (needs Pillow).
 
+15. native scheduler: (a) g++ builds native/ (the C++ host runtime)
+   into build/pie_tpu_torch/native-<hash>/ beside the nvcc builds: the
+   compiler's version and the seconds; (b) (after 11, on the 8B weights)
+   8 distinct 64-token prompts x 128 greedy tokens through
+   BatchedInferenceEngine(scheduler_impl="native") (8 lanes, 112 INT8
+   pages): aggregate tok/s best of 2, the counted run's launches (per
+   decode step K1 129, its pre-pass 33, K3 32; per prefill K2 128 and the
+   head's one K1 row), each lane's first token equal to the single
+   stream's, the same prompts through the Python scheduler (tok/s, and
+   how many tokens each stream shares with the native one); steady native
+   steps (host ms, one decode step's device ms from CUDA events, 32
+   profiled steps: aten calls per step and the idle share); the captured
+   native prefill, first-token sample and decode step against an eager
+   twin (equal tokens, logits within 1e-3, byte-equal pools); a 16-layer
+   8B model check of the native decode step's logits against the CPU's
+   plain path over the pool the card's native prefills wrote (normalized
+   error < 0.03); (c) (after 10)
+   `python -m pie_tpu_torch.runtime.engine_main --kv-quantized` on the 1B
+   snapshot as a subprocess: start-to-ready seconds, an IpcFrontend's
+   warm-up request, 4 concurrent greedy requests (ms per request) equal
+   to an in-process native scheduler's, a fifth cancelled after two
+   tokens, SIGTERM -> exit 0 with the shm segment unlinked, the process's
+   K4 launches; (d) NATIVE_SCHEDULER=1 BATCHING=1 KV_QUANTIZED=1 serving
+   the snapshot: 4 concurrent chats (200), a json_schema chat sampled at
+   temperature 1 that parses to the schema, a logit_bias chat refused
+   (400, the native scheduler's reason).
+
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
 step), the 1B model check beside its reading before K2's single rounding
 (after phase 3b), a Gemma-3 summary, a Gemma-3 vision summary, a prefill summary (TTFT beside one
 prefill's device and enqueue time, the prefill graphs' captures, capture
-seconds and the pool per geometry), then the kernel summary
+seconds and the pool per geometry), a native-scheduler summary, then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
 shapes), the card's name and power
 limit, and
@@ -3847,6 +3874,443 @@ def phase_gemma3_vision(card):
     return dict(check=check, engine=eng, paged=paged, http=http_out)
 
 
+# -- phase 15: the native scheduler --------------------------------------------------
+
+
+def native_prompts(n=8, length=64, salt=0):
+    """``n`` distinct prompts of ``length`` tokens."""
+    return [[1 + (i * 37 + (j + salt) * 1013) % min(100000, VOCAB - 1)
+             for i in range(length)] for j in range(n)]
+
+
+class NativeTap:
+    """A step runner that keeps a copy of each native program's result: the
+    prefill's logits, the first sample's token, the decode step's logits."""
+
+    def __init__(self, inner):
+        self.inner, self.outs = inner, []
+
+    def __call__(self, key, fn, samples=False):
+        out = self.inner(key, fn, samples)
+        self.outs.append((key[0], out[1 if key[0] == "native" else 0].float().clone()))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def build_native():
+    """Phase 15a: g++ builds native/ into the port's build directory."""
+    from pie_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    row = dict(phase="native build", compiler=native.compiler_version(),
+               seconds=time.perf_counter() - t0, compile_seconds=native.build_seconds,
+               lib=str(path))
+    emit(row)
+    return row
+
+
+def native_service_run(model, params, impl, prompts, new, reps=2):
+    """The prompts, all at once from one thread each, through
+    BatchedInferenceEngine(scheduler_impl=impl) (8 lanes, 112 INT8 pages, 12
+    pages a sequence): the first run counted (launches, decode steps),
+    aggregate tok/s best of ``reps``. Returns (streams, tok/s, launches,
+    steps, graph stats)."""
+    import threading
+
+    from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+
+    service = BatchedInferenceEngine(model=model, params=params, num_lanes=len(prompts),
+                                     num_pages=112, max_pages_per_seq=12,
+                                     kv_quantized=True, scheduler_impl=impl)
+    try:
+        service.generate(prompts[0], max_completion_tokens=9, temperature=0.0)  # warm up
+        best = 0.0
+        for rep in range(reps):
+            out = [None] * len(prompts)
+
+            def one(i):
+                out[i] = service.generate(prompts[i], max_completion_tokens=new,
+                                          temperature=0.0).token_ids
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+            torch.cuda.synchronize()
+            qmc.reset_counts()
+            steps0 = service.core.device_steps
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            best = max(best, sum(len(o) for o in out) / (time.perf_counter() - t0))
+            if rep == 0:
+                launches = dict(qmc.launch_counts)
+                steps = service.core.device_steps - steps0
+                streams = out
+        if any(len(o) != new for o in streams):
+            raise AssertionError(f"{impl}: streams of {[len(o) for o in streams]} tokens")
+        return streams, best, launches, steps, service.core.graphs.stats()
+    finally:
+        service.shutdown()
+
+
+def native_steady(model, params, prompts, new):
+    """Steady native steps (every lane decoding, graphs captured): host ms
+    per step over 16 steps (the wall clock, the step's read back
+    included), device ms of one decode step from CUDA events around the
+    decode program alone (its uploads and its replay; median of 5), and
+    32 profiled steps (aten calls per step, the idle share)."""
+    import gc
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine
+    from pie_tpu_torch.ops.sampling import sampler_kind_for
+    from pie_tpu_torch.runtime.native_scheduler import NativeScheduler
+
+    engine = PagedEngine(model, params, num_lanes=len(prompts), num_pages=112,
+                         max_pages_per_seq=12, kv_quantized=True)
+    sched = NativeScheduler(engine)
+    reqs = [sched.add_request(p, max_new_tokens=new, temperature=0.0) for p in prompts]
+    for _ in range(4):
+        sched.step()
+    core = sched.core
+    if core.decode_view() != len(prompts):
+        raise AssertionError("native steady: not every lane decodes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        sched.step()
+    host = (time.perf_counter() - t0) / 16 * 1e3
+    core.decode_view()
+    act = core.active.astype(bool)
+    kind = sampler_kind_for(core.temperature[act], core.top_p[act], core.min_p[act],
+                            core.top_k[act])
+    args = (engine.params, core.last_tokens, core.context_lens, core.block_tables,
+            core.histories, sched._sampling(slice(None)), sched._penalties(slice(None)),
+            core.active, kind, False)
+    dev = sorted(event_ms(lambda: engine._decode(*args)) for _ in range(5))[2]
+    trace = profiled(lambda: [sched.step() for _ in range(32)])
+    trace["aten_calls_per_step"] = trace["aten_calls"] / 32
+    sched.run_to_completion()
+    if any(len(r.output_ids) != new for r in reqs):
+        raise AssertionError("native steady: a request came short")
+    stats = engine.graphs.stats()
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(host_ms_per_step=host, device_ms_per_step=dev,
+                idle_share_32_steps=trace["device_idle_share"],
+                aten_calls_per_step=trace["aten_calls_per_step"], profiled_32_steps=trace,
+                graphs=stats)
+
+
+def native_vs_eager(model, params, prompts, new=16):
+    """The native programs replayed from their graphs against the same
+    programs run eagerly on the card by a twin scheduler: equal tokens, every
+    prefill's and decode step's logits within 1e-3 normalized, equal first
+    tokens, byte-equal pools."""
+    import gc
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine
+    from pie_tpu_torch.runtime.native_scheduler import NativeScheduler
+
+    scheds = [NativeScheduler(PagedEngine(model, params, num_lanes=len(prompts),
+                                          num_pages=112, max_pages_per_seq=12,
+                                          kv_quantized=True)) for _ in range(2)]
+    scheds[1].engine.graphs = eager_steps(scheds[1].engine.graphs)
+    taps, streams = [], []
+    for s in scheds:
+        s.engine.graphs = NativeTap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+        reqs = [s.add_request(p, max_new_tokens=new, temperature=0.0) for p in prompts]
+        s.run_to_completion()
+        streams.append([r.output_ids for r in reqs])
+    if streams[0] != streams[1]:
+        raise AssertionError(f"native graphs vs eager: {streams}")
+    kinds = [k for k, _ in taps[0].outs]
+    if kinds != [k for k, _ in taps[1].outs]:
+        raise AssertionError("native graphs vs eager: different programs ran")
+    errs = {"native_prefill": 0.0, "native": 0.0}
+    for (kind, got), (_, want) in zip(taps[0].outs, taps[1].outs):
+        if kind == "first":
+            if not torch.equal(got, want):
+                raise AssertionError("native graphs vs eager: first tokens differ")
+            continue
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        errs[kind] = max(errs[kind], err)
+    pools = [[t for t in (s.engine.pool.k, s.engine.pool.v, s.engine.pool.k_scale,
+                          s.engine.pool.v_scale) if t is not None] for s in scheds]
+    pools_equal = all(torch.equal(a, b) for a, b in zip(*pools))
+    if not (max(errs.values()) < 1e-3 and pools_equal):
+        raise AssertionError(f"native graphs vs eager: {errs}, pools equal {pools_equal}")
+    row = dict(tokens_equal=True, prefill_logits_norm_err=errs["native_prefill"],
+               decode_logits_norm_err=errs["native"], pools_byte_equal=pools_equal,
+               programs={k: kinds.count(k) for k in sorted(set(kinds))},
+               replays=taps[0].inner.replays, captures=taps[0].inner.captures)
+    del scheds, taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def native_model_check(layers=16):
+    """The native decode step at the full 8B widths over ``layers`` layers
+    (random INT4 g64), card against the CPU's plain path on the same
+    weights: the card's native prefill writes three prompts (40, 20 and 33
+    tokens) into its INT8 pool, the CPU engine's pool takes a copy, and one
+    ``_decode`` step with the three lanes active and one frozen runs on
+    both; the normalized max error of its logits (limit 0.03). One CPU
+    pass over the 16 layers and the head takes ~50 s, so the prefills run
+    on the card only (phase 3 holds the paged prefill against the CPU)."""
+    import gc
+
+    import numpy as np
+
+    from pie_tpu_torch.engine.scheduler import HISTORY_LEN, PagedEngine
+    from pie_tpu_torch.models.llama import LlamaModel
+
+    model = LlamaModel(llama8b_config(layers))
+    gpu_params = model.init_quantized_params(seed=3, group_size=64, bits=4)
+    params = {"cuda": gpu_params, "cpu": to_device(gpu_params, "cpu")}
+    engines = {d: PagedEngine(model, params[d], num_lanes=4, num_pages=12,
+                              max_pages_per_seq=3, prefill_chunk=64, kv_quantized=True,
+                              device=d) for d in ("cpu", "cuda")}
+    tables = np.array([[3, 7, 10], [11, 0, 5], [9, 2, 6], [-1, -1, -1]], np.int32)
+    lens = (40, 20, 33)
+    prompts = np.random.default_rng(6).integers(0, VOCAB, (3, 40)).astype(np.int32)
+    gpu = engines["cuda"]
+    for lane, n in enumerate(lens):
+        ids = np.zeros((1, 64), np.int32)
+        pos = np.full((1, 64), -1, np.int32)
+        ids[0, :n], pos[0, :n] = prompts[lane, :n], np.arange(n)
+        gpu._prefill_logits(gpu.params, ids, pos, tables[lane:lane + 1],
+                            np.array([n], np.int32), n - 1)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        getattr(engines["cpu"].pool, name).copy_(getattr(gpu.pool, name).cpu())
+    samp = {"temperature": np.zeros(4, np.float32), "top_p": np.ones(4, np.float32),
+            "min_p": np.zeros(4, np.float32), "top_k": np.full(4, -1, np.int32)}
+    pen = {"repetition": np.ones(4, np.float32), "presence": np.zeros(4, np.float32),
+           "frequency": np.zeros(4, np.float32)}
+    last = np.array([11, 12, 13, 0], np.int32)
+    ctx = np.array([n + 1 for n in lens] + [0], np.int32)
+    hist = np.full((4, HISTORY_LEN), -1, np.int32)
+    t0 = time.perf_counter()
+    out = {d: e._decode(e.params, last, ctx, tables, hist, samp, pen,
+                        np.array([1, 1, 1, 0], np.uint8), "greedy", False)[1][:3].float().cpu()
+           for d, e in engines.items()}
+    err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+    if not (torch.isfinite(out["cuda"]).all() and err < 0.03):
+        raise AssertionError(f"native model check: err {err}")
+    row = dict(layers=layers, widths="llama3-8b", kv="int8 paged", lanes="3 of 4 active",
+               norm_err=err, decode_seconds=time.perf_counter() - t0, limit=0.03)
+    del engines, params, gpu_params, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_native_8b(single, card):
+    """Phase 15b: the native scheduler at the full 8B width (the single-stream
+    engine's 32-layer random INT4 g64 weights, 8 lanes, INT8 pages)."""
+    model, params = single.model, single.params
+    lanes, new = 8, 128
+    prompts = native_prompts(lanes)
+    streams, tok_s, launches, steps, graphs = native_service_run(
+        model, params, "native", prompts, new)
+    n_prefill = len(prompts)  # each 64-token prompt is one bucket-64 chunk
+    want = dict(K3=LAYERS * steps, K2=(4 * LAYERS) * n_prefill,
+                K1=(4 * LAYERS + 1) * steps + n_prefill)
+    want["K1 ln"] = (LAYERS + 1) * steps  # the paged decode folds ln1 and the final norm
+    if not (steps > 0 and all(launches[k] == v for k, v in want.items())):
+        raise AssertionError(f"native path launches {launches} over {steps} steps, "
+                             f"{n_prefill} prefills: want {want}")
+    first = [single.generate(p, max_completion_tokens=1, temperature=0.0).token_ids[0]
+             for p in prompts]
+    if [s[0] for s in streams] != first:
+        raise AssertionError(f"native first tokens {[s[0] for s in streams]} != "
+                             f"single stream's {first}")
+    py_streams, py_tok_s, py_launches, py_steps, _ = native_service_run(
+        model, params, "python", prompts, new)
+
+    def shared(a, b):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        return n
+
+    steady = native_steady(model, params, prompts, new)
+    eager = native_vs_eager(model, params, prompts)
+    row = dict(phase="native 8B", geometry="llama3-8b int4 g64", layers=LAYERS,
+               lanes=lanes, kv="int8 paged", prompts=f"{lanes} distinct x 64 tokens",
+               new_tokens=new, native_tok_s=tok_s, python_tok_s=py_tok_s,
+               native_decode_steps=steps, python_device_steps=py_steps,
+               launches=launches, per_step=dict(K1=(launches["K1"] - n_prefill) / steps,
+                                                K3=launches["K3"] / steps),
+               k2_per_prefill=launches["K2"] / n_prefill, python_launches=py_launches,
+               first_tokens_equal_single_stream=True,
+               tokens_shared_with_python=[shared(a, b) for a, b in zip(streams, py_streams)],
+               graphs=graphs, steady=steady, graphs_vs_eager=eager, card=card)
+    emit(row)
+    check = native_model_check()
+    emit(dict(phase="native model check", **check))
+    row["model_check"] = check
+    return row
+
+
+def phase_native_process(snap, card):
+    """Phase 15c: ``python -m pie_tpu_torch.runtime.engine_main`` on the 1B
+    snapshot (INT8 pages) as a subprocess; from this process an IpcFrontend
+    sends a warm-up request, then 4 greedy requests at once, then a fifth it
+    cancels after two tokens; the 4 streams must equal an in-process native
+    scheduler's on the same snapshot; SIGTERM must end the process with
+    code 0 and its shm segment unlinked."""
+    import gc
+    import os
+    import re
+    import signal
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine
+    from pie_tpu_torch.models.loader import load_model
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.runtime.ipc import IpcFrontend
+    from pie_tpu_torch.runtime.native_scheduler import NativeScheduler
+
+    prompts, new = native_prompts(4, salt=40), 32
+    name = f"/pie_smoke_{os.getpid()}"
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pie_tpu_torch.runtime.engine_main", "--model-path",
+         str(snap), "--channel", name, "--kv-quantized", "--log-level", "INFO"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fe = None
+    try:
+        while fe is None:
+            try:
+                fe = IpcFrontend(name)
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"engine process did not come up:\n"
+                                         f"{proc.stdout.read()[-4000:]}")
+                time.sleep(0.1)
+        ready = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        fe.collect(fe.submit(prompts[0], max_new_tokens=8, temperature=0.0), timeout_s=300)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        rids = [fe.submit(p, max_new_tokens=new, temperature=0.0) for p in prompts]
+        got = [fe.collect(rid, timeout_s=300) for rid in rids]
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        cancelled = fe.submit(prompts[1], max_new_tokens=300, temperature=0.0)
+        toks = []
+        for tok in fe.stream(cancelled, timeout_s=300):
+            toks.append(tok)
+            if len(toks) == 2:
+                fe.cancel(cancelled)
+        reason = fe.last_finish_reason
+    finally:
+        if fe is not None:
+            fe.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            log, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+    shm_gone = not Path("/dev/shm", name.lstrip("/")).exists()
+    m = re.search(r"launches (\{.*\})", log)
+    proc_launches = json.loads(m.group(1)) if m else None
+    if not (proc.returncode == 0 and shm_gone and reason == "cancelled"
+            and all(r == "length" for _, r in got) and proc_launches
+            and proc_launches["K4"] > 0):
+        raise AssertionError(f"engine process: rc {proc.returncode}, shm gone {shm_gone}, "
+                             f"cancel {reason}, finishes {[r for _, r in got]}, "
+                             f"launches {proc_launches}:\n{log[-4000:]}")
+
+    # the same requests through an in-process native scheduler on the snapshot
+    model, params = load_model(snap)
+    engine = PagedEngine(model, params, num_lanes=8, num_pages=1024, max_pages_per_seq=64,
+                         kv_quantized=True)
+    sched = NativeScheduler(engine)
+    reqs = [sched.add_request(p, max_new_tokens=new, temperature=0.0) for p in prompts]
+    qmc.reset_counts()
+    steps0 = engine.device_steps
+    sched.run_to_completion()
+    launches, steps = dict(qmc.launch_counts), engine.device_steps - steps0
+    want = [r.output_ids for r in reqs]
+    if [g for g, _ in got] != want:
+        raise AssertionError(f"engine process streams {[g for g, _ in got]} != "
+                             f"in-process {want}")
+    if launches["K4"] != LAYERS1 * steps:
+        raise AssertionError(f"1B native: {launches} over {steps} decode steps")
+    del sched, engine, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(phase="native engine process", entry="python -m "
+               "pie_tpu_torch.runtime.engine_main --kv-quantized", geometry="llama3.2-1b",
+               start_to_ready_s=ready, first_request_ms=first_ms,
+               requests=len(prompts), new_tokens=new, requests_wall_ms=wall_ms,
+               ms_per_request=wall_ms / len(prompts), cancelled_after=len(toks),
+               streams_equal_in_process=True, exit_code=proc.returncode,
+               shm_unlinked=shm_gone, process_launches=proc_launches,
+               in_process_launches=launches, in_process_decode_steps=steps,
+               k4_per_decode_step=launches["K4"] / steps, card=card)
+    emit(row)
+    return row
+
+
+def phase_native_serve(snap):
+    """Phase 15d: NATIVE_SCHEDULER=1 BATCHING=1 KV_QUANTIZED=1 serving the 1B
+    snapshot: 4 concurrent chats (200), a json_schema chat sampled at
+    temperature 1 (the native path takes no logit bias to steer random
+    weights, so greedy decoding would fill the budget with whitespace) that
+    parses to the schema, and a logit_bias chat refused with the native
+    scheduler's reason."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    chat = dict(messages=[{"role": "user", "content": "hello world"}], max_tokens=8,
+                temperature=0.0)
+
+    def ask(url):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            many = list(pool.map(lambda _: http("POST", f"{url}/v1/chat/completions",
+                                                chat), range(4)))
+        wall = (time.perf_counter() - t0) * 1e3
+        if any(status != 200 for status, _, _ in many):
+            raise AssertionError(f"native server chats: {[m[0] for m in many]} "
+                                 f"{many[0][2][:2000]}")
+        texts = {json.loads(t)["choices"][0]["message"]["content"] for _, _, t in many}
+        status, secs, text = http("POST", f"{url}/v1/chat/completions", dict(
+            chat, max_tokens=256, temperature=1.0, response_format={
+                "type": "json_schema", "json_schema": {"name": "t", "schema": SCHEMA}}))
+        if status != 200:
+            raise AssertionError(f"native json_schema chat: {status} {text[:2000]}")
+        content = json.loads(text)["choices"][0]["message"]["content"]
+        check_schema(content)
+        hello = word_tokenizer().encode("hello", add_bos=False)[0]
+        bstatus, _, btext = http("POST", f"{url}/v1/chat/completions",
+                                 dict(chat, logit_bias={str(hello): 100.0}))
+        message = json.loads(btext).get("error", {}).get("message", "")
+        if not (bstatus == 400 and "native scheduler" in message):
+            raise AssertionError(f"native logit_bias: {bstatus} {btext[:2000]}")
+        return dict(concurrent_ms=[m[1] * 1e3 for m in many], concurrent_wall_ms=wall,
+                    distinct_replies=len(texts), json_schema_ms=secs * 1e3,
+                    json_schema_content=content, logit_bias_status=bstatus,
+                    logit_bias_error=message)
+
+    env = {"BATCHING": "1", "NATIVE_SCHEDULER": "1", "KV_QUANTIZED": "1", "NUM_LANES": "8"}
+    startup, out = serve_and_ask(snap, env, ask)
+    row = dict(phase="native server", entry="python -m pie_tpu_torch.server", env=env,
+               startup_s=startup, **out)
+    emit(row)
+    return row
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3869,12 +4333,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import threading
+
     from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 
+    # phase 15a, g++ building native/, beside the nvcc builds
+    native_build = {}
+
+    def build_native_bg():
+        try:
+            native_build["row"] = build_native()
+        except BaseException as e:  # re-raised below, on the main thread
+            native_build["error"] = e
+
+    gxx = threading.Thread(target=build_native_bg)
+    gxx.start()
     t0 = time.perf_counter()
     paths = qmc.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libs=sorted(str(p) for p in paths.values())))
+    gxx.join()
+    if "error" in native_build:
+        raise native_build["error"]
 
     rows = timed("kernels K1/K2 8B", phase_kernels)
     rows_1b = timed("kernels K1/K2 1B", phase_kernels_1b)
@@ -3894,6 +4374,7 @@ def main() -> int:
           "llama3-8b int4 g64")
     timed("batched requests 8B", phase_batched_requests, engine.model, engine.params)
     timed("constrained 8B", phase_constrained, engine, card)
+    native8 = timed("native 8B", phase_native_8b, engine, card)
     del engine
     torch.cuda.empty_cache()
 
@@ -3907,6 +4388,8 @@ def main() -> int:
         del model1b
         torch.cuda.empty_cache()
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
+        native_proc = timed("native engine process 1B", phase_native_process, snap, card)
+        native_http = timed("native server 1B", phase_native_serve, snap)
     gemma = timed("gemma3", phase_gemma3, card)
     qwen = timed("qwen2.5-vl", phase_qwen2vl, card)
     gvis = timed("gemma3 vision", phase_gemma3_vision, card)
@@ -4078,6 +4561,24 @@ def main() -> int:
         ttft_under_load_p50_ms=dict(llama3_8b=paged["ttft_under_load_p50_ms"],
                                     llama32_1b=paged1b["ttft_under_load_p50_ms"]),
         aten_calls_per_8b_admission=paged["aten_calls_per_admission"]))
+    emit(dict(phase="summary native scheduler", card=card,
+              build=native_build["row"],
+              native_tok_s=native8["native_tok_s"], python_tok_s=native8["python_tok_s"],
+              host_ms_per_step=native8["steady"]["host_ms_per_step"],
+              device_ms_per_step=native8["steady"]["device_ms_per_step"],
+              idle_share_32_steps=native8["steady"]["idle_share_32_steps"],
+              aten_calls_per_step=native8["steady"]["aten_calls_per_step"],
+              graphs_by_kind=native8["graphs"]["by_kind"], launches=native8["launches"],
+              tokens_shared_with_python=native8["tokens_shared_with_python"],
+              graphs_vs_eager=native8["graphs_vs_eager"],
+              model_check=native8["model_check"]["norm_err"],
+              engine_process=dict((k, native_proc[k]) for k in (
+                  "start_to_ready_s", "first_request_ms", "ms_per_request",
+                  "process_launches", "k4_per_decode_step")),
+              server=dict(startup_s=native_http["startup_s"],
+                          concurrent_wall_ms=native_http["concurrent_wall_ms"],
+                          json_schema_content=native_http["json_schema_content"],
+                          logit_bias_status=native_http["logit_bias_status"])))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

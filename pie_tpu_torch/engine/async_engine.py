@@ -16,13 +16,20 @@ Qwen2-VL, or images attached to chat messages) computes a Qwen2-VL
 prompt's M-RoPE streams and decode offset on the request thread (host
 arrays); the scheduler thread runs the vision tower (Qwen2-VL's or
 Gemma-3's SigLIP) before it queues the sequence, whose embeddings then
-prefill as rider slices beside the other lanes. Not ported yet, and
-refused with ``InferenceError``: the native scheduler
-(``scheduler_impl="native"``, ROADMAP A7).
+prefill as rider slices beside the other lanes.
+
+``scheduler_impl="native"`` runs the C++ host runtime instead
+(``runtime/native_scheduler.py``: admission, page tables and stop checks in
+``native/``, one decode step per token over ``PagedEngine``'s native
+programs), on the same scheduler thread (``_native_loop``). As in the JAX
+package it serves text requests, constrained ones included, and refuses
+image prompts and logit bias with an error finish; it also refuses XTC and
+DRY, which its C ABI cannot carry (the JAX package drops them silently).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import queue
 import threading
@@ -38,7 +45,7 @@ from pie_tpu_torch.engine.engine import (
     masked_text,
     tower_kwargs,
 )
-from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, Sequence
+from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, SeqStatus, Sequence
 from pie_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -69,10 +76,8 @@ class BatchedInferenceEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if scheduler_impl != "python":
-            raise InferenceError(
-                f"scheduler_impl={scheduler_impl!r}: only the python scheduler "
-                "is ported (the native one is ROADMAP A7)")
+        if scheduler_impl not in ("python", "native"):
+            raise ValueError(f"scheduler_impl={scheduler_impl!r}: 'python' or 'native'")
         if model is None:
             if model_path is None:
                 raise ValueError("need model+params or model_path")
@@ -95,7 +100,13 @@ class BatchedInferenceEngine:
             kv_dtype=kv_dtype, kv_quantized=kv_quantized, seed=seed,
             device=self.device,
         )
-        self.scheduler = Scheduler(self.core, decode_steps=decode_steps)
+        self.scheduler_impl = scheduler_impl
+        if scheduler_impl == "native":
+            from pie_tpu_torch.runtime.native_scheduler import NativeScheduler
+
+            self.scheduler = NativeScheduler(self.core)
+        else:
+            self.scheduler = Scheduler(self.core, decode_steps=decode_steps)
         self._submit_q: queue.Queue = queue.Queue()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -110,7 +121,8 @@ class BatchedInferenceEngine:
         with self._start_lock:
             if self._thread is not None:
                 return
-            self._thread = threading.Thread(target=self._loop, name="pie-scheduler",
+            loop = self._native_loop if self.scheduler_impl == "native" else self._loop
+            self._thread = threading.Thread(target=loop, name="pie-scheduler",
                                             daemon=True)
             self._thread.start()
 
@@ -146,6 +158,70 @@ class BatchedInferenceEngine:
                 for seq in list(sched.running.values()) + list(sched.waiting):
                     sched._finish(seq, "error: scheduler failure")
                 sched.waiting.clear()
+
+    def _native_loop(self):
+        """The scheduler thread over the C++ host runtime: admission, the
+        sequence lifecycle, page tables and stop checks run in native code;
+        this thread runs the device programs and bridges each request's
+        tokens and finish to its ``Sequence``."""
+        sched = self.scheduler
+        live: list = []  # (NativeRequest, Sequence) pairs in flight
+
+        def refuse(seq: Sequence, reason: str) -> None:
+            seq.finish_reason = f"error: {reason}"
+            if seq.on_finish:
+                seq.on_finish(seq)
+
+        while not self._stop.is_set():
+            try:
+                while True:
+                    seq = self._submit_q.get_nowait()
+                    if seq.image_inputs is not None or seq.logit_bias:
+                        refuse(seq, "the native scheduler serves text requests "
+                               "only (use scheduler_impl='python' for images or "
+                               "logit bias)")
+                        continue
+                    if seq.xtc_probability > 0.0 or seq.dry_multiplier > 0.0:
+                        refuse(seq, "the native scheduler has no XTC or DRY (its C "
+                               "ABI carries neither; use scheduler_impl='python')")
+                        continue
+                    req = sched.add_request(
+                        seq.prompt_ids, max_new_tokens=seq.max_new_tokens,
+                        stop_token_ids=seq.stop_token_ids,
+                        temperature=seq.temperature, top_p=seq.top_p,
+                        min_p=seq.min_p, top_k=seq.top_k,
+                        repetition_penalty=seq.repetition_penalty,
+                        presence_penalty=seq.presence_penalty,
+                        frequency_penalty=seq.frequency_penalty,
+                        machine=seq.machine, masker=seq.masker,
+                        state_kwargs=seq.state_kwargs,
+                    )
+                    req.on_token = functools.partial(_native_token, seq)
+                    req.on_finish = functools.partial(_native_finish, seq)
+                    live.append((req, seq))
+            except queue.Empty:
+                pass
+            for req, seq in live:
+                if seq.cancelled and not req.done:
+                    sched.cancel(req)
+            live = [(r, s) for r, s in live if not r.done]
+            if not sched.has_work:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
+            try:
+                sched.step()
+            except Exception:
+                logger.exception("native scheduler step failed")
+                # finish every sequence in the core (freeing its lane and
+                # pages) so that its caller unblocks and the engine serves on
+                for req, seq in live:
+                    sched.core.finish_external(req.seq_id, 3)  # as cancelled
+                    sched.core.release(req.seq_id)
+                    sched.requests.pop(req.seq_id, None)
+                    refuse(seq, "scheduler failure")
+                live.clear()
+                sched.core.pop_finished(cap=max(64, sched.core.num_lanes * 8))
 
     def _embed_images(self, seq: Sequence) -> bool:
         """On the scheduler thread: run the vision tower over a sequence's
@@ -211,6 +287,10 @@ class BatchedInferenceEngine:
         )
         if image is not None:
             seq.image_inputs, seq.positions3, seq.pos_delta = image
+        if self.scheduler_impl == "native":
+            # carried so that the native loop can refuse them
+            seq.xtc_probability = float(kwargs.get("xtc_probability", 0.0))
+            seq.dry_multiplier = float(kwargs.get("dry_multiplier", 0.0))
         seq.on_token = lambda s, t: out_q.put(t)
         seq.on_finish = lambda s: out_q.put(_SENTINEL)
         self._submit_q.put(seq)
@@ -333,3 +413,24 @@ class BatchedInferenceEngine:
                 next(gen)
             except StopIteration as e:
                 return e.value
+
+
+def _native_token(seq: Sequence, req, tok: int) -> None:
+    """A native request's token, handed to its ``Sequence``."""
+    seq.output_ids.append(int(tok))
+    if seq.on_token:
+        try:
+            seq.on_token(seq, int(tok))
+        except Exception:  # pragma: no cover
+            logger.exception("on_token callback failed")
+
+
+def _native_finish(seq: Sequence, req) -> None:
+    """A native request's finish, handed to its ``Sequence``."""
+    seq.finish_reason = req.finish_reason or "stop"
+    seq.status = SeqStatus.COMPLETED
+    if seq.on_finish:
+        try:
+            seq.on_finish(seq)
+        except Exception:  # pragma: no cover
+            logger.exception("on_finish callback failed")

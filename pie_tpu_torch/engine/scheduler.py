@@ -51,8 +51,12 @@ on". For an M-RoPE model every mixed step
 reads the slice's streams from a static [3, Cs] buffer (text slices carry
 their positions) and every step reads the lanes' offsets from a static
 [B] buffer (zeros for text), so text and image lanes share the graphs.
-Not ported: the native scheduler's ``_decode_impl`` /
-``_sample_first_impl`` (ROADMAP A7).
+The native scheduler (``runtime/native_scheduler.py``, the C++ core of
+``native/``) drives three more programs of ``PagedEngine``, each a graph
+over static buffers: ``_prefill_logits`` (a prefill chunk that also
+returns its last row's logits), ``_sample_first`` (the first token, after
+the request's mask and penalties) and ``_decode`` (one batched step whose
+tokens the host reads back, once per token).
 """
 
 from __future__ import annotations
@@ -221,11 +225,60 @@ class WakePlan:
     hist: np.ndarray  # [B, H] history seeded with the prompt tail
 
 
+@dataclasses.dataclass
+class NativeInputs:
+    """Static inputs of the native scheduler's programs at batch ``b``. The
+    lane state and request parameters are packed as int32 [last | ctx |
+    active | top_k | table | hist] and f32 [temperature | top_p | min_p |
+    repetition | presence | frequency], so each pack goes to the device in
+    one copy (``pack``); the fields are views of the two packs."""
+
+    i32: torch.Tensor
+    f32: torch.Tensor
+    last: torch.Tensor  # [b] next input token
+    ctx: torch.Tensor  # [b] tokens of the sequence, the input included
+    active: torch.Tensor  # [b] 1 = the lane decodes
+    table: torch.Tensor  # [b, maxP] block table
+    hist: torch.Tensor  # [b, H] recent tokens (-1 pad)
+    sampling: SamplingParams
+    pen: PenaltyParams
+    pos_delta: torch.Tensor  # [b] zeros: an M-RoPE model's text offset
+
+    @classmethod
+    def make(cls, b: int, max_pages: int, device) -> "NativeInputs":
+        i32 = torch.zeros((b * (4 + max_pages + HISTORY_LEN),), dtype=torch.int32,
+                          device=device)
+        f32 = torch.zeros((6 * b,), dtype=torch.float32, device=device)
+        iv = [i32[k * b:(k + 1) * b] for k in range(4)]
+        table = i32[4 * b:(4 + max_pages) * b].view(b, max_pages)
+        hist = i32[(4 + max_pages) * b:].view(b, HISTORY_LEN)
+        fv = [f32[k * b:(k + 1) * b] for k in range(6)]
+        return cls(i32=i32, f32=f32, last=iv[0], ctx=iv[1], active=iv[2], table=table,
+                   hist=hist,
+                   sampling=SamplingParams(temperature=fv[0], top_p=fv[1], min_p=fv[2],
+                                           top_k=iv[3]),
+                   pen=PenaltyParams(repetition=fv[3], presence=fv[4], frequency=fv[5]),
+                   pos_delta=torch.zeros((b,), dtype=torch.int32, device=device))
+
+    @staticmethod
+    def pack(last, ctx, active, table, hist, sampling: dict, pen: dict) -> tuple:
+        """The host packs (int32, f32) of one program's inputs: ``sampling``
+        holds temperature / top_p / min_p / top_k, ``pen`` repetition /
+        presence / frequency, each [b]."""
+        i32 = np.concatenate([np.ravel(a).astype(np.int32, copy=False) for a in (
+            last, ctx, active, sampling["top_k"], table, hist)])
+        f32 = np.concatenate([np.ravel(a).astype(np.float32, copy=False) for a in (
+            sampling["temperature"], sampling["top_p"], sampling["min_p"],
+            pen["repetition"], pen["presence"], pen["frequency"])])
+        return i32, f32
+
+
 class PagedEngine:
     """The device side of the scheduler: the pool, the parameters, the
     static lane buffers and the device programs (the direct prefill, and
-    the rider-free and mixed steps of a chunk), all run through
-    ``StepGraphs``."""
+    the rider-free and mixed steps of a chunk; the native scheduler's
+    prefill with logits, first-token sample and decode step), all run
+    through ``StepGraphs``."""
 
     def __init__(
         self,
@@ -303,6 +356,14 @@ class PagedEngine:
         self._prefill_table = torch.full((1, max_pages_per_seq), -1, dtype=i32,
                                          device=dev)
         self._prefill_ctx = torch.zeros((1,), dtype=i32, device=dev)
+        # the native scheduler's static inputs (made at its first call): the
+        # decode lanes', the first sample's (batch 1) and its logits [1, V],
+        # the prefill's row to unembed
+        self._native: Optional[NativeInputs] = None
+        self._first: Optional[NativeInputs] = None
+        self._first_logits: Optional[torch.Tensor] = None
+        self._first_allowed: Optional[torch.Tensor] = None
+        self._prefill_last = torch.zeros((1,), dtype=torch.int64, device=dev)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """A copy of host array ``a`` on the engine's device, queued without
@@ -320,6 +381,12 @@ class PagedEngine:
         (ids and positions per chunk bucket T), then the chunk runs through
         ``self.graphs`` keyed by (T, params): a CUDA graph per bucket on
         the card, as ``jax.jit`` compiles one program per chunk shape."""
+        bufs = self._prefill_inputs(ids, positions, block_table, context_len)
+        self.graphs(("prefill", ids.shape[1], id(params)),
+                    functools.partial(self._prefill_step, params, *bufs))
+
+    def _prefill_inputs(self, ids, positions, block_table, context_len) -> tuple:
+        """Copy a prefill chunk's inputs into its bucket's static buffers."""
         t = ids.shape[1]
         bufs = self._prefill_in.get(t)
         if bufs is None:
@@ -329,8 +396,7 @@ class PagedEngine:
                 self._prefill_table, self._prefill_ctx)
         for buf, src in zip(bufs, (ids, positions, block_table, context_len)):
             upload(buf, src)
-        self.graphs(("prefill", t, id(params)),
-                    functools.partial(self._prefill_step, params, *bufs))
+        return bufs
 
     def _prefill_step(self, params, ids, positions, block_table, context_len):
         """The direct prefill over its static buffers (a graph's body)."""
@@ -486,6 +552,143 @@ class PagedEngine:
                 (self.rider_width, prompt_embeds.shape[-1]), dtype=prompt_embeds.dtype,
                 device=self.device)
         self._rider_embeds[:count].copy_(prompt_embeds[start:start + count])
+
+    # -- the native scheduler's programs ---------------------------------
+    # (runtime/native_scheduler.py drives them; the JAX package's
+    # _prefill_impl, _sample_first_impl and _decode_impl.) The C++ core
+    # stages whole prompts: a prefill writes every prompt token, the last
+    # row's logits give the first token, and each later token is one
+    # batched decode step whose tokens the host reads back.
+
+    @torch.no_grad()
+    def _prefill_logits(self, params, ids, positions, block_table, context_len,
+                        last_idx: int) -> torch.Tensor:
+        """One prefill chunk of ONE sequence that also returns the logits of
+        its row ``last_idx`` (host arrays as ``_prefill``'s). Runs through
+        ``self.graphs`` keyed ("native_prefill", T, params); only that row
+        is unembedded. Returns the first sample's static logits buffer
+        [1, V] f32, which holds a copy of them."""
+        bufs = self._prefill_inputs(ids, positions, block_table, context_len)
+        upload(self._prefill_last, np.array([last_idx], np.int64))
+        out = self.graphs(("native_prefill", ids.shape[1], id(params)),
+                          functools.partial(self._prefill_logits_step, params, *bufs))
+        self._first_inputs()
+        self._first_logits.copy_(out[0])
+        return self._first_logits
+
+    def _prefill_logits_step(self, params, ids, positions, block_table, context_len):
+        """The native prefill over its static buffers (a graph's body)."""
+        logits, _ = self.model.paged_forward(params, ids, self.pool, block_table,
+                                             positions, context_len,
+                                             last_idx=self._prefill_last)
+        return (logits[0],)
+
+    def _first_inputs(self) -> NativeInputs:
+        if self._first is None:
+            v = self.model.config.vocab_size
+            self._first = NativeInputs.make(1, 0, self.device)
+            self._first_logits = torch.zeros((1, v), dtype=torch.float32,
+                                             device=self.device)
+        return self._first
+
+    @torch.no_grad()
+    def _sample_first(self, logits, sampling: dict, pen: dict, history,
+                      sampler_kind: str, use_penalties: bool,
+                      mask: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The first token of a just-prefilled sequence from its logits
+        [1, V]: its mask (a constrained request's [V] bool row, JAX's
+        ``_mask_logits``), its penalties over ``history`` [1, H], then its
+        sampler. ``sampling`` / ``pen``: host arrays [1] (see
+        ``NativeInputs.pack``). Runs through ``self.graphs`` keyed ("first",
+        sampler kind, penalties on, mask on). Returns a [1] int32 tensor of
+        its own on the device."""
+        nf = self._first_inputs()
+        if logits is not self._first_logits:
+            self._first_logits.copy_(logits.reshape(1, -1))
+        i32, f32 = NativeInputs.pack([0], [0], [0], np.zeros((1, 0)), history,
+                                     sampling, pen)
+        upload(nf.i32, i32)
+        upload(nf.f32, f32)
+        if mask is not None:
+            if self._first_allowed is None:
+                self._first_allowed = torch.ones_like(self._first_logits,
+                                                      dtype=torch.bool)
+            upload(self._first_allowed, mask)
+        if sampler_kind not in SAMPLER_KINDS:
+            raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host")
+        out = self.graphs(
+            ("first", sampler_kind, use_penalties, mask is not None),
+            functools.partial(self._first_step, sampler_kind, use_penalties,
+                              mask is not None),
+            samples=sampler_kind != "greedy")
+        return out[0].clone()
+
+    def _first_step(self, sampler_kind: str, use_penalties: bool, use_mask: bool):
+        """The first-token sample over its static buffers (a graph's body)."""
+        nf, logits = self._first, self._first_logits
+        if use_mask:
+            logits = torch.where(self._first_allowed, logits,
+                                 torch.full_like(logits, -1e30))
+        if use_penalties:
+            logits = _penalize(logits, nf.hist, nf.pen)
+        return (sample(logits, nf.sampling, self.key, kind=sampler_kind),)
+
+    @torch.no_grad()
+    def _decode(self, params, last_tokens, context_lens, block_tables, histories,
+                sampling: dict, pen: dict, active, sampler_kind: str,
+                use_penalties: bool, mask: Optional[tuple] = None) -> tuple:
+        """One batched decode step over every lane (host arrays [B], as the
+        C++ core's ``decode_view`` fills them; ``context_lens`` counts the
+        input token). An active lane writes its input's K/V at
+        context_len - 1 and samples; an inactive one writes nowhere
+        (position -1) and emits PAD. ``mask``: (allowed [B, V] bool,
+        valid [B] bool) of the constrained lanes. Runs through
+        ``self.graphs`` keyed ("native", sampler kind, penalties on, mask
+        on, params). Returns (tokens [B] int32, a tensor of its own;
+        logits [B, V], the graph's, valid until its next replay)."""
+        if sampler_kind not in SAMPLER_KINDS:
+            raise ValueError(f"sampler kind {sampler_kind!r}: resolve it on the host")
+        if self._native is None:
+            self._native = NativeInputs.make(self.num_lanes, self.max_pages_per_seq,
+                                             self.device)
+        nb = self._native
+        i32, f32 = NativeInputs.pack(last_tokens, context_lens, active, block_tables,
+                                     histories, sampling, pen)
+        upload(nb.i32, i32)
+        upload(nb.f32, f32)
+        if mask is not None:
+            allowed, valid = mask
+            if self.allowed is None:
+                self.allowed = torch.ones(allowed.shape, dtype=torch.bool,
+                                          device=self.device)
+            upload(self.allowed, allowed)
+            upload(self.mask_valid, valid)
+        self.device_steps += 1
+        out = self.graphs(
+            ("native", sampler_kind, use_penalties, mask is not None, id(params)),
+            functools.partial(self._decode_step, params, sampler_kind, use_penalties,
+                              mask is not None),
+            samples=sampler_kind != "greedy")
+        return out[0].clone(), out[1]
+
+    def _decode_step(self, params, sampler_kind: str, use_penalties: bool,
+                     use_mask: bool):
+        """The native decode step over its static buffers (a graph's body)."""
+        nb = self._native
+        active = nb.active != 0
+        pos = torch.where(active, nb.ctx - 1, torch.full_like(nb.ctx, -1))
+        ctx = torch.where(active, nb.ctx, torch.ones_like(nb.ctx))
+        extra = {"pos_delta": nb.pos_delta} if self.mrope else {}
+        logits, _ = self.model.paged_forward(params, nb.last[:, None], self.pool,
+                                             nb.table, pos[:, None], ctx, **extra)
+        logits = logits[:, 0]
+        if use_penalties:
+            logits = _penalize(logits, nb.hist, nb.pen)
+        if use_mask:
+            logits = torch.where(self.mask_valid[:, None] & ~self.allowed,
+                                 torch.full_like(logits, -1e30), logits)
+        tok = sample(logits, nb.sampling, self.key, kind=sampler_kind)
+        return torch.where(active, tok, torch.full_like(tok, PAD_TOKEN)), logits
 
 
 class Scheduler:
@@ -1280,6 +1483,14 @@ class Scheduler:
                 seq.on_finish(seq)
             except Exception:  # pragma: no cover
                 logger.exception("on_finish callback failed")
+
+
+def _penalize(logits, hist, pen: PenaltyParams):
+    """Repetition, then presence / frequency penalties over ``hist`` (the
+    native programs' processors; they carry no DRY, which the native
+    scheduler refuses)."""
+    logits = repetition_penalty(logits, hist, pen.repetition)
+    return presence_frequency_penalty(logits, hist, pen.presence, pen.frequency)
 
 
 def _pos3_slice(seq: Sequence, pos: np.ndarray) -> np.ndarray:

@@ -521,13 +521,15 @@ class Gemma3Model:
         positions: torch.Tensor,  # [B, T] int32 (-1 = no write)
         context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
         with_logits: bool = True,
+        last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
     ):
         """Forward over the global paged pool. Decode (T == 1) attends
         through the paged decode-attention kernel with each layer's window
         (the kernel clips its page walk to it); a prefill chunk gathers its
         pages to dense K/V under the full or windowed mask. Returns (logits
         [B, T, V] f32, pool); with_logits=False stops after the last layer
-        and returns (None, pool)."""
+        and returns (None, pool); ``last_idx`` unembeds that one row only
+        (logits [B, 1, V])."""
         cfg = self.config
         h = self.embed(params, torch.clamp(input_ids, min=0))
         decode = h.shape[1] == 1
@@ -553,6 +555,8 @@ class Gemma3Model:
             h = self._block_out(p, h, attn, i)
         if not with_logits:
             return None, pool
+        if last_idx is not None:
+            h = h.index_select(1, last_idx)
         return self._logits(params, h), pool
 
     def mixed_forward(

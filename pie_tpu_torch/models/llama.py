@@ -542,12 +542,14 @@ class LlamaModel:
         positions: torch.Tensor,  # [B, T] int32 (-1 = no write)
         context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
         with_logits: bool = True,
+        last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
     ):
         """Forward over the global paged KV pool. Decode (T == 1) attends
         through the paged decode-attention kernel (K3 on the card); a
         prefill chunk gathers its pages to dense KV. Returns (logits
         [B, T, V] f32, pool); with_logits=False stops after the last layer
-        (a prefill whose logits nobody reads) and returns (None, pool)."""
+        (a prefill whose logits nobody reads) and returns (None, pool);
+        ``last_idx`` unembeds that one row only (logits [B, 1, V])."""
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -597,6 +599,8 @@ class LlamaModel:
                                 use_fused_mlp)
         if not with_logits:
             return None, pool
+        if last_idx is not None:
+            h = h.index_select(1, last_idx)
         if fused_ln and "lm_head" in params:
             logits = self.unembed(params, h, params["norm"], eps)
         else:

@@ -451,13 +451,15 @@ class Qwen2VLModel:
         context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
         with_logits: bool = True,
         pos_delta: Optional[torch.Tensor] = None,  # [B] int32 M-RoPE offset
+        last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
     ):
         """Forward over the global paged pool. Rope turns at positions -
         pos_delta (an image-bearing sequence's rope stream lags its KV
         slots; None or zeros: text) while the pool writes at positions.
         Decode (T == 1) attends through the paged decode-attention kernel, a
         prefill chunk gathers its pages to dense K/V. Returns (logits
-        [B, T, V] f32, pool); with_logits=False returns (None, pool)."""
+        [B, T, V] f32, pool); with_logits=False returns (None, pool);
+        ``last_idx`` unembeds that one row only (logits [B, 1, V])."""
         h = self.embed(params, torch.clamp(input_ids, min=0))
         decode = h.shape[1] == 1
         rope_pos = positions
@@ -482,6 +484,8 @@ class Qwen2VLModel:
             h = self._block_out(p, h, attn, i)
         if not with_logits:
             return None, pool
+        if last_idx is not None:
+            h = h.index_select(1, last_idx)
         return self._logits(params, h), pool
 
     def mixed_forward(

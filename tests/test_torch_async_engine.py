@@ -118,9 +118,9 @@ def test_oversized_and_unported_requests_are_refused(engines):
         batched.generate([1, 2], pixel_values=torch.zeros(1))
     with pytest.raises(InferenceError, match="empty prompt"):
         batched.generate_constrained([], machine=None)
-    with pytest.raises(InferenceError, match="native"):
+    with pytest.raises(ValueError, match="scheduler_impl"):
         BatchedInferenceEngine(model=batched.model, params=batched.params,
-                               scheduler_impl="native", device="cpu")
+                               scheduler_impl="rust", device="cpu")
 
 
 def test_failed_step_frees_lanes_and_engine_recovers(engines, monkeypatch):

@@ -515,6 +515,6 @@ def test_engine_streams_match_jax(engine_pair, plen):
     prompt = list(np.random.default_rng(plen).integers(1, 256, plen))
     out = {name: e.generate(prompt, max_completion_tokens=12, temperature=0.0).token_ids
            for name, e in engine_pair.items()}
-    assert len(out["jax"]) == 12
-    assert out["port"] == out["jax"]
-    assert out["port_batched"] == out["jax_batched"] == out["jax"]
+    assert len(out["jax"]) == 12, out
+    assert out["port"] == out["jax"], out
+    assert out["port_batched"] == out["jax_batched"] == out["jax"], out

@@ -54,6 +54,12 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.models.gemma3",
     "pie_tpu_torch.models.qwen2_vl",
     "pie_tpu_torch.vision.utils",
+    "pie_tpu_torch.runtime.native",
+    "pie_tpu_torch.runtime.native_scheduler",
+    "pie_tpu_torch.runtime.ipc",
+    "pie_tpu_torch.runtime.engine_main",
+    "pie_tpu_torch.engine.client",
+    "pie_tpu_torch.utils.profiling",
 ])
 def test_batching_modules_import_no_jax(module):
     """Each module of the continuous-batching path, and of the checkpoint
@@ -145,3 +151,8 @@ def test_entry_points_default_to_cuda():
             load(ROOT / "no-such-checkpoint")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model_path=str(ROOT / "no-such-checkpoint"))
+    from pie_tpu_torch.runtime import engine_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_main.main(["--model-path", str(ROOT / "no-such-checkpoint"),
+                          "--log-level", "WARNING"])

@@ -1167,6 +1167,93 @@ def test_steady_chunk_reads_nothing_back(cuda):
     assert all(len(s.output_ids) == 40 for s in seqs)
 
 
+# -- the native scheduler's programs --------------------------------------------------
+
+
+def _native_pair(dev):
+    """Two native schedulers over paged engines (4 lanes, INT8 pages) on the
+    graph model; the second runs its programs eagerly."""
+    from pie_tpu_torch.engine.scheduler import PagedEngine
+    from pie_tpu_torch.runtime.native_scheduler import NativeScheduler
+
+    model, params = _graph_model(dev)
+    scheds = [NativeScheduler(PagedEngine(model, params, num_lanes=4, num_pages=64,
+                                          max_pages_per_seq=8, prefill_chunk=64,
+                                          kv_quantized=True, device=dev))
+              for _ in range(2)]
+    scheds[1].engine.graphs = _eager(scheds[1].engine.graphs)
+    return scheds
+
+
+class _NativeTap:
+    """A step runner that keeps a copy of each native program's result: the
+    prefill's logits, the first sample's token, the decode step's logits."""
+
+    def __init__(self, inner):
+        self.inner, self.outs = inner, []
+
+    def __call__(self, key, fn, samples=False):
+        out = self.inner(key, fn, samples)
+        self.outs.append((key[0], out[1 if key[0] == "native" else 0].float().clone()))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def test_native_graphs_replay_the_eager_programs(cuda):
+    """The native prefill (a 100-token prompt in chunks of 64 and 36), the
+    first-token sample and the decode step, replayed from their graphs,
+    give the greedy tokens of the same programs run eagerly on the card,
+    logits within 1e-3 normalized, the pools byte-equal."""
+    scheds = _native_pair(cuda)
+    taps = []
+    for s in scheds:
+        s.engine.graphs = _NativeTap(s.engine.graphs)
+        taps.append(s.engine.graphs)
+    streams = []
+    for s in scheds:
+        reqs = [s.add_request(p, max_new_tokens=12, temperature=0.0) for p in PAGED_PROMPTS]
+        s.run_to_completion(max_steps=200)
+        streams.append([r.output_ids for r in reqs])
+    assert streams[0] == streams[1] and all(len(t) == 12 for t in streams[0])
+    assert {k[0] for k in taps[0].inner.keys} == {"native_prefill", "first", "native"}
+    assert taps[0].inner.replays > 0
+    assert [k for k, _ in taps[0].outs] == [k for k, _ in taps[1].outs]
+    for (kind, got), (_, want) in zip(taps[0].outs, taps[1].outs):
+        if kind == "first":
+            assert torch.equal(got, want)
+        else:
+            assert _norm_err(got, want) < 1e-3, kind
+    for a, b in zip(_pool_tensors(scheds[0].engine.pool), _pool_tensors(scheds[1].engine.pool)):
+        assert torch.equal(a, b)
+
+
+def test_steady_native_step_reads_back_once(cuda):
+    """Once every lane decodes and the step's graph is captured, a native
+    step makes one synchronizing call: the read of its [B] tokens."""
+    import warnings
+
+    sched = _native_pair(cuda)[0]
+    reqs = [sched.add_request(p, max_new_tokens=40, temperature=0.0)
+            for p in PAGED_PROMPTS]
+    for _ in range(3):
+        sched.step()
+    assert sched.core.decode_view() == len(PAGED_PROMPTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    sched.run_to_completion(max_steps=200)
+    assert all(len(r.output_ids) == 40 for r in reqs)
+
+
 # -- compiled prefills: every prefill as a CUDA graph ------------------------------
 
 

@@ -24,7 +24,6 @@ from pie_tpu.models.loader import load_model as jload_model
 from pie_tpu_torch.cache.kv_cache import make_kv_cache
 from pie_tpu_torch.engine import InferenceEngine
 from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
-from pie_tpu_torch.engine.engine import InferenceError
 from pie_tpu_torch.models import gguf as tgguf
 from pie_tpu_torch.models import loader
 from pie_tpu_torch.models.llama import LlamaConfig, LlamaModel, from_jax_params
@@ -680,32 +679,37 @@ def test_engines_from_model_path_match_jax(snapshot):
 @pytest.mark.parametrize("batching", [False, True])
 def test_create_app_from_model_path(snapshot, batching):
     """create_app builds the engine MODEL_PATH names and answers a chat;
-    NATIVE_SCHEDULER=1 is refused (ROADMAP A7)."""
+    with BATCHING=1 NATIVE_SCHEDULER=1 the engine runs the native scheduler
+    and answers the same chat."""
     from aiohttp.test_utils import TestClient, TestServer
 
     from pie_tpu_torch.server.app import ENGINE_KEY, create_app
     from pie_tpu_torch.server.config import Settings
 
-    settings = Settings(model_path=str(snapshot), batching=batching, max_seq_len=128)
-    app = create_app(settings=settings, device="cpu")
-    engine = app[ENGINE_KEY]
-    assert isinstance(engine, BatchedInferenceEngine) == batching
+    def chat(native):
+        settings = Settings(model_path=str(snapshot), batching=batching,
+                            max_seq_len=128, native_scheduler=native)
+        app = create_app(settings=settings, device="cpu")
+        engine = app[ENGINE_KEY]
+        assert isinstance(engine, BatchedInferenceEngine) == batching
 
-    async def run():
-        async with TestClient(TestServer(app)) as client:
-            resp = await client.post("/v1/chat/completions", json={
-                "messages": [{"role": "user", "content": "hello world"}],
-                "max_tokens": 4, "temperature": 0.0})
-            return resp.status, await resp.json()
+        async def run():
+            async with TestClient(TestServer(app)) as client:
+                resp = await client.post("/v1/chat/completions", json={
+                    "messages": [{"role": "user", "content": "hello world"}],
+                    "max_tokens": 4, "temperature": 0.0})
+                return resp.status, await resp.json()
 
-    try:
-        status, body = asyncio.run(run())
-    finally:
-        if batching:
-            engine.shutdown()
-    assert status == 200, body
-    assert body["usage"]["completion_tokens"] == 4
+        try:
+            status, body = asyncio.run(run())
+        finally:
+            if batching:
+                assert engine.scheduler_impl == ("native" if native else "python")
+                engine.shutdown()
+        assert status == 200, body
+        assert body["usage"]["completion_tokens"] == 4
+        return body["choices"][0]["message"]["content"]
+
+    text = chat(False)
     if batching:
-        with pytest.raises(InferenceError, match="A7"):
-            create_app(settings=Settings(model_path=str(snapshot), batching=True,
-                                         native_scheduler=True), device="cpu")
+        assert chat(True) == text

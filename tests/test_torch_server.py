@@ -233,20 +233,15 @@ def test_completions_logit_bias_forces_text(engine_fixture):
 
 def test_unported_settings_raise(engine_fixture):
     """BATCHING=1 refuses the single-stream engine; MODEL_PATH must name a
-    checkpoint, with or without BATCHING=1; NATIVE_SCHEDULER=1 asks for the
-    C++ scheduler, which is not ported (ROADMAP A7)."""
-    from pie_tpu_torch.engine.engine import InferenceError
-
+    checkpoint, with or without BATCHING=1, on either scheduler
+    (NATIVE_SCHEDULER=1 picks the C++ one)."""
     with pytest.raises(ValueError, match="BATCHING"):
         create_app(engine=engine_fixture, settings=Settings(batching=True),
                    device="cpu")
-    for batching in (False, True):
+    for batching, native in ((False, False), (True, False), (True, True)):
         with pytest.raises(FileNotFoundError, match="nonexistent"):
-            create_app(settings=Settings(model_path="/nonexistent",
-                                         batching=batching), device="cpu")
-    with pytest.raises(InferenceError, match="A7"):
-        create_app(settings=Settings(model_path="/nonexistent", batching=True,
-                                     native_scheduler=True), device="cpu")
+            create_app(settings=Settings(model_path="/nonexistent", batching=batching,
+                                         native_scheduler=native), device="cpu")
 
 
 def test_constrained_request_is_refused(engine_fixture):
