@@ -226,6 +226,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    temperature 1 that parses to the schema, a logit_bias chat refused
    (400, the native scheduler's reason).
 
+16. tensor and data parallelism (pie_tpu_torch/parallel/): (a) (after 15b,
+   on the 8B weights) the paged engine (8 lanes, 112 INT8 pages, phase 6's
+   prompt x 128 tokens) as rank 0 of a one-process NCCL mesh (tp = 1, dp
+   = 1, through parallel.distributed.initialize and make_mesh): its steps
+   replay CUDA graphs with the collectives captured inside; greedy tokens
+   equal to the group-less engine's bit for bit; tok/s of both in turns
+   (plain, mesh, mesh, plain); per steady step 65 all-reduces, one
+   all-gather, K1 129, K3 32, no K4; aten calls a step and the idle share
+   of both; graphs by kind. (b) (after 14) two processes on the one card
+   as the tp = 2 ranks of the 8B at full width (32 layers, random INT4
+   g64, wqkv split per q / k / v block, wo / wd row shards), joined by
+   gloo, eager steps: rank 0's gathered logits for a 64-token prefill
+   and 4 teacher-forced steps against tp = 1 on the card (normalized
+   error < 0.03); the sharded paged engine (8 lanes, INT8 pages, 32
+   tokens): per-rank launches (K1 on N 3,072 / 14,336 shards, K2, K3 at
+   16 / 4 heads, no K4), tok/s, tokens shared with tp = 1 before the
+   first difference; a capture over gloo refused. (c) K1 (M = 8) and K2
+   (M = 512) at every distinct shard shape a rank runs of Llama-3-8B,
+   Llama-3.2-1B and Gemma-3 4B at tp 2 and 8 (Gemma's KV heads replicated
+   at 8) and Qwen2.5-VL-7B at tp 2 and 4 (INT4 g64; row shards re-padded
+   to 512) against their plain version (< 0.025), kernel ms beside the
+   bound of the logical (unpadded) product. (d) (after 15d, on the 1B snapshot) two `python -m
+   pie_tpu_torch.server` processes (BATCHING=1) behind `python -m
+   pie_tpu_torch.server.frontier`: the frontier's added ms per request
+   against a direct call, 7 concurrent chats with one server SIGKILLed
+   while they are in flight (all answer, on the survivor), then a streamed
+   chat through the frontier.
+
 Prints one JSON line per phase and one with each phase's seconds, the
 summed rows (K2 per 8B and per 1B prefill, K1 per 8B and 1B paged decode
 step and per 8B step at the other row counts, K4 per 1B paged decode
@@ -234,7 +262,7 @@ step), the 1B model check beside its reading before K2's single rounding
 prefill's device and enqueue time, the prefill graphs' captures, capture
 seconds and the pool per geometry), a native-scheduler summary, then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
-shapes), the card's name and power
+shapes) after a parallel summary (phase 16), the card's name and power
 limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -265,7 +293,15 @@ EPS = 1e-5
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line; with CHIP_SMOKE_LOG set, append it to that file
+    too, so a long run's lines survive a console that keeps only the end."""
+    import os
+
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if os.environ.get("CHIP_SMOKE_LOG"):
+        with open(os.environ["CHIP_SMOKE_LOG"], "a") as f:
+            f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -326,16 +362,10 @@ def device_ms(fn, iters: int = 40) -> float:
 def eager_steps(graphs):
     """A step runner that calls every step eagerly on the card: the same
     engine's steps without capture, the reference the graphs are held
-    against (defined here, not in the package: the engines always capture
-    on the card)."""
+    against."""
     from pie_tpu_torch.engine.graphs import StepGraphs
 
-    class Eager(StepGraphs):
-        def __call__(self, key, fn, samples=False):
-            self.keys.add(key)
-            return fn()
-
-    return Eager(graphs.device, graphs.generator)
+    return StepGraphs(graphs.device, graphs.generator, graphs.collectives, eager=True)
 
 
 class Tap:
@@ -2165,10 +2195,10 @@ def http(method, url, body=None, timeout=300):
     return status, time.perf_counter() - t0, text
 
 
-def serve_and_ask(snap, env_extra, ask):
-    """Start `python -m pie_tpu_torch.server` on MODEL_PATH=snap, wait for
-    /health, run ask(url), stop the server. Returns (startup s, ask's
-    result)."""
+def start_server(snap, env_extra):
+    """Start `python -m pie_tpu_torch.server` on MODEL_PATH=snap and wait
+    for /health. Returns (process, url, startup s); ``stop_server`` ends
+    it."""
     import os
     import urllib.error
 
@@ -2195,15 +2225,31 @@ def serve_and_ask(snap, env_extra, ask):
             except (urllib.error.URLError, OSError):
                 pass
             time.sleep(0.5)
-        startup = time.perf_counter() - t0
+    except BaseException:
+        stop_server(proc)
+        raise
+    return proc, url, time.perf_counter() - t0
+
+
+def stop_server(proc):
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def serve_and_ask(snap, env_extra, ask):
+    """Start `python -m pie_tpu_torch.server` on MODEL_PATH=snap, wait for
+    /health, run ask(url), stop the server. Returns (startup s, ask's
+    result)."""
+    proc, url, startup = start_server(snap, env_extra)
+    try:
         return startup, ask(url)
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        stop_server(proc)
 
 
 def phase_serve(snap):
@@ -4311,6 +4357,492 @@ def phase_native_serve(snap):
     return row
 
 
+# -- phase 16: tensor / data parallelism and the front tier --------------------
+
+
+def nccl_mesh_of_one():
+    """A ("dp", "tp") = (1, 1) mesh over a one-process NCCL group on
+    localhost (joined once, through parallel.distributed.initialize)."""
+    import torch.distributed as dist
+
+    from pie_tpu_torch.parallel import distributed, make_mesh
+
+    if not dist.is_initialized():
+        distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    return make_mesh(tp=1, dp=1)
+
+
+def mesh_steady(sched, prompt, lanes, chunks=3):
+    """Collectives and K1 / K3 launches per device step over ``chunks``
+    steady chunks (every lane decoding, no admission)."""
+    from pie_tpu_torch.engine.scheduler import SeqStatus
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.parallel.tp import collective_counts
+
+    engine = sched.engine
+    seqs = [sched.add_request(prompt, max_new_tokens=8 * (chunks + 4), temperature=0.0)
+            for _ in range(lanes)]
+    while sched.waiting or any(s.status != SeqStatus.DECODING for s in seqs):
+        sched.step()
+    sched.step()
+    torch.cuda.synchronize()
+    qmc.reset_counts()
+    c0, s0 = dict(collective_counts), engine.device_steps
+    for _ in range(chunks):
+        sched.step()
+    torch.cuda.synchronize()
+    steps = engine.device_steps - s0
+    per = {k: (collective_counts[k] - c0[k]) / steps for k in c0}
+    launches = {k: v / steps for k, v in qmc.launch_counts.items()}
+    sched.run_to_completion()
+    return dict(steps=steps, collectives_per_step=per, launches_per_step=launches)
+
+
+def phase_tp1_nccl(model, params, card):
+    """16a: the 8B paged engine (8 lanes, 112 INT8 pages, phase 6's prompt)
+    as rank 0 of a one-process NCCL mesh (tp = 1, dp = 1): its steps
+    replay CUDA graphs with the collectives (2 all-reduces a layer, the
+    embedding's, the logits' all-gather) captured inside. Its greedy
+    tokens equal the group-less engine's bit for bit; tok/s of both in
+    turns (plain, mesh, mesh, plain); graphs by kind; launches of the
+    counted run; collectives, launches and aten calls per steady step."""
+    import gc
+
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.parallel import shard_params
+    from pie_tpu_torch.parallel.tp import collective_counts
+
+    mesh = nccl_mesh_of_one()
+    sharded = shard_params(params, mesh, model.config)
+    lanes, new = 8, 128
+    prompt = list(range(1, 65))
+    scheds = {}
+    for kind in ("plain", "mesh"):
+        engine = PagedEngine(model, params if kind == "plain" else sharded,
+                             num_lanes=lanes, num_pages=112, max_pages_per_seq=12,
+                             kv_quantized=True, mesh=None if kind == "plain" else mesh)
+        scheds[kind] = Scheduler(engine, decode_steps=8)
+        scheds[kind].add_request(prompt, max_new_tokens=17, temperature=0.0)
+        scheds[kind].run_to_completion()  # warm up: the captures
+
+    runs = []
+    for kind in ("plain", "mesh", "mesh", "plain"):
+        sched = scheds[kind]
+        qmc.reset_counts()
+        c0, s0 = dict(collective_counts), sched.engine.device_steps
+        seqs = [sched.add_request(prompt, max_new_tokens=new, temperature=0.0)
+                for _ in range(lanes)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs.append(dict(kind=kind, tok_s=sum(len(s.output_ids) for s in seqs) / dt,
+                         outputs=[s.output_ids for s in seqs],
+                         launches=dict(qmc.launch_counts),
+                         collectives={k: collective_counts[k] - c0[k] for k in c0},
+                         steps=sched.engine.device_steps - s0))
+    plain, mesh_run = runs[0], runs[1]
+    equal = all(r["outputs"] == plain["outputs"] for r in runs)
+    steady = {kind: mesh_steady(scheds[kind], prompt, lanes) for kind in ("plain", "mesh")}
+    aten = {kind: steady_paged(scheds[kind], prompt, lanes, chunks=2)["profiled_chunk"]
+            for kind in ("plain", "mesh")}
+    stats = scheds["mesh"].engine.graphs.stats()
+    per = steady["mesh"]["collectives_per_step"]
+    la = mesh_run["launches"]
+    row = dict(phase="16a tp=1 over NCCL", geometry="llama3-8b int4 g64", layers=LAYERS,
+               lanes=lanes, kv="int8 paged", backend="nccl", world=1,
+               tokens_equal=equal, new_tokens=new,
+               tok_s=dict(plain=[runs[0]["tok_s"], runs[3]["tok_s"]],
+                          mesh=[runs[1]["tok_s"], runs[2]["tok_s"]]),
+               launches=la, steps=mesh_run["steps"],
+               collectives=mesh_run["collectives"], steady=steady,
+               aten_calls_per_step={k: v["aten_calls_per_step"] for k, v in aten.items()},
+               idle_share={k: v["device_idle_share"] for k, v in aten.items()},
+               graphs=dict(by_kind=stats["by_kind"], graphs=stats["graphs"],
+                           pool_bytes=stats["pool_bytes"]), card=card)
+    emit(row)
+    want = {"tp all_reduce": 2 * LAYERS + 1, "tp all_gather": 1, "dp all_gather": 0}
+    if not (equal and per == want and la["K1"] > 0 and la["K2"] > 0
+            and la["K3"] == LAYERS * mesh_run["steps"] and la["K4"] == 0
+            and stats["by_kind"].get("decode", {}).get("replays", 0) > 0):
+        raise AssertionError(f"16a: tp=1 over NCCL {row}")
+    del scheds, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp2_rank(out_path):
+    """One rank of phase 16b (a subprocess; PIE_COORDINATOR,
+    PIE_NUM_PROCESSES=2 and PIE_PROCESS_ID set by phase_tp2): the 8B at
+    full width (32 layers, random INT4 g64, seed 0 as phase 4) sharded over
+    tp = 2 on the one card, gloo between the two processes, eager steps.
+    Rank 0 first runs the tp = 1 reference on its full weights (prefill of
+    phase 6's prompt and 4 greedy steps through paged_forward, then the
+    paged engine's outputs) and broadcasts the reference tokens; then both
+    ranks run the same prefill and steps teacher-forced on their shards
+    (rank 0 holds its gathered logits against the reference), a capture
+    over the gloo group (refused), and the sharded paged engine (8 lanes,
+    112 INT8 pages) with counted launches. Writes its row as JSON."""
+    import gc
+
+    import torch.distributed as dist
+
+    from pie_tpu_torch.cache.paged import PagedKVPool
+    from pie_tpu_torch.engine.graphs import StepGraphs
+    from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler
+    from pie_tpu_torch.models.llama import LlamaModel
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        mesh_ops,
+        shard_model,
+        shard_params,
+    )
+    from pie_tpu_torch.parallel.tp import collective_counts
+
+    t_start = time.perf_counter()
+    assert distributed.initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh(tp=2, dp=1)
+    qmc.build()
+    model = LlamaModel(llama8b_config(LAYERS))
+    params = model.init_quantized_params(seed=0, group_size=64, bits=4)
+    sharded = shard_params(params, mesh, model.config)
+    if rank != 0:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = dict(rank=rank, ready_s=time.perf_counter() - t_start,
+               shapes={n: list(sharded["layers"][n].shape)
+                       for n in ("wqkv", "wo", "wgu", "wd")},
+               lm_head=list(sharded["lm_head"].shape))
+    lanes, new, prompt = 8, 32, list(range(1, 65))
+
+    def forward_run(m, p, tokens=None):
+        """Prefill + 4 greedy (or ``tokens``-forced) decode steps over a
+        fresh INT8 pool; the 5 logits rows and the tokens."""
+        cfg = m.config
+        pool = PagedKVPool.create(LAYERS, 4, cfg.num_key_value_heads, DH,
+                                  quantized=True, device="cuda")
+        table = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda")
+        ids = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        pos = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+        logits, _ = m.paged_forward(p, ids, pool, table, pos,
+                                    torch.tensor([64], dtype=torch.int32, device="cuda"),
+                                    last_idx=torch.tensor([63], device="cuda"))
+        rows, toks = [logits[0, 0].float()], []
+        for s in range(4):
+            tok = int(rows[-1].argmax()) if tokens is None else int(tokens[s])
+            toks.append(tok)
+            logits, _ = m.paged_forward(
+                p, torch.tensor([[tok]], dtype=torch.int32, device="cuda"), pool, table,
+                torch.tensor([[64 + s]], dtype=torch.int32, device="cuda"),
+                torch.tensor([65 + s], dtype=torch.int32, device="cuda"))
+            rows.append(logits[0, 0].float())
+        return rows, toks
+
+    def serve(m, p, **kw):
+        engine = PagedEngine(m, p, num_lanes=lanes, num_pages=112, max_pages_per_seq=12,
+                             kv_quantized=True, **kw)
+        sched = Scheduler(engine, decode_steps=8)
+        return engine, sched
+
+    ref_tokens = torch.zeros(4, dtype=torch.int64)
+    if rank == 0:
+        ref_rows, toks = forward_run(model, params)
+        ref_tokens = torch.tensor(toks)
+        engine, sched = serve(model, params)
+        sched.add_request(prompt, max_new_tokens=9, temperature=0.0)
+        sched.run_to_completion()
+        seqs = [sched.add_request(prompt, max_new_tokens=new, temperature=0.0)
+                for _ in range(lanes)]
+        sched.run_to_completion()
+        ref_outputs = [s.output_ids for s in seqs]
+        del engine, sched, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.broadcast(ref_tokens, src=0)
+
+    lmodel = shard_model(model, mesh)
+    c0 = dict(collective_counts)
+    rows, _ = forward_run(lmodel, sharded, ref_tokens.tolist())
+    out["forward_collectives"] = {k: collective_counts[k] - c0[k] for k in c0}
+    if rank == 0:
+        out["logits_norm_err"] = [
+            float((g - w).abs().max() / w.abs().max()) for g, w in zip(rows, ref_rows)]
+        out["ref_tokens"] = ref_tokens.tolist()
+        out["sharded_argmax"] = [int(r.argmax()) for r in rows]
+    try:
+        StepGraphs(torch.device("cuda"), None, mesh_ops(mesh))(("decode",), lambda: ())
+        out["capture_refused"] = None
+    except RuntimeError as e:
+        out["capture_refused"] = str(e)
+
+    engine, sched = serve(model, sharded, mesh=mesh, eager_steps=True)
+    sched.add_request(prompt, max_new_tokens=9, temperature=0.0)
+    sched.run_to_completion()
+    qmc.reset_counts()
+    s0 = engine.device_steps
+    seqs = [sched.add_request(prompt, max_new_tokens=new, temperature=0.0)
+            for _ in range(lanes)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    out.update(tok_s=lanes * new / (time.perf_counter() - t0),
+               launches=dict(qmc.launch_counts), device_steps=engine.device_steps - s0,
+               pool_heads=int(engine.pool.k.shape[2]))
+    outputs = [s.output_ids for s in seqs]
+    if rank == 0:
+        shared = []
+        for a, b in zip(outputs, ref_outputs):
+            n = 0
+            while n < min(len(a), len(b)) and a[n] == b[n]:
+                n += 1
+            shared.append(n)
+        out.update(tokens_shared_with_tp1=shared, new_tokens=new)
+    out["total_s"] = time.perf_counter() - t_start
+    dist.barrier()
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def phase_tp2(card):
+    """16b: two processes on the one card as the tp = 2 ranks of the 8B
+    (``tp2_rank``), joined by gloo over localhost; each is stopped if it
+    has not ended in 600 s. Checks: rank 0's gathered logits for the
+    prefill and 4 steps within 0.03 (normalized) of tp = 1 on the card; on
+    each rank K1 ran on its shards (wqkv N 3,072, wgu N 14,336), K2 in the
+    prefills, K3 once a layer a step at 16 / 4 heads and K4 never; the
+    capture over gloo refused."""
+    import os
+
+    root = str(Path(__file__).resolve().parent)
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="pie-tp2-") as tmp:
+        procs, paths = [], []
+        for rank in range(2):
+            path = Path(tmp) / f"rank{rank}.json"
+            env = dict(os.environ, PIE_COORDINATOR=f"127.0.0.1:{port}",
+                       PIE_NUM_PROCESSES="2", PIE_PROCESS_ID=str(rank))
+            env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.tp2_rank({str(path)!r})"],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+            paths.append(path)
+        logs = []
+        try:
+            deadline = time.perf_counter() + 600
+            for p in procs:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+                logs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs) or not all(p.exists() for p in paths):
+            raise AssertionError("16b ranks: " + " | ".join(
+                f"rank {r} exit {p.returncode}: {log[-3000:]}"
+                for r, (p, log) in enumerate(zip(procs, logs))))
+        ranks = [json.loads(p.read_text()) for p in paths]
+    row = dict(phase="16b tp=2 over gloo (two processes, one card, eager)",
+               geometry="llama3-8b int4 g64", layers=LAYERS, lanes=8, kv="int8 paged",
+               ranks=ranks, card=card)
+    emit(row)
+    r0 = ranks[0]
+    ok = max(r0["logits_norm_err"]) < 0.03
+    for r in ranks:
+        la = r["launches"]
+        ok &= (r["shapes"]["wqkv"] == [D, (HQ + 2 * HKV) * DH // 2]
+               and r["shapes"]["wgu"] == [D, DI] and r["pool_heads"] == HKV // 2
+               and la["K1"] > 0 and la["K2"] > 0 and la["K4"] == 0
+               and la["K3"] == LAYERS * r["device_steps"]
+               and r["capture_refused"] is not None and "gloo" in r["capture_refused"])
+    if not ok:
+        raise AssertionError(f"16b: tp=2 {row}")
+    return row
+
+
+def shard_kernel_case(label, k, n, m, rope_dim, full_k, tp, seed=0):
+    """K1 (m <= 32) or K2 at one shard shape: a row shard (K = full_k / tp,
+    re-padded to 512 by parallel.tp.row_shard) or a column shard, against
+    its plain version (normalized max error < 0.025, phase 2's), timed
+    over rotating copies (device time of a captured graph) beside the
+    bytes / operations bound."""
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
+    from pie_tpu_torch.parallel.tp import row_shard
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if full_k != k:  # a row shard of the full weight
+        qt = row_shard(random_qt(full_k, n, 4, 64, ROTATE, gen), tp - 1, tp)
+    else:
+        qt = random_qt(k, n, 4, 64, ROTATE, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    kw = {}
+    if rope_dim:
+        hkv = n // rope_dim // 6  # Llama's 4 query heads a KV head: Hq + 2 Hkv = 6 Hkv
+        inv = torch.from_numpy(make_inv_freq(rope_dim, 500000.0)).to("cuda")
+        pos = torch.arange(m, dtype=torch.int32, device="cuda") + 100
+        kw.update(rope_cs=rope_qkv_cs(pos, inv, 4 * hkv, hkv, rope_dim), rope_dim=rope_dim)
+    got = qmc.quant_matmul_cuda(x, qt, layer=0, **kw)
+    want = qmc.quant_matmul_ref(x, qt, layer=0, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    norm = diff / want.float().abs().max().item()
+    if not norm < 0.025:
+        raise AssertionError(f"16c {label} M={m}: kernel vs plain normalized err {norm}")
+    ms = device_ms(lambda i: qmc.quant_matmul_cuda(x, qt, layer=i % ROTATE, **kw), iters=20)
+    # the product's own bytes: a re-padded shard's zero rows are not work
+    nbytes = (k // 8 * n * 4 + 2 * (k // 64) * n * 2
+              + m * k * 2 + m * n * 2 + (2 * m * n * 4 if rope_dim else 0))
+    flops = 2 * m * k * n
+    bb, bo = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return dict(case=label, kernel="K1" if m <= qmc.DECODE_MAX_M else "K2", m=m, k=k,
+                padded_k=qt.padded_k, n=n, rope=rope_dim, norm_err=norm, max_abs_err=diff,
+                kernel_ms=ms, bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations")
+
+
+def phase_shard_kernels(card):
+    """16c: K1 (M = 8, a paged step's lanes) and K2 (M = 512, a prefill) at
+    every distinct shard shape a rank runs (parallel.tp.projection_shards:
+    Gemma-3 4B at tp 8 after replicate_kv_heads) of the four geometries
+    (Llama-3-8B and Llama-3.2-1B fused, Gemma-3 4B and Qwen2.5-VL-7B with
+    projections apart) at tp 2 and tp 8 (Qwen: tp 2 and 4, its 28 query
+    heads do not split over 8), INT4 g64, the re-padded row shards
+    included."""
+    from pie_tpu_torch.models.gemma3 import Gemma3Config
+    from pie_tpu_torch.models.llama import LlamaConfig
+    from pie_tpu_torch.models.qwen2_vl import Qwen2VLConfig
+    from pie_tpu_torch.parallel.tp import projection_shards
+
+    geos = {
+        "8B": (llama8b_config(1), True, True, (2, 8)),
+        "1B": (LlamaConfig(hidden_size=D1, intermediate_size=DI1, num_attention_heads=HQ1,
+                           num_key_value_heads=HKV1, head_dim=DH1, vocab_size=VOCAB),
+               True, True, (2, 8)),
+        "gemma3-4b": (Gemma3Config(**{k: v for k, v in G4.items() if k != "rope_scaling"}),
+                      False, False, (2, 8)),
+        "qwen2.5-vl-7b": (Qwen2VLConfig(**Q7), False, True, (2, 4)),
+    }
+    shapes = {}
+    for geo, (cfg, fused, head, tps) in geos.items():
+        full = projection_shards(cfg, 1, fused, head)
+        for tp in tps:
+            for name, (k, n, rope) in projection_shards(cfg, tp, fused, head).items():
+                shapes.setdefault((k, n, rope, full[name][0]),
+                                  (f"{geo} tp{tp} {name}", tp))
+    rows = []
+    for (k, n, rope, full_k), (label, tp) in shapes.items():
+        for m in (8, 512):
+            rows.append(shard_kernel_case(label, k, n, m, rope, full_k, tp))
+    row = dict(phase="16c K1 / K2 at shard shapes", bits=4, group_size=64,
+               shapes=len(shapes), rows=rows, card=card)
+    emit(row)
+    return row
+
+
+def phase_frontier(snap, card):
+    """16d: two `python -m pie_tpu_torch.server` processes (BATCHING=1,
+    KV_QUANTIZED=1, NUM_LANES=8) on the 1B snapshot behind `python -m
+    pie_tpu_torch.server.frontier --hosts a,b`: the frontier's added ms per
+    request against the same chat sent straight to a server (medians of 8
+    sequential 8-token chats each way), then 7 concurrent 256-token chats,
+    one server SIGKILLed while they are in flight (every one must still
+    answer 200, on the survivor), then a streamed chat (SSE) through the
+    frontier after the kill."""
+    import os
+    import signal
+    import urllib.error
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = {"BATCHING": "1", "KV_QUANTIZED": "1", "NUM_LANES": "8"}
+    hello = word_tokenizer().encode("hello", add_bos=False)[0]
+    chat = dict(messages=[{"role": "user", "content": "hello world"}], max_tokens=8,
+                temperature=0.0, logit_bias={str(hello): 100.0})
+    with ThreadPoolExecutor(2) as pool:  # both start at once
+        starts = [pool.submit(start_server, snap, env) for _ in range(2)]
+        servers = [f.result() for f in starts]
+    front = None
+    try:
+        urls = [url for _, url, _ in servers]
+        port = free_port()
+        root = str(Path(__file__).resolve().parent)
+        fenv = dict(os.environ, LOG_LEVEL="WARNING")
+        fenv["PYTHONPATH"] = root + os.pathsep + fenv.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        front = subprocess.Popen(
+            [sys.executable, "-m", "pie_tpu_torch.server.frontier", "--hosts",
+             ",".join(urls), "--port", str(port)], cwd=root, env=fenv,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        furl = f"http://127.0.0.1:{port}"
+        while True:
+            if front.poll() is not None:
+                raise AssertionError(f"frontier exited {front.returncode}: "
+                                     f"{front.stdout.read()[-3000:]}")
+            try:
+                if http("GET", f"{furl}/health", timeout=5)[0] == 200:
+                    break
+            except (urllib.error.URLError, OSError):
+                pass
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("frontier did not answer /health in 120 s")
+            time.sleep(0.2)
+        front_startup = time.perf_counter() - t0
+
+        def post(url, body):
+            status, secs, text = http("POST", f"{url}/v1/chat/completions", body)
+            if status != 200:
+                raise AssertionError(f"16d: {status} {text[:2000]}")
+            return secs * 1e3, text
+
+        for url in urls + [furl, furl]:  # warm up: each server's graph captures
+            post(url, chat)
+        direct = sorted(post(urls[1], chat)[0] for _ in range(8))
+        relayed = sorted(post(furl, chat)[0] for _ in range(8))
+        long_chat = dict(chat, max_tokens=256, logit_bias={})
+        with ThreadPoolExecutor(7) as pool:
+            futures = [pool.submit(post, furl, long_chat) for _ in range(7)]
+            time.sleep(0.3)
+            victim = servers[0][0]
+            victim.send_signal(signal.SIGKILL)
+            victim.wait(30)
+            killed_at = sum(f.done() for f in futures)
+            answered = [f.result() for f in futures]
+        sse_ms, text = post(furl, dict(chat, stream=True))
+        if not (text.rstrip().endswith("data: [DONE]") and "hello" in text):
+            raise AssertionError(f"16d stream: {text[:2000]}")
+        health = json.loads(http("GET", f"{furl}/health")[2])
+    finally:
+        if front is not None:
+            front.terminate()
+            try:
+                front.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                front.kill()
+                front.wait()
+        for proc, _, _ in servers:
+            stop_server(proc)
+    row = dict(phase="16d frontier", entry="python -m pie_tpu_torch.server.frontier",
+               servers=2, env=env, server_startup_s=[s for _, _, s in servers],
+               frontier_startup_s=front_startup,
+               direct_ms_p50=direct[4], relayed_ms_p50=relayed[4],
+               added_ms_per_request=relayed[4] - direct[4],
+               in_flight_at_kill=7 - killed_at, answered_after_kill=len(answered),
+               chat_ms_through_kill=[ms for ms, _ in answered], sse_ms=sse_ms,
+               live_hosts=health["hosts"], card=card)
+    emit(row)
+    if not (killed_at < 7 and health["hosts"] == [urls[1]] and len(answered) == 7):
+        raise AssertionError(f"16d: frontier failover {row}")
+    return row
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -4375,6 +4907,7 @@ def main() -> int:
     timed("batched requests 8B", phase_batched_requests, engine.model, engine.params)
     timed("constrained 8B", phase_constrained, engine, card)
     native8 = timed("native 8B", phase_native_8b, engine, card)
+    tp1 = timed("16a tp=1 over NCCL 8B", phase_tp1_nccl, engine.model, engine.params, card)
     del engine
     torch.cuda.empty_cache()
 
@@ -4390,9 +4923,13 @@ def main() -> int:
         paged1b = timed("paged engine 1B", phase_paged_engine_1b, snap, card)
         native_proc = timed("native engine process 1B", phase_native_process, snap, card)
         native_http = timed("native server 1B", phase_native_serve, snap)
+        front = timed("16d frontier 1B", phase_frontier, snap, card)
     gemma = timed("gemma3", phase_gemma3, card)
     qwen = timed("qwen2.5-vl", phase_qwen2vl, card)
     gvis = timed("gemma3 vision", phase_gemma3_vision, card)
+    torch.cuda.empty_cache()
+    tp2 = timed("16b tp=2 over gloo 8B", phase_tp2, card)
+    shard_k = timed("16c K1 / K2 at shard shapes", phase_shard_kernels, card)
 
     summary = []
     for kname, src, what, per_rows, launches in (
@@ -4579,6 +5116,25 @@ def main() -> int:
                           concurrent_wall_ms=native_http["concurrent_wall_ms"],
                           json_schema_content=native_http["json_schema_content"],
                           logit_bias_status=native_http["logit_bias_status"])))
+    emit(dict(phase="summary parallel", card=card,
+              tp1_nccl=dict(tokens_equal=tp1["tokens_equal"], tok_s=tp1["tok_s"],
+                            collectives_per_step=tp1["steady"]["mesh"]["collectives_per_step"],
+                            aten_calls_per_step=tp1["aten_calls_per_step"],
+                            graphs_by_kind=tp1["graphs"]["by_kind"],
+                            launches=tp1["launches"], steps=tp1["steps"]),
+              tp2_gloo=[dict(rank=r["rank"], launches=r["launches"],
+                             device_steps=r["device_steps"], tok_s=r["tok_s"],
+                             **{k: r[k] for k in ("logits_norm_err", "tokens_shared_with_tp1")
+                                if k in r}) for r in tp2["ranks"]],
+              shard_kernels=dict(shapes=shard_k["shapes"],
+                                 max_norm_err=max(r["norm_err"] for r in shard_k["rows"])),
+              frontier=dict((k, front[k]) for k in (
+                  "added_ms_per_request", "direct_ms_p50", "relayed_ms_p50",
+                  "in_flight_at_kill", "answered_after_kill"))))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

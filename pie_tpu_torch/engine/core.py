@@ -33,6 +33,16 @@ computes on the device). ``maybe_quantize`` reads the cache's length on
 the host: it runs between requests, never inside a step, and the INT8
 cache it makes replaces the static one through ``set_cache`` (the graphs
 over the old one go, the prefill graphs with them).
+
+A sharded model (``model.mesh``, ``parallel.tp.shard_model``) runs its
+collectives inside the steps; over dp > 1 the batch rows split: the core's
+cache and state hold this rank's rows, a call's inputs are sliced to them
+on the way in, and every step gathers its sampled tokens (and logprobs)
+over dp, so each rank returns the whole batch's (the sampler draws the
+whole batch's numbers and keeps the rank's rows, so every lane samples as
+it would unsharded). Graphs capture the
+collectives over NCCL; on the card a gloo mesh's steps raise at capture
+(only ``PagedEngine`` takes ``eager_steps``).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from pie_tpu_torch.ops.sampling import (
     sample,
     top_logprobs,
 )
+from pie_tpu_torch.parallel.tp import mesh_ops
 from pie_tpu_torch.utils.device import resolve_device, upload
 
 PAD_TOKEN = -1
@@ -159,13 +170,17 @@ class EngineCore:
         self.model = model
         self.params = params
         self.batch_size = batch_size
+        #: the model's collectives and this rank's rows of the batch
+        self.par = mesh_ops(getattr(model, "mesh", None))
+        rows = self.par.rows(batch_size)
+        self.local_batch = rows.stop - rows.start
         self.max_seq_len = max_seq_len
         self.kv_dtype = kv_dtype
         self.kv_quantized = kv_quantized
         self.logprobs_k = logprobs_k
         self._gen = torch.Generator(device=self.device)
         #: the decode step's graphs (jax.jit's cache of compiled programs)
-        self.graphs = StepGraphs(self.device, self._gen)
+        self.graphs = self._new_graphs()
         self._state: Optional[DecodeState] = None
         self._made_kind: Optional[tuple] = None  # what new_state builds
         # (bias width, stop width) -> static chunk inputs
@@ -178,11 +193,14 @@ class EngineCore:
         self._embeds_in: dict = {}
         self._pos3_in: dict = {}
         #: M-RoPE decode offsets [B] (a uses_mrope model's steps read them)
-        self.pos_delta = torch.zeros((batch_size,), dtype=torch.int32,
+        self.pos_delta = torch.zeros((self.local_batch,), dtype=torch.int32,
                                      device=self.device)
         # a prefill checks no stop ids: its inputs' stop width is 0
         self._no_stop = torch.full((0,), PAD_TOKEN, dtype=torch.int32,
                                    device=self.device)
+
+    def _new_graphs(self) -> StepGraphs:
+        return StepGraphs(self.device, self._gen, self.par)
 
     def new_state(self, seed: int = 0) -> DecodeState:
         """The core's decode state, reset, with its generator seeded. The
@@ -202,19 +220,19 @@ class EngineCore:
         if hasattr(self.model, "make_cache"):
             # the model's own layout (Gemma-3's bounded sliding/global groups)
             cache = self.model.make_cache(
-                self.batch_size, self.max_seq_len, dtype=self.kv_dtype,
+                self.local_batch, self.max_seq_len, dtype=self.kv_dtype,
                 quantized=self.kv_quantized, device=self.device)
         else:
             cache = make_kv_cache(
-                cfg.num_hidden_layers, self.batch_size, self.max_seq_len,
+                cfg.num_hidden_layers, self.local_batch, self.max_seq_len,
                 cfg.num_key_value_heads, cfg.resolved_head_dim,
                 dtype=self.kv_dtype, quantized=self.kv_quantized,
                 device=self.device,
             )
         self._made_kind = cache_kind(cache)
-        b, dev = self.batch_size, self.device
+        b, dev = self.local_batch, self.device
         if st is not None:  # the INT8 cache goes: so do its graphs
-            self.graphs = StepGraphs(self.device, self._gen)
+            self.graphs = self._new_graphs()
         self._state = DecodeState(
             cache=cache,
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -241,7 +259,7 @@ class EngineCore:
                 t.copy_(new[n])
         else:
             self._state = st = dataclasses.replace(st, cache=cache)
-            self.graphs = StepGraphs(self.device, self._gen)
+            self.graphs = self._new_graphs()
         return st
 
     def _adopt(self, state: DecodeState) -> DecodeState:
@@ -254,7 +272,9 @@ class EngineCore:
     def _step_inputs(self, sampling, penalties, bias_ids, bias_vals,
                      stop_ids) -> _StepInputs:
         """The static input buffers of this width, holding these values
-        (copied, queued on the stream)."""
+        (copied, queued on the stream), cut to this rank's rows."""
+        sampling, penalties, bias_ids, bias_vals = (
+            self.par.local(a) for a in (sampling, penalties, bias_ids, bias_vals))
         shape = (bias_ids.shape[1], stop_ids.shape[0])
         inp = self._inputs.get(shape)
         if inp is None:
@@ -314,7 +334,7 @@ class EngineCore:
         offset, a device value as JAX traces it), made at first use."""
         bufs = self._prefill_in.get(bucket)
         if bufs is None:
-            b, dev = self.batch_size, self.device
+            b, dev = self.local_batch, self.device
             bufs = self._prefill_in[bucket] = (
                 torch.zeros((b, bucket), dtype=torch.int32, device=dev),
                 torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -323,8 +343,9 @@ class EngineCore:
 
     def set_pos_delta(self, delta) -> None:
         """Copy the sequences' M-RoPE decode offsets [B] into the static
-        buffer the decode steps read (queued on the stream)."""
-        upload(self.pos_delta, delta)
+        buffer the decode steps read (queued on the stream; this rank's
+        rows)."""
+        upload(self.pos_delta, self.par.local(delta))
 
     def _image_buffers(self, bucket: int, inputs_embeds, positions3) -> tuple:
         """The static image-prompt inputs of this bucket, holding these
@@ -342,7 +363,7 @@ class EngineCore:
             p3 = self._pos3_in.get(bucket)
             if p3 is None:
                 p3 = self._pos3_in[bucket] = torch.zeros(
-                    (3, self.batch_size, bucket), dtype=torch.int32, device=self.device)
+                    (3, self.local_batch, bucket), dtype=torch.int32, device=self.device)
             upload(p3, positions3)
         return emb, p3
 
@@ -394,9 +415,11 @@ class EngineCore:
         bucket = input_ids.shape[1]
         bufs = self._prefill_buffers(bucket)
         for buf, src in zip(bufs, (input_ids, prompt_lens, first_pos)):
-            upload(buf, src)
-        mask = None if allowed_mask is None else self._mask_buffer(allowed_mask)
-        image = self._image_buffers(bucket, inputs_embeds, positions3)
+            upload(buf, self.par.local(src))
+        mask = (None if allowed_mask is None
+                else self._mask_buffer(self.par.local(allowed_mask)))
+        image = self._image_buffers(bucket, self.par.local(inputs_embeds),
+                                    self.par.local(positions3, dim=1))
         inp = self._step_inputs(sampling, penalties, bias_ids, bias_vals,
                                 self._no_stop)
         key = ("prefill", bucket, sampler_kind, return_logprobs, bias_ids.shape[1],
@@ -449,16 +472,17 @@ class EngineCore:
 
         proc = self._process_logits(last_logits, hist, inp.penalties, inp.bias_ids,
                                     inp.bias_vals, allowed_mask)
-        token = sample(proc, inp.sampling, st.key, kind=sampler_kind)
+        token = sample(proc, inp.sampling, st.key, kind=sampler_kind,
+                       rows=self.par.batch_rows(self.local_batch))
         copy_metadata(st.cache, cache)
         st.last_token.copy_(token)
         st.lengths.copy_(first_pos + prompt_lens)
         st.history.copy_(self._push_history(
             hist, token, torch.ones((b,), dtype=torch.bool, device=dev)))
         st.done.fill_(False)
-        out = (token, proc)
+        out = (self.par.gather_rows(token), proc)
         if return_logprobs:
-            out += self._logprobs(proc, token)
+            out += tuple(self.par.gather_rows(a) for a in self._logprobs(proc, token))
         return out
 
     def _decode_step(self, params, st: DecodeState, inp: _StepInputs,
@@ -481,14 +505,15 @@ class EngineCore:
         proc = self._process_logits(
             logits[:, 0], st.history, inp.penalties if use_penalties else None,
             inp.bias_ids if use_bias else None, inp.bias_vals, None)
-        token = sample(proc, inp.sampling, st.key, kind=sampler_kind)
+        token = sample(proc, inp.sampling, st.key, kind=sampler_kind,
+                       rows=self.par.batch_rows(self.local_batch))
         token = torch.where(active, token, st.last_token)
         # stop ids are -1 padded; real tokens are >= 0 so pads never match
         hit_stop = (token[:, None] == inp.stop_ids[None, :]).any(dim=1)
         emitted = torch.where(active, token, torch.full_like(token, PAD_TOKEN))
-        out = (emitted, proc)
+        out = (self.par.gather_rows(emitted), proc)
         if return_logprobs:
-            out += self._logprobs(proc, token)
+            out += tuple(self.par.gather_rows(a) for a in self._logprobs(proc, token))
         lengths = torch.where(active, st.lengths + 1, st.lengths)
         history = self._push_history(st.history, token, active)
         done = st.done | hit_stop

@@ -29,9 +29,16 @@ prefills and both decode paths do). A graph that samples has the engine's
 Captures use ``capture_error_mode="thread_local"``: a thread other than
 the capturing one (a server's request thread) may touch CUDA meanwhile.
 
-Launch counts (``quant_matmul_cuda.launch_counts``): a capture launches
-nothing, so the counts it added are taken back and kept as the graph's
-delta, which every replay adds again. K1 per token, K2 per prefill, K3 per
+Collectives (a sharded model's all-reduces and all-gathers,
+``parallel/tp.py``): a capture over NCCL groups puts them inside the
+graph. A capture over any other group (gloo, which synchronizes with the
+host) raises; a caller that runs a model over such a group asks for eager
+steps (``eager=True``: on the card every call runs the step directly).
+
+Launch counts (``quant_matmul_cuda.launch_counts``) and collective counts
+(``parallel.tp.collective_counts``): a capture launches nothing, so the
+counts it added are taken back and kept as the graph's delta, which every
+replay adds again. K1 per token, K2 per prefill, K3 per
 step and K4 per step read as they do for eager steps. ``stats()`` splits
 graphs, captures, capture seconds and replays by step kind (a key's first
 element: "prefill", "decode", "mixed").
@@ -50,13 +57,16 @@ from typing import Callable, Hashable, Optional
 import torch
 
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+from pie_tpu_torch.parallel.tp import NO_MESH, collective_counts
+
+_COUNTERS = (qmc.launch_counts, collective_counts)
 
 
 @dataclasses.dataclass
 class _Captured:
     graph: "torch.cuda.CUDAGraph"
     outputs: tuple
-    counts: dict  # launch_counts delta of one replay
+    counts: tuple  # (launch_counts, collective_counts) deltas of one replay
 
 
 class StepGraphs:
@@ -64,9 +74,15 @@ class StepGraphs:
     arguments (``jax.jit``'s ``static_argnames``)."""
 
     def __init__(self, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 collectives=NO_MESH, eager: bool = False):
         self.device = torch.device(device)
         self.generator = generator
+        #: the steps' collectives (``parallel.tp.mesh_ops``): captured only
+        #: where they are capturable
+        self.collectives = collectives
+        #: run every step directly, on the card too (asked by the caller)
+        self.eager = eager
         #: every key a step was run under (the CPU too)
         self.keys: set = set()
         self._graphs: dict = {}
@@ -84,14 +100,15 @@ class StepGraphs:
         """Run step ``fn`` under ``key``; ``samples``: the step draws from
         the generator (its graph registers it)."""
         self.keys.add(key)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return fn()
         hit = self._graphs.get(key)
         if hit is None:
             return self._warm_up_and_capture(key, fn, samples)
         hit.graph.replay()
-        for name, n in hit.counts.items():
-            qmc.launch_counts[name] += n
+        for counter, delta in zip(_COUNTERS, hit.counts):
+            for name, n in delta.items():
+                counter[name] += n
         self.replays += 1
         self._kind(key)["replays"] += 1
         return hit.outputs
@@ -102,6 +119,10 @@ class StepGraphs:
             graphs=0, captures=0, capture_seconds=0.0, replays=0))
 
     def _warm_up_and_capture(self, key, fn, samples):
+        if not self.collectives.capturable:
+            raise RuntimeError(
+                f"step {key!r} runs collectives over a {self.collectives.backend} "
+                "group, which a CUDA graph cannot capture: ask for eager steps")
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         if self._side is None:
@@ -119,7 +140,7 @@ class StepGraphs:
             if self.generator is None:
                 raise ValueError(f"step {key!r} samples but no generator is set")
             graph.register_generator_state(self.generator)
-        before = dict(qmc.launch_counts)
+        before = tuple(dict(c) for c in _COUNTERS)
         try:
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
@@ -133,8 +154,9 @@ class StepGraphs:
                     raise
                 graph.capture_end()
         finally:
-            counts = {k: qmc.launch_counts[k] - before[k] for k in before}
-            qmc.launch_counts.update(before)  # a capture launches nothing
+            counts = tuple({k: c[k] - b[k] for k in b} for c, b in zip(_COUNTERS, before))
+            for c, b in zip(_COUNTERS, before):
+                c.update(b)  # a capture launches nothing
         self._graphs[key] = _Captured(graph, tuple(outputs), counts)
         secs = time.perf_counter() - t0
         self.captures += 1

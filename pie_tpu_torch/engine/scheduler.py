@@ -57,6 +57,16 @@ over static buffers: ``_prefill_logits`` (a prefill chunk that also
 returns its last row's logits), ``_sample_first`` (the first token, after
 the request's mask and penalties) and ``_decode`` (one batched step whose
 tokens the host reads back, once per token).
+
+Sharded serving (``PagedEngine(mesh=)``, one process per rank of a
+("dp", "tp") mesh): the model runs over its rank's shard with its
+collectives inside the steps; the pool holds the rank's KV heads of every
+page. Lanes split over the dp ranks: every rank runs the same host
+schedule and keeps the same lane state, runs its own lanes' rows through
+the model (the rider and the direct prefills on every rank), samples
+them (from the whole batch's draws, so each lane samples as it would
+unsharded), and gathers every lane's token over dp inside the step, so
+the ranks' host state stays in step.
 """
 
 from __future__ import annotations
@@ -91,6 +101,7 @@ from pie_tpu_torch.ops.sampling import (
     sample,
     sampler_kind_for,
 )
+from pie_tpu_torch.parallel.tp import mesh_ops, shard_model
 from pie_tpu_torch.utils.device import host_tensor, resolve_device, upload
 
 logger = logging.getLogger(__name__)
@@ -296,8 +307,18 @@ class PagedEngine:
         kv_quantized: bool = False,
         seed: int = 0,
         device="cuda",
+        # the ("dp", "tp") mesh this process is a rank of (params: its
+        # shard, parallel.tp.shard_params); eager_steps: no CUDA graphs
+        # (a mesh over gloo needs them off)
+        mesh=None,
+        eager_steps: bool = False,
     ):
         self.device = dev = resolve_device(device)
+        if mesh is not None:
+            model = shard_model(model, mesh)
+        #: the model's collectives and this rank's lanes
+        self.par = mesh_ops(mesh)
+        self.par.rows(num_lanes)  # the lanes split over dp
         cfg = model.config
         self.model = model
         self.params = params
@@ -311,7 +332,7 @@ class PagedEngine:
         )
         self.key = torch.Generator(device=dev).manual_seed(seed)
         #: the steps' graphs (jax.jit's cache of compiled programs)
-        self.graphs = StepGraphs(dev, self.key)
+        self.graphs = StepGraphs(dev, self.key, self.par, eager=eager_steps)
         #: device steps dispatched (decode or mixed; a direct prefill is
         #: not one): each runs the paged attention once per layer
         self.device_steps = 0
@@ -415,8 +436,9 @@ class PagedEngine:
         under its row of ``allowed``. ``use_embeds``: the rider slice's
         embeddings are the static image-embeddings buffer's. An M-RoPE
         model reads the slice's streams and the lanes' offsets. Returns
-        (emitted [B], logits [B, V])."""
+        (emitted [B], logits of this rank's lanes [B/dp, V])."""
         st, lp, model = self.lanes, self.lane_params, self.model
+        loc = self.par.local
         pad = torch.full_like(st.last, PAD_TOKEN)
         active = ~st.done
         dec_pos = torch.where(active, st.ctx, pad)
@@ -435,23 +457,26 @@ class PagedEngine:
         else:
             logits, _ = model.paged_forward(
                 params, st.last[:, None], self.pool, self.block_tables,
-                dec_pos[:, None], dec_ctx, **extra,
+                dec_pos[:, None], dec_ctx, lane_split=True, **extra,
             )
             logits = logits[:, 0]
         if use_penalties:
-            logits = repetition_penalty(logits, st.hist, lp.pen.repetition)
+            hist, pen = loc(st.hist), loc(lp.pen)
+            logits = repetition_penalty(logits, hist, pen.repetition)
             logits = presence_frequency_penalty(
-                logits, st.hist, lp.pen.presence, lp.pen.frequency)
-            logits = dry_penalty(logits, st.hist, lp.pen.dry_multiplier,
-                                 lp.pen.dry_base, lp.pen.dry_allowed)
+                logits, hist, pen.presence, pen.frequency)
+            logits = dry_penalty(logits, hist, pen.dry_multiplier,
+                                 pen.dry_base, pen.dry_allowed)
         if use_bias:
-            logits = apply_logit_bias(logits, lp.bias_ids, lp.bias_vals)
+            logits = apply_logit_bias(logits, loc(lp.bias_ids), loc(lp.bias_vals))
         if use_mask:
-            first = self.mask_valid & (self.sampled == 0)
-            logits = torch.where(first[:, None] & ~self.allowed,
+            first = loc(self.mask_valid & (self.sampled == 0))
+            logits = torch.where(first[:, None] & ~loc(self.allowed),
                                  torch.full_like(logits, -1e30), logits)
             self.sampled.add_(active.to(torch.int32))
-        tok = sample(logits, lp.sampling, self.key, kind=sampler_kind)
+        tok = sample(logits, loc(lp.sampling), self.key, kind=sampler_kind,
+                     rows=self.par.batch_rows(logits.shape[0]))
+        tok = self.par.gather_rows(tok)
         tok = torch.where(active, tok, st.last)
         emitted = torch.where(active, tok, pad)
         hit_stop = (tok[:, None] == lp.stop_ids).any(dim=1)
@@ -674,20 +699,23 @@ class PagedEngine:
     def _decode_step(self, params, sampler_kind: str, use_penalties: bool,
                      use_mask: bool):
         """The native decode step over its static buffers (a graph's body)."""
-        nb = self._native
+        nb, loc = self._native, self.par.local
         active = nb.active != 0
         pos = torch.where(active, nb.ctx - 1, torch.full_like(nb.ctx, -1))
         ctx = torch.where(active, nb.ctx, torch.ones_like(nb.ctx))
         extra = {"pos_delta": nb.pos_delta} if self.mrope else {}
         logits, _ = self.model.paged_forward(params, nb.last[:, None], self.pool,
-                                             nb.table, pos[:, None], ctx, **extra)
+                                             nb.table, pos[:, None], ctx,
+                                             lane_split=True, **extra)
         logits = logits[:, 0]
         if use_penalties:
-            logits = _penalize(logits, nb.hist, nb.pen)
+            logits = _penalize(logits, loc(nb.hist), loc(nb.pen))
         if use_mask:
-            logits = torch.where(self.mask_valid[:, None] & ~self.allowed,
+            logits = torch.where(loc(self.mask_valid)[:, None] & ~loc(self.allowed),
                                  torch.full_like(logits, -1e30), logits)
-        tok = sample(logits, nb.sampling, self.key, kind=sampler_kind)
+        tok = self.par.gather_rows(sample(logits, loc(nb.sampling), self.key,
+                                          kind=sampler_kind,
+                                          rows=self.par.batch_rows(logits.shape[0])))
         return torch.where(active, tok, torch.full_like(tok, PAD_TOKEN)), logits
 
 

@@ -77,6 +77,7 @@ from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import QuantizedTensor, quantize
 from pie_tpu_torch.ops.rope import apply_rope_tables, make_inv_freq, rope_tables
+from pie_tpu_torch.parallel.tp import mesh_ops
 from pie_tpu_torch.utils.device import resolve_device
 
 
@@ -157,6 +158,10 @@ class Gemma3Model:
         "q_norm": "self_attn.q_norm.weight",
         "k_norm": "self_attn.k_norm.weight",
     }
+
+    #: the ("dp", "tp") mesh this rank's model runs over (None: unsharded;
+    #: the collectives as in ``LlamaModel``, the tower replicated)
+    mesh = None
 
     def __init__(self, config: Gemma3Config):
         self.config = config
@@ -333,7 +338,7 @@ class Gemma3Model:
         """The embedding rows times sqrt(hidden), the scale rounded to the
         table's dtype first, as JAX does."""
         e = params["embed"]
-        return e[input_ids] * self._embed_scale[e.dtype]
+        return mesh_ops(self.mesh).embed(e, input_ids) * self._embed_scale[e.dtype]
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """Logits against the embedding table in h's dtype: f32 products and
@@ -341,8 +346,10 @@ class Gemma3Model:
         the card (a [V, D] f32 copy of the table would not fit a step)."""
         e = params["embed"].to(h.dtype)
         if h.device.type == "cpu":
-            return _f32_dot(h, e.T)
-        return torch.matmul(h, e.T).to(torch.float32)
+            logits = _f32_dot(h, e.T)
+        else:
+            logits = torch.matmul(h, e.T).to(torch.float32)
+        return mesh_ops(self.mesh).gather_vocab(logits)
 
     def embed_with_images(self, params: dict, input_ids: torch.Tensor,
                           pixel_values=None) -> torch.Tensor:
@@ -389,12 +396,13 @@ class Gemma3Model:
         """wo, ln2, residual, ln3, the GeGLU MLP, ln4, residual."""
         eps = self.config.rms_norm_eps
         b, t = h.shape[0], h.shape[1]
-        h = h + _gemma_rms(linear(attn.reshape(b, t, -1), p["wo"], layer=i),
+        par = mesh_ops(self.mesh)
+        h = h + _gemma_rms(par.tp_sum(linear(attn.reshape(b, t, -1), p["wo"], layer=i)),
                            p["ln2"][i], eps)
         x = _gemma_rms(h, p["ln3"][i], eps)
         g = linear(x, p["wg"], layer=i)
         u = linear(x, p["wu"], layer=i)
-        mlp = linear(_gelu_tanh(g) * u, p["wd"], layer=i)
+        mlp = par.tp_sum(linear(_gelu_tanh(g) * u, p["wd"], layer=i))
         return h + _gemma_rms(mlp, p["ln4"][i], eps)
 
     @property
@@ -522,6 +530,7 @@ class Gemma3Model:
         context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
         with_logits: bool = True,
         last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
+        lane_split: bool = False,  # the rows are decode lanes (split over dp)
     ):
         """Forward over the global paged pool. Decode (T == 1) attends
         through the paged decode-attention kernel with each layer's window
@@ -529,11 +538,16 @@ class Gemma3Model:
         pages to dense K/V under the full or windowed mask. Returns (logits
         [B, T, V] f32, pool); with_logits=False stops after the last layer
         and returns (None, pool); ``last_idx`` unembeds that one row only
-        (logits [B, 1, V])."""
+        (logits [B, 1, V]); ``lane_split`` as in ``LlamaModel``."""
         cfg = self.config
+        par = mesh_ops(self.mesh)
+        split = lane_split and par.dp > 1
+        phys, slot = page_slots(block_tables, positions, pool.num_pages)
+        if split:
+            input_ids, positions, block_tables, context_lens = par.split_lanes(
+                input_ids, positions, block_tables, context_lens)
         h = self.embed(params, torch.clamp(input_ids, min=0))
         decode = h.shape[1] == 1
-        phys, slot = page_slots(block_tables, positions, pool.num_pages)
         if not decode:
             kv_pos = _paged_kv_positions(block_tables, context_lens)
             masks = {False: attention_mask(positions, kv_pos),
@@ -543,6 +557,8 @@ class Gemma3Model:
         for i in range(cfg.num_hidden_layers):
             sliding = bool(self.is_sliding[i])
             q, k, v = self._qkv(p, h, i, rope, sliding)
+            if split:
+                k, v = par.gather_rows(k), par.gather_rows(v)
             scatter_tokens(pool, i, phys, slot, k, v)
             if decode:
                 attn = paged_attention_decode(
@@ -583,17 +599,20 @@ class Gemma3Model:
         embeddings) writes its K/V through the same pass over the weights,
         attending by a masked (windowed on sliding layers) dense attention
         over its lane's gathered pages. Returns (decode logits [B, V] f32,
-        pool)."""
+        pool); under dp > 1 as ``LlamaModel.mixed_forward``."""
         cfg = self.config
+        par = mesh_ops(self.mesh)
+        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
+        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
+                                        pool.num_pages)
+        dec_tokens, dec_positions, dec_ctx, block_tables = par.split_lanes(
+            dec_tokens, dec_positions, dec_ctx, block_tables)
         b = dec_tokens.shape[0]
         cs = pf_ids.shape[0]
         positions = torch.cat([dec_positions, pf_positions])  # [M]
         h = self.embed(params, torch.clamp(torch.cat([dec_tokens, pf_ids]), min=0)[None])
         if pf_embeds is not None:
             h = torch.cat([h[:, :b], pf_embeds.to(h.dtype)[None]], dim=1)
-        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
-        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
-                                        pool.num_pages)
         pf_phys, pf_slot = page_slots(pf_table, pf_positions[None], pool.num_pages)
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
         slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
@@ -607,7 +626,7 @@ class Gemma3Model:
         for i in range(cfg.num_hidden_layers):
             sliding = bool(self.is_sliding[i])
             q, k, v = self._qkv(p, h, i, rope, sliding)  # [1, M, H, dh]
-            scatter_tokens(pool, i, phys, slot, k[0], v[0])
+            scatter_tokens(pool, i, phys, slot, *par.gather_lead(b, k[0], v[0]))
             attn_dec = paged_attention_decode(
                 q[0, :b].contiguous(), pool.k, pool.v, pool.k_scale, pool.v_scale,
                 i, block_tables, dec_ctx, self._scale, self._window(sliding))

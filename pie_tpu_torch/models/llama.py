@@ -13,6 +13,17 @@ through ``ops.quant.quantized_matmul``, the decode MLP block through
 ``ops.fused_mlp.fused_mlp_stacked`` and decode lanes through
 ``ops.paged_attention.paged_attention_decode``: the CUDA kernels for
 tensors on the card, the plain versions for tensors on the CPU.
+
+Sharded (``mesh`` set by ``parallel.tp.shard_model``, the model built over
+its rank's ``local_config``): the collectives sit where the JAX forwards
+pin shardings (``_constrain``): the embedding is a masked lookup of the
+rank's vocab rows and an all-reduce, ``wo`` and ``wd`` all-reduce their
+row-parallel partial sums before the residual adds, and the logits of the
+rank's vocab columns are gathered. The fused decode MLP (K4) is off, as
+in JAX, because its residual add would run before the all-reduce. The
+paged forwards' decode lanes split over dp (``lane_split``; each layer's
+new K/V of every lane is gathered, so every dp rank's pool holds every
+page).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from pie_tpu_torch.ops.rope import (
     rope_qkv_cs,
     rope_tables,
 )
+from pie_tpu_torch.parallel.tp import mesh_ops
 from pie_tpu_torch.utils.device import resolve_device
 
 
@@ -196,6 +208,9 @@ class LlamaModel:
         "norm": "model.norm.weight",
         "lm_head": "lm_head.weight",
     }
+
+    #: the ("dp", "tp") mesh this rank's model runs over (None: unsharded)
+    mesh = None
 
     def __init__(self, config: LlamaConfig):
         self.config = config
@@ -385,14 +400,15 @@ class LlamaModel:
                 x = rms_norm(x, lw, ln_eps)
             g = linear(x, p["wg"], layer=layer)
             u = linear(x, p["wu"], layer=layer)
-        return linear(_silu(g) * u, p["wd"], layer=layer)
+        return mesh_ops(self.mesh).tp_sum(linear(_silu(g) * u, p["wd"], layer=layer))
 
     def _fused_mlp_ok(self, p, m: int) -> bool:
         """The JAX package's auto policy for the one-launch decode MLP block
         (K4 on the card, its plain version on the CPU): small models
         (hidden <= 2048), stacked quantized wo / wgu / wd, M <= 8 and the
-        kernel's own gate."""
-        if self.config.hidden_size > 2048:
+        kernel's own gate. Off under a mesh (the residual add would run
+        before the all-reduce of ``wo``), as JAX's is."""
+        if self.mesh is not None or self.config.hidden_size > 2048:
             return False
         if not ("wo" in p and "wgu" in p and "wd" in p):
             return False
@@ -410,7 +426,7 @@ class LlamaModel:
                 p["ln2"], layer, p["wo"], p["wgu"], p["wd"], eps=eps,
             )
             return out.reshape(b, t, dm)
-        h = h + linear(attn_flat, p["wo"], layer=layer)
+        h = h + mesh_ops(self.mesh).tp_sum(linear(attn_flat, p["wo"], layer=layer))
         if fused_ln:
             # ln2 folds into the wgu kernel prologue
             return h + self._mlp(p, h, layer=layer, ln_w=p["ln2"], ln_eps=eps)
@@ -418,7 +434,7 @@ class LlamaModel:
         return h + self._mlp(p, x, layer=layer)
 
     def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-        return params["embed"][input_ids]
+        return mesh_ops(self.mesh).embed(params["embed"], input_ids)
 
     def unembed(self, params: dict, h: torch.Tensor, ln_w=None,
                 ln_eps: float = 0.0) -> torch.Tensor:
@@ -428,11 +444,13 @@ class LlamaModel:
             h = rms_norm(h, ln_w, ln_eps)
             ln_w = None
         if "lm_head" in params:
-            return linear(h, params["lm_head"], ln_w=ln_w, ln_eps=ln_eps)
-        return torch.einsum(
-            "btd,vd->btv", h.to(torch.float32),
-            params["embed"].to(h.dtype).to(torch.float32),
-        )
+            logits = linear(h, params["lm_head"], ln_w=ln_w, ln_eps=ln_eps)
+        else:
+            logits = torch.einsum(
+                "btd,vd->btv", h.to(torch.float32),
+                params["embed"].to(h.dtype).to(torch.float32),
+            )
+        return mesh_ops(self.mesh).gather_vocab(logits)
 
     # -- forward -------------------------------------------------------------
 
@@ -543,16 +561,25 @@ class LlamaModel:
         context_lens: torch.Tensor,  # [B] int32 lens AFTER this chunk
         with_logits: bool = True,
         last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
+        lane_split: bool = False,  # the rows are decode lanes (split over dp)
     ):
         """Forward over the global paged KV pool. Decode (T == 1) attends
         through the paged decode-attention kernel (K3 on the card); a
         prefill chunk gathers its pages to dense KV. Returns (logits
         [B, T, V] f32, pool); with_logits=False stops after the last layer
         (a prefill whose logits nobody reads) and returns (None, pool);
-        ``last_idx`` unembeds that one row only (logits [B, 1, V])."""
+        ``last_idx`` unembeds that one row only (logits [B, 1, V]). With
+        ``lane_split`` under dp > 1 this rank runs its rows of the batch
+        (logits [B/dp, T, V]) and writes every row's K/V."""
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        par = mesh_ops(self.mesh)
+        split = lane_split and par.dp > 1
+        phys, slot = page_slots(block_tables, positions, pool.num_pages)
+        if split:
+            input_ids, positions, block_tables, context_lens = par.split_lanes(
+                input_ids, positions, block_tables, context_lens)
         h = self.embed(params, input_ids)
         b, t = h.shape[0], h.shape[1]
         dev = h.device
@@ -570,7 +597,6 @@ class LlamaModel:
         eps = cfg.rms_norm_eps
         fused_ln = decode and b * t <= 32
         use_fused_mlp = decode and self._fused_mlp_ok(p, b * t)
-        phys, slot = page_slots(block_tables, positions, pool.num_pages)
         if not decode:
             mask = attention_mask(positions,
                                   _paged_kv_positions(block_tables, context_lens))
@@ -587,6 +613,8 @@ class LlamaModel:
             if not fused_rope:
                 q = apply_rope_tables(q, cos, sin)
                 k = apply_rope_tables(k, cos, sin)
+            if split:
+                k, v = par.gather_rows(k), par.gather_rows(v)
             scatter_tokens(pool, i, phys, slot, k, v)
             if decode:
                 attn = paged_attention_decode(
@@ -631,10 +659,18 @@ class LlamaModel:
         every replay; its emptiness is a host value from the scheduler's
         plan (JAX's ``lax.cond`` on the device becomes a branch on the
         host, as ``use_rider`` picks one of two programs), so nothing is
-        read back. Returns (decode logits [B, V] f32, pool)."""
+        read back. Returns (decode logits [B, V] f32, pool). Under dp > 1
+        this rank runs its lanes (logits [B/dp, V]) and the whole rider,
+        and writes every lane's K/V."""
         cfg = self.config
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        par = mesh_ops(self.mesh)
+        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
+        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
+                                        pool.num_pages)
+        dec_tokens, dec_positions, dec_ctx, block_tables = par.split_lanes(
+            dec_tokens, dec_positions, dec_ctx, block_tables)
         b = dec_tokens.shape[0]
         cs = pf_ids.shape[0]
         m = b + cs
@@ -656,9 +692,6 @@ class LlamaModel:
             cos, sin = rope_tables(positions[None], inv_freq)
         h = self.embed(params, torch.clamp(flat_ids, min=0)[None])  # [1, M, D]
 
-        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
-        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
-                                        pool.num_pages)
         pf_phys, pf_slot = page_slots(pf_table, pf_positions[None],
                                       pool.num_pages)
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
@@ -677,7 +710,7 @@ class LlamaModel:
             if not fused_rope:
                 q = apply_rope_tables(q, cos, sin)
                 k = apply_rope_tables(k, cos, sin)
-            scatter_tokens(pool, i, phys, slot, k[0], v[0])
+            scatter_tokens(pool, i, phys, slot, *par.gather_lead(b, k[0], v[0]))
             attn_dec = paged_attention_decode(
                 q[0, :b].contiguous(), pool.k, pool.v, pool.k_scale,
                 pool.v_scale, i, block_tables, dec_ctx, scale,
@@ -688,7 +721,7 @@ class LlamaModel:
             else:
                 attn_pf = torch.zeros((cs, hq, dh), dtype=q.dtype, device=dev)
             attn = torch.cat([attn_dec, attn_pf])[None]  # [1, M, Hq, dh]
-            h2 = h + linear(attn.reshape(1, m, hq * dh), p["wo"], layer=i)
+            h2 = h + par.tp_sum(linear(attn.reshape(1, m, hq * dh), p["wo"], layer=i))
             x = rms_norm(h2, _row(p["ln2"], i), eps)
             h = h2 + self._mlp(p, x, layer=i)
         h = rms_norm(h[:, :b], params["norm"], eps)  # lanes only

@@ -64,6 +64,7 @@ from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
 from pie_tpu_torch.ops.quant import QuantizedTensor, quantize
 from pie_tpu_torch.ops.rope import apply_rope_tables, make_inv_freq, rope_tables
+from pie_tpu_torch.parallel.tp import mesh_ops
 from pie_tpu_torch.utils.device import resolve_device
 
 
@@ -199,6 +200,10 @@ class Qwen2VLModel:
         "bk": "self_attn.k_proj.bias",
         "bv": "self_attn.v_proj.bias",
     }
+
+    #: the ("dp", "tp") mesh this rank's model runs over (None: unsharded;
+    #: the collectives as in ``LlamaModel``, the tower replicated)
+    mesh = None
 
     def __init__(self, config: Qwen2VLConfig):
         self.config = config
@@ -340,18 +345,21 @@ class Qwen2VLModel:
     # -- embedding / head ---------------------------------------------------
 
     def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-        return params["embed"][input_ids]
+        return mesh_ops(self.mesh).embed(params["embed"], input_ids)
 
     def unembed(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """Vocab logits: the untied head (quantized or dense), or, tied, a
         product against the embedding table (f32 on the CPU as JAX's
         einsum, a bf16 GEMM with f32 accumulation on the card)."""
         if "lm_head" in params:
-            return linear(h, params["lm_head"])
-        e = params["embed"].to(h.dtype)
-        if h.device.type == "cpu":
-            return _f32_dot(h, e.T)
-        return torch.matmul(h, e.T).to(torch.float32)
+            logits = linear(h, params["lm_head"])
+        else:
+            e = params["embed"].to(h.dtype)
+            if h.device.type == "cpu":
+                logits = _f32_dot(h, e.T)
+            else:
+                logits = torch.matmul(h, e.T).to(torch.float32)
+        return mesh_ops(self.mesh).gather_vocab(logits)
 
     def embed_with_images(self, params: dict, input_ids: torch.Tensor,
                           pixel_values=None, grid_thw=None) -> torch.Tensor:
@@ -385,11 +393,12 @@ class Qwen2VLModel:
         """wo and the residual, ln2, the gated-SiLU MLP and the residual."""
         eps = self.config.rms_norm_eps
         b, t = h.shape[0], h.shape[1]
-        h = h + linear(attn.reshape(b, t, -1), p["wo"], layer=i)
+        par = mesh_ops(self.mesh)
+        h = h + par.tp_sum(linear(attn.reshape(b, t, -1), p["wo"], layer=i))
         x = rms_norm(h, p["ln2"][i], eps)
         g = linear(x, p["wg"], layer=i)
         u = linear(x, p["wu"], layer=i)
-        return h + linear(_silu(g) * u, p["wd"], layer=i)
+        return h + par.tp_sum(linear(_silu(g) * u, p["wd"], layer=i))
 
     def _logits(self, params, h):
         return self.unembed(params, rms_norm(h, params["norm"],
@@ -452,6 +461,7 @@ class Qwen2VLModel:
         with_logits: bool = True,
         pos_delta: Optional[torch.Tensor] = None,  # [B] int32 M-RoPE offset
         last_idx: Optional[torch.Tensor] = None,  # [1] row to unembed
+        lane_split: bool = False,  # the rows are decode lanes (split over dp)
     ):
         """Forward over the global paged pool. Rope turns at positions -
         pos_delta (an image-bearing sequence's rope stream lags its KV
@@ -459,7 +469,15 @@ class Qwen2VLModel:
         Decode (T == 1) attends through the paged decode-attention kernel, a
         prefill chunk gathers its pages to dense K/V. Returns (logits
         [B, T, V] f32, pool); with_logits=False returns (None, pool);
-        ``last_idx`` unembeds that one row only (logits [B, 1, V])."""
+        ``last_idx`` unembeds that one row only (logits [B, 1, V]);
+        ``lane_split`` as in ``LlamaModel``."""
+        par = mesh_ops(self.mesh)
+        split = lane_split and par.dp > 1
+        phys, slot = page_slots(block_tables, positions, pool.num_pages)
+        if split:
+            input_ids, positions, block_tables, context_lens, pos_delta = (
+                par.split_lanes(input_ids, positions, block_tables, context_lens,
+                                pos_delta))
         h = self.embed(params, torch.clamp(input_ids, min=0))
         decode = h.shape[1] == 1
         rope_pos = positions
@@ -467,13 +485,14 @@ class Qwen2VLModel:
             rope_pos = torch.where(positions >= 0, positions - pos_delta[:, None],
                                    positions)
         rope = self._rope(rope_pos)
-        phys, slot = page_slots(block_tables, positions, pool.num_pages)
         if not decode:
             mask = attention_mask(positions, _paged_kv_positions(block_tables,
                                                                  context_lens))
         p = params["layers"]
         for i in range(self.config.num_hidden_layers):
             q, k, v = self._qkv(p, h, i, rope)
+            if split:
+                k, v = par.gather_rows(k), par.gather_rows(v)
             scatter_tokens(pool, i, phys, slot, k, v)
             if decode:
                 attn = paged_attention_decode(
@@ -516,7 +535,14 @@ class Qwen2VLModel:
         image prompt's embeddings) writes its K/V through the same pass over
         the weights at the M-RoPE streams ``pf_pos3``, attending by masked
         dense attention over its lane's gathered pages. Returns (decode
-        logits [B, V] f32, pool)."""
+        logits [B, V] f32, pool); under dp > 1 as
+        ``LlamaModel.mixed_forward``."""
+        par = mesh_ops(self.mesh)
+        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
+        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
+                                        pool.num_pages)
+        dec_tokens, dec_positions, dec_ctx, block_tables, pos_delta = par.split_lanes(
+            dec_tokens, dec_positions, dec_ctx, block_tables, pos_delta)
         b = dec_tokens.shape[0]
         cs = pf_ids.shape[0]
         positions = torch.cat([dec_positions, pf_positions])  # [M]
@@ -536,9 +562,6 @@ class Qwen2VLModel:
             if pf_embeds_valid is not True:
                 pf_part = torch.where(pf_embeds_valid, pf_part, h[0, b:])
             h = torch.cat([h[:, :b], pf_part[None]], dim=1)
-        pf_table = block_tables[pf_lane.long()]  # [1, maxP]
-        dec_phys, dec_slot = page_slots(block_tables, dec_positions[:, None],
-                                        pool.num_pages)
         pf_phys, pf_slot = page_slots(pf_table, pf_positions[None], pool.num_pages)
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
         slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
@@ -548,7 +571,7 @@ class Qwen2VLModel:
         p = params["layers"]
         for i in range(self.config.num_hidden_layers):
             q, k, v = self._qkv(p, h, i, rope)  # [1, M, H, dh]
-            scatter_tokens(pool, i, phys, slot, k[0], v[0])
+            scatter_tokens(pool, i, phys, slot, *par.gather_lead(b, k[0], v[0]))
             attn_dec = paged_attention_decode(
                 q[0, :b].contiguous(), pool.k, pool.v, pool.k_scale, pool.v_scale,
                 i, block_tables, dec_ctx, self._scale)

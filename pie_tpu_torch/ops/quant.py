@@ -233,6 +233,27 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return w[..., : qt.shape[0], :].to(dtype)
 
 
+def quantize_mlx_layout(
+    w_nk: torch.Tensor, group_size: int = 64, bits: int = 4
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize an [N, K] matrix along K into the reference's MLX layout:
+    consecutive LSB-first packing, packed [N, K//ep] (int32 words holding
+    the uint32 bit pattern), scales / biases [N, K//g]. The same codes,
+    scales and biases as ``quantize`` of its transpose; for checkpoint
+    interchange (``from_mlx_layout`` reads it back)."""
+    _check_format(bits, group_size)
+    q, scales, biases = compute_qparams(w_nk.transpose(-1, -2), group_size, bits)
+    q = q.transpose(-1, -2).to(torch.int64)  # [N, K]
+    ep = 32 // bits
+    k = q.shape[-1]
+    qw = q.reshape(*q.shape[:-1], k // ep, ep)
+    word = torch.zeros(qw.shape[:-1], dtype=torch.int64, device=q.device)
+    for i in range(ep):
+        word |= qw[..., i] << (bits * i)
+    return (_to_int32_words(word), scales.transpose(-1, -2).contiguous(),
+            biases.transpose(-1, -2).contiguous())
+
+
 def from_mlx_layout(
     packed_nk: torch.Tensor,
     scales_nk: torch.Tensor,

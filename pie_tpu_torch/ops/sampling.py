@@ -8,7 +8,9 @@ Random numbers come from an explicit ``torch.Generator``; they are not the
 JAX package's bits, so sampled paths agree in distribution only. Every
 draw is a ``torch.rand`` on that generator, which a CUDA graph can capture
 (``engine/graphs.py`` registers the generator with each graph that
-samples).
+samples). A sampler given ``rows`` (a dp rank's slice of the batch) draws
+the whole batch's numbers and keeps its rows: each lane gets the draws it
+would get unsharded, and every rank's generator advances alike.
 """
 
 from __future__ import annotations
@@ -57,21 +59,24 @@ class SamplingParams:
         )
 
 
-def _uniform(shape, logits: torch.Tensor, gen) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=logits.device,
-                      dtype=torch.float32)
+def _uniform(shape, logits: torch.Tensor, gen, rows=None) -> torch.Tensor:
+    if rows is None:
+        return torch.rand(shape, generator=gen, device=logits.device,
+                          dtype=torch.float32)
+    b, own = rows
+    return _uniform((b,) + tuple(shape[1:]), logits, gen)[own]
 
 
-def _gumbel(shape, logits: torch.Tensor, gen) -> torch.Tensor:
-    u = _uniform(shape, logits, gen).clamp_(min=torch.finfo(torch.float32).tiny)
+def _gumbel(shape, logits: torch.Tensor, gen, rows=None) -> torch.Tensor:
+    u = _uniform(shape, logits, gen, rows).clamp_(min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
 
-def _sample_sorted(logits, params, gen):
+def _sample_sorted(logits, params, gen, rows=None):
     """Full path: one descending sort serves top-k, top-p, min-p and XTC."""
     b, v = logits.shape
     scaled = logits / torch.clamp(params.temperature[:, None], min=1e-6)
-    coin = _uniform((b, 1), logits, gen)
+    coin = _uniform((b, 1), logits, gen, rows)
     sort_idx = torch.argsort(-scaled, dim=-1, stable=True)
     sorted_logits = torch.gather(scaled, -1, sort_idx)
     sorted_probs = torch.softmax(sorted_logits, dim=-1)
@@ -100,22 +105,22 @@ def _sample_sorted(logits, params, gen):
     )
     keep &= ~(xtc_on & (ranks < n_above - 1))
     masked = torch.where(keep, sorted_logits, torch.full_like(sorted_logits, NEG_INF))
-    pick_rank = torch.argmax(masked + _gumbel((b, v), logits, gen), dim=-1)
+    pick_rank = torch.argmax(masked + _gumbel((b, v), logits, gen, rows), dim=-1)
     sampled = torch.gather(sort_idx, -1, pick_rank[:, None])[:, 0]
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(params.temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
-def _sample_nofilter(logits, params, gen):
+def _sample_nofilter(logits, params, gen, rows=None):
     """No filter active anywhere in the batch: temperature + Gumbel-max."""
     b, v = logits.shape
     scaled = logits / torch.clamp(params.temperature[:, None], min=1e-6)
-    sampled = torch.argmax(scaled + _gumbel((b, v), logits, gen), dim=-1)
+    sampled = torch.argmax(scaled + _gumbel((b, v), logits, gen, rows), dim=-1)
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(params.temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
-def _sample_greedy(logits, params, gen):
+def _sample_greedy(logits, params, gen, rows=None):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -143,13 +148,15 @@ def sampler_kind_for(temperature, top_p, min_p, top_k, xtc_probability=0.0) -> s
 
 
 def sample(logits: torch.Tensor, params: SamplingParams, gen,
-           kind: str = "auto") -> torch.Tensor:
+           kind: str = "auto", rows: Optional[tuple] = None) -> torch.Tensor:
     """Batched sampler: logits [B, V] f32 -> token ids [B] int32.
     ``kind`` picks the path ("greedy" / "categorical" / "filtered"); "auto"
     decides from the parameters, which it reads back to the host, so a
     decode step (a captured graph) is always given a kind resolved on the
     host (``sampler_kind_for``). The draws come from ``gen``; a graph that
-    samples registers it, so each replay draws anew."""
+    samples registers it, so each replay draws anew. ``rows`` (B, slice):
+    ``logits`` are that slice of a batch of B, whose draws are taken whole
+    (``MeshOps.batch_rows``)."""
     if kind == "auto":
         kind = sampler_kind_for(
             params.temperature.cpu().numpy(), params.top_p.cpu().numpy(),
@@ -158,7 +165,7 @@ def sample(logits: torch.Tensor, params: SamplingParams, gen,
         )
         if kind == "greedy":
             kind = "categorical"  # temperature <= 0 lanes stay greedy in it
-    return SAMPLER_KINDS[kind](logits, params, gen)
+    return SAMPLER_KINDS[kind](logits, params, gen, rows)
 
 
 # ---------------------------------------------------------------------------

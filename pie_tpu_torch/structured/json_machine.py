@@ -150,8 +150,11 @@ class FixedString(Frame):
 
 @dataclasses.dataclass(frozen=True)
 class Number(Frame):
-    """JSON number; phases: s(start) m(minus-seen) i(int) d(frac-start)
-    f(frac) e(exp-start) g(exp-sign-seen) x(exp)."""
+    """JSON number; phases: s(start) m(minus-seen) z(a leading zero: only
+    ".", "e" or the end may follow) i(int) d(frac-start) f(frac)
+    e(exp-start) g(exp-sign-seen) x(exp). The JAX package's machine has no
+    "z": it lets an integer go on after a leading zero ("03"), which no
+    JSON parser accepts."""
 
     phase: str = "s"
     integer_only: bool = False
@@ -162,6 +165,8 @@ class Number(Frame):
             return "-" + DIGITS
         if p == "m":
             return DIGITS
+        if p == "z":
+            return "" if self.integer_only else ".e"
         if p == "i":
             out = DIGITS
             if not self.integer_only:
@@ -180,7 +185,7 @@ class Number(Frame):
         return ()
 
     def poppable(self):
-        return self.phase in ("i", "f", "x")
+        return self.phase in ("z", "i", "f", "x")
 
     def consume(self, ch):
         p = self.phase
@@ -193,12 +198,12 @@ class Number(Frame):
             if ch == "-":
                 return nxt("m")
             if ch in DIGITS:
-                return nxt("i")
+                return nxt("z" if ch == "0" else "i")
         elif p == "m":
             if ch in DIGITS:
-                return nxt("i")
-        elif p == "i":
-            if ch in DIGITS:
+                return nxt("z" if ch == "0" else "i")
+        elif p in ("z", "i"):
+            if p == "i" and ch in DIGITS:
                 return nxt("i")
             if not io and ch == ".":
                 return nxt("d")

@@ -34,7 +34,7 @@ def test_profiling_zones(monkeypatch):
 
 
 def test_heartbeat_liveness(tmp_path):
-    from pie_tpu_torch.utils.profiling import Heartbeat
+    from pie_tpu_torch.parallel.distributed import Heartbeat
 
     a = Heartbeat(tmp_path, "host-a", interval=0.05, timeout=0.2)
     b = Heartbeat(tmp_path, "host-b", interval=0.05, timeout=0.2)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of pie_tpu_torch imports JAX or the
 JAX package, and its entry points do not move to the CPU on their own."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -60,6 +61,12 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.runtime.engine_main",
     "pie_tpu_torch.engine.client",
     "pie_tpu_torch.utils.profiling",
+    "pie_tpu_torch.parallel.mesh",
+    "pie_tpu_torch.parallel.tp",
+    "pie_tpu_torch.parallel.distributed",
+    "pie_tpu_torch.parallel.router",
+    "pie_tpu_torch.server.frontier",
+    "pie_tpu_torch.tools.ppl",
 ])
 def test_batching_modules_import_no_jax(module):
     """Each module of the continuous-batching path, and of the checkpoint
@@ -156,3 +163,34 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_main.main(["--model-path", str(ROOT / "no-such-checkpoint"),
                           "--log-level", "WARNING"])
+    from pie_tpu_torch.parallel import distributed, make_mesh
+    from pie_tpu_torch.tools import ppl
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(tp=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize("127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ppl.main(["--model-path", str(ROOT / "no-such-checkpoint"),
+                  "--data", str(ROOT / "no-such-text")])
+
+
+def test_frontier_entry_point_runs_alone():
+    """``python -m pie_tpu_torch.server.frontier`` (the front tier, which
+    drives no device) imports no JAX and refuses to start without hosts."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.argv = ["frontier"]
+        try:
+            runpy.run_module("pie_tpu_torch.server.frontier", run_name="__main__")
+        except SystemExit as e:
+            print("exit:", e.code)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "pie_tpu"))
+        assert not bad, bad
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PIE_HOSTS"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "exit: PIE_HOSTS / --hosts required" in out.stdout

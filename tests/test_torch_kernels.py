@@ -1410,3 +1410,73 @@ def test_cache_swap_frees_the_prefill_graphs(cuda):
     assert not held
     out = e.generate(list(range(3, 40)), max_completion_tokens=8, temperature=0.0)
     assert len(out.token_ids) == 8
+
+
+@pytest.mark.parametrize("m", [8, 512])
+def test_padded_row_shard_on_the_card(cuda, m):
+    """K1 (M = 8) and K2 (M = 512) on a tp 8 row shard of a K = 3,584
+    weight (K 448, re-padded to 512 with zero codes, scales and biases)
+    against the plain version; the eight shards' products sum to the
+    unsharded one."""
+    from pie_tpu_torch.parallel.tp import row_shard
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    k, n, tp = 3584, 512, 8
+    qt = tq.quantize((torch.randn((k, n), generator=gen, device=cuda) * 0.05).bfloat16(),
+                     64, 4)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    total = 0
+    for r in range(tp):
+        shard = row_shard(qt, r, tp)
+        assert shard.shape == (k // tp, n) and shard.padded_k == 512
+        xs = x[:, r * k // tp:(r + 1) * k // tp].contiguous()
+        got = tq.quantized_matmul(xs, shard)
+        assert _norm_err(got, qmc.quant_matmul_ref(xs, shard)) < 0.025
+        total = total + got.float()
+    assert _norm_err(total, tq.quantized_matmul(x, qt).float()) < 0.025
+
+
+def test_collectives_in_a_step_graph_over_nccl(cuda):
+    """A one-process NCCL mesh (tp = 1): the sharded forwards'
+    collectives (all-reduce, vocab all-gather, masked embedding) captured
+    in a step graph replay what they compute eagerly, and the graph adds
+    its collectives to the counts at every replay."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pie_tpu_torch.engine.graphs import StepGraphs
+    from pie_tpu_torch.parallel import distributed, make_mesh, mesh_ops
+    from pie_tpu_torch.parallel.tp import collective_counts
+
+    joined = not dist.is_initialized()
+    if joined:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        assert distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        ops = mesh_ops(make_mesh(tp=1, dp=1))
+        assert ops.capturable and ops.backend == "nccl"
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        x = torch.randn((8, 4096), generator=gen, device=cuda).bfloat16()
+        logits = torch.randn((8, 1000), generator=gen, device=cuda)
+        table = torch.randn((1000, 64), generator=gen, device=cuda).bfloat16()
+        ids = torch.randint(0, 1000, (8,), generator=gen, device=cuda)
+        graphs = StepGraphs(cuda, None, ops)
+
+        def step():
+            return ops.tp_sum(x * 2), ops.gather_vocab(logits + 1), ops.embed(table, ids)
+
+        graphs(("decode",), step)  # warm-up and capture
+        before = dict(collective_counts)
+        out = graphs(("decode",), step)
+        torch.cuda.synchronize()
+        for got, want in zip(out, (x * 2, logits + 1, table[ids])):
+            assert torch.equal(got, want)
+        assert {k: collective_counts[k] - before[k] for k in before} == {
+            "tp all_reduce": 2, "tp all_gather": 1, "dp all_gather": 0}
+        assert graphs.stats()["by_kind"]["decode"]["replays"] == 1
+    finally:
+        if joined:
+            dist.destroy_process_group()

@@ -162,8 +162,22 @@ def test_ref_matches_pallas_decode_branch(m, group_size):
     prologue + rope epilogue, stacked, interpret mode) against the port's
     plain version: normalized max error < 0.025, the JAX package's own
     kernel tolerance."""
+    _decode_branch_case(m, 4, group_size)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ref_matches_pallas_decode_branch_g32(m, bits):
+    """The same at g = 32, INT4 and INT8, where the reference's decode
+    branch dequantizes per element (it post-scales only at g >= 64) while
+    K1 and its plain version post-scale every group: the two orders agree
+    within the same 0.025."""
+    _decode_branch_case(m, bits, 32)
+
+
+def _decode_branch_case(m, bits, group_size):
     hq, hkv, dh, k = 4, 2, 64, 512
-    qj, qt, lnw, n = _stacked_case(4, group_size, hq, hkv, dh, k, seed=6)
+    qj, qt, lnw, n = _stacked_case(bits, group_size, hq, hkv, dh, k, seed=6)
     x = np.random.default_rng(7).standard_normal((m, k)).astype(np.float32)
     pos = np.arange(m, dtype=np.int32) * 7 + 3
     inv = j_inv_freq(dh, 500000.0)

@@ -53,6 +53,28 @@ def test_free_json_rejections():
         ), text
 
 
+@pytest.mark.parametrize("text", ["03", "-03", "[0, 03819849]", '{"count": 00}'])
+def test_leading_zero_refused_where_jax_admits_it(text):
+    """An integer may not go on after a leading 0 or -0 (JSON's grammar):
+    the port's Number frame refuses the digit, JAX's machine
+    (pie_tpu/structured/json_machine.py, left as it is) admits it."""
+    from pie_tpu.structured.json_machine import JsonMachine as JJson
+
+    assert not JsonMachine(None).advance(text)
+    jm = JJson(None)
+    assert jm.advance(text) and (jm.is_complete or text[0] in "[{")
+
+
+@pytest.mark.parametrize("text", ["0", "-0", "0.5", "-0.25e3", "0e1", "[0, 10, 100]",
+                                  '{"n": 0}'])
+def test_leading_zero_then_fraction_exponent_or_end(text):
+    """After a leading zero, ".", "e" or the end: still accepted."""
+    assert accepts_full(None, text)
+    for schema in ({"type": "integer"},):
+        if "." not in text and "e" not in text and text.lstrip("-").isdigit():
+            assert accepts_full(schema, text)
+
+
 def test_incomplete_not_complete():
     m = JsonMachine(None)
     assert m.advance('{"a": [1, 2')
