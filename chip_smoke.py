@@ -8,6 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 0. device: the card's name and power limit (nvidia-smi); no CUDA -> error.
 1. build: nvcc builds every kernel source under pie_tpu_torch/csrc (sm_90a),
    one process per source, all started together.
+1b. kernels B7: the read probe (pie_tpu_torch/tools/hbm_peak.py, csrc/hbm_read.cu)
+   on a 4 GiB buffer of integer-valued f32: its register-load and TMA-bulk
+   paths equal to the plain version bit for bit, then the probe as its CLI
+   runs it (launches counted): each path's best and median ms over 5 runs
+   of 10 launches and its read rate beside the data sheet's 3.35 TB/s,
+   torch.sum over the folded view (the library call) and a same-size
+   copy_; a rate over the data sheet fails the run. The best path's rate
+   re-reads every bytes bound below as bound_probe_ms.
 2. kernels: K1 (decode GEMV) and K2 (prefill GEMM) against their plain
    PyTorch version at the Llama-3-8B INT4 g=64 shapes (normalized max
    error < 0.025), each timed over 8 rotating weight copies with CUDA
@@ -262,8 +270,9 @@ step), the 1B model check beside its reading before K2's single rounding
 prefill's device and enqueue time, the prefill graphs' captures, capture
 seconds and the pool per geometry), a native-scheduler summary, then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
-shapes) after a parallel summary (phase 16), the card's name and power
-limit, and
+shapes, B7's two paths; every bytes-bound row with bound_probe_ms beside
+bound_ms, as on the summary lines) after a parallel summary (phase 16),
+the card's name and power limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -279,8 +288,8 @@ from pathlib import Path
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, data sheet
+from pie_tpu_torch.tools.hbm_peak import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
 ROTATE = 8  # distinct weight copies per timing (the 50 MB L2 holds wqkv/wo)
 
 # Llama-3-8B geometry (bench.py's llama3_8b_config)
@@ -761,6 +770,63 @@ def ln_prepass_case(m, k, seed=0):
                bound_by="bytes", bytes=nbytes)
     emit(row)
     return row
+
+
+def phase_hbm_probe(card):
+    """B7, the read probe (pie_tpu_torch/tools/hbm_peak.py): both paths of
+    csrc/hbm_read.cu against the plain version on a 4 GiB buffer of
+    integer-valued f32 (every fold exact, so they must agree bit for bit),
+    then the probe as its CLI runs it, its launches counted: each path's
+    best and median ms over 5 runs and read rate beside the data sheet's
+    3.35 TB/s, the plain version's, torch.sum's over the folded view and a
+    same-size copy_'s. read_rate raises on a rate over the data sheet."""
+    from pie_tpu_torch.tools import hbm_peak as hp
+
+    x = hp.make_buffer(4)
+    want = hp.stream_read_plain(x)
+    check_err = {}
+    for path in hp.PATHS:
+        got = hp.stream_read(x, path)
+        check_err[path] = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B7 {path} differs from the plain version: "
+                                 f"max abs err {check_err[path]}")
+    del want, got
+    hp.reset_counts()
+    res = hp.measure(x)
+    launches = dict(hp.launch_counts)
+    for path in hp.PATHS:
+        if launches[f"B7 {path}"] < 1 or res[path]["max_abs_err"] != 0:
+            raise AssertionError(f"B7 {path}: launches {launches}, "
+                                 f"max abs err {res[path]['max_abs_err']}")
+    emit(dict(phase="kernels B7", card=card, launches=launches, check_err=check_err,
+              **{k: res[k] for k in ("bytes", "shape", "bound_ms", "bound_by", *hp.PATHS,
+                                     "plain", "library", "copy", "probe_bytes_per_s")}))
+    del x
+    torch.cuda.empty_cache()
+    return dict(res, launches=launches, check_err=check_err)
+
+
+def probe_ms(bound_ms: float, probe) -> float:
+    """A bytes bound re-read at the probe's best measured read rate (phase
+    B7) in place of the data sheet's."""
+    return bound_ms * HBM_BYTES_PER_S / probe["probe_bytes_per_s"]
+
+
+def with_probe(row: dict, probe) -> dict:
+    """row (bound_ms, bound_by) with bound_probe_ms where bytes bound it."""
+    if row["bound_by"] == "bytes":
+        row["bound_probe_ms"] = probe_ms(row["bound_ms"], probe)
+    return row
+
+
+def summed_bound(per_rows, probe) -> dict:
+    """bound_ms and bound_by of rows summed with their launch counts, and
+    bound_probe_ms where bytes bound the sum."""
+    bb = sum(per * r["bytes"] for per, r in per_rows) / HBM_BYTES_PER_S * 1e3
+    bo = sum(per * r["flops"] for per, r in per_rows) / BF16_FLOP_PER_S * 1e3
+    return with_probe(dict(bound_ms=max(bb, bo),
+                           bound_by="bytes" if bb >= bo else "operations"), probe)
 
 
 def phase_ln_prepass():
@@ -4888,6 +4954,7 @@ def main() -> int:
     if "error" in native_build:
         raise native_build["error"]
 
+    probe = timed("kernels B7", phase_hbm_probe, card)
     rows = timed("kernels K1/K2 8B", phase_kernels)
     rows_1b = timed("kernels K1/K2 1B", phase_kernels_1b)
     ln_rows = timed("kernels K1 ln pre-pass", phase_ln_prepass)
@@ -4948,8 +5015,6 @@ def main() -> int:
          qwen["engine"]["launches"]["K2"]),
     ):
         total = lambda key: sum(per * r[key] for per, r in per_rows)
-        bb = sum(per * r["bytes"] for per, r in per_rows) / HBM_BYTES_PER_S * 1e3
-        bo = sum(per * r["flops"] for per, r in per_rows) / BF16_FLOP_PER_S * 1e3
         summary.append(dict(
             name=f"{kname} {'quant_gemv' if kname == 'K1' else 'quant_gemm'} ({what})",
             route="cuda", source=src,
@@ -4957,8 +5022,7 @@ def main() -> int:
             launches=launches,
             max_abs_err=max(r["max_abs_err"] for _, r in per_rows),
             ms=total("kernel_ms"), kernel_ms=total("kernel_ms"), plain_ms=total("plain_ms"),
-            bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
-            library_ms=total("library_ms"),
+            **summed_bound(per_rows, probe), library_ms=total("library_ms"),
             tflop_s=sum(per * r["flops"] for per, r in per_rows) / total("kernel_ms") / 1e9,
         ))
     ln1 = ln_rows[(1, D)]  # per decoded 8B token: wqkv and wgu of every layer, the head
@@ -4982,10 +5046,7 @@ def main() -> int:
                   launches=sum(per for per, _ in per_rows),
                   **{key: sum(per * r[key] for per, r in per_rows)
                      for key in ("kernel_ms", "plain_ms", "library_ms", "flops", "bytes")},
-                  bound_ms=max(sum(per * r["bytes"] for per, r in per_rows)
-                               / HBM_BYTES_PER_S * 1e3,
-                               sum(per * r["flops"] for per, r in per_rows)
-                               / BF16_FLOP_PER_S * 1e3)))
+                  **summed_bound(per_rows, probe)))
     k3 = k3_rows[True]  # per device step: one launch per layer
     summary.append(dict(
         name="K3 paged_attention (8B heads, 8 lanes x 2,048-token INT8 pages, "
@@ -5033,23 +5094,27 @@ def main() -> int:
     ))
     k4_8 = k4_rows[(4, 8)]  # per 1B paged decode step: one launch per layer at M = 8
     emit(dict(phase="summary", case="K4 per 1B paged decode step (M = 8)",
-              launches=LAYERS1, plan=k4_8["plan"],
-              **{key: LAYERS1 * k4_8[key]
-                 for key in ("kernel_ms", "plain_ms", "unfused_ms", "library_ms", "bound_ms")}))
+              launches=LAYERS1, plan=k4_8["plan"], **with_probe(dict(
+                  bound_by=k4_8["bound_by"],
+                  **{key: LAYERS1 * k4_8[key] for key in (
+                      "kernel_ms", "plain_ms", "unfused_ms", "library_ms", "bound_ms")}), probe)))
     k1_1b = sum(per * r["kernel_ms"] for per, r in rows_1b["K1"])
     emit(dict(phase="summary 1B", k1_ms_per_decoded_token=k1_1b,
               k1_library_ms_per_decoded_token=sum(per * r["library_ms"]
                                                   for per, r in rows_1b["K1"]),
               k1_bound_ms_per_decoded_token=sum(per * r["bound_ms"]
                                                 for per, r in rows_1b["K1"]),
+              k1_bound_probe_ms_per_decoded_token=summed_bound(
+                  rows_1b["K1"], probe).get("bound_probe_ms"),
               k4_ms_per_decoded_token=LAYERS1 * k4["kernel_ms"],
-              k3_per_device_step=dict(
-                  (key, LAYERS1 * k3_rows["1B"][key])
-                  for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")),
+              k3_per_device_step=with_probe(dict(
+                  bound_by=k3_rows["1B"]["bound_by"],
+                  **{key: LAYERS1 * k3_rows["1B"][key]
+                     for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}), probe),
               decode_tok_s=eng1b["decode_tok_s"], paged_tok_s=paged1b["decode_tok_s"]))
-    emit(dict(phase="summary gemma3", k3_per_device_step_bf16=dict(
+    emit(dict(phase="summary gemma3", k3_per_device_step_bf16=with_probe(dict(
         (key, gemma["k3"][False][key])
-        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")),
+        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")), probe),
         model_checks=gemma["checks"], decode_tok_s=gemma["engine"]["decode_tok_s"],
         ttft_p50_ms=gemma["engine"]["ttft_p50_ms"],
         paged_tok_s=gemma["paged"]["decode_tok_s"],
@@ -5065,9 +5130,14 @@ def main() -> int:
               **{f"{name}_{key}": sum(per * r[key] for per, r in qwen["rows"][m])
                  for name, m in (("k1_m1", 1), ("k1_m8", 8), ("k2_m512", 512))
                  for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-              k3_per_device_step_bf16={key: Q7_LAYERS * qwen["k3"][False][key]
-                                       for key in ("kernel_ms", "plain_ms", "library_ms",
-                                                   "bound_ms")},
+              **{f"{name}_{key}": value
+                 for name, m in (("k1_m1", 1), ("k1_m8", 8), ("k2_m512", 512))
+                 for key, value in summed_bound(qwen["rows"][m], probe).items()
+                 if key != "bound_ms"},
+              k3_per_device_step_bf16=with_probe(dict(
+                  bound_by=qwen["k3"][False]["bound_by"],
+                  **{key: Q7_LAYERS * qwen["k3"][False][key]
+                     for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}), probe),
               ttft_p50_ms=qwen["engine"]["ttft_p50_ms"], image=qwen["engine"]["image"],
               decode_tok_s=qwen["engine"]["decode_tok_s"],
               image_decode_tok_s=qwen["engine"]["image_decode_tok_s"],
@@ -5131,6 +5201,19 @@ def main() -> int:
               frontier=dict((k, front[k]) for k in (
                   "added_ms_per_request", "direct_ms_p50", "relayed_ms_p50",
                   "in_flight_at_kill", "answered_after_kill"))))
+    for path in ("ldg", "tma"):
+        r = probe[path]
+        summary.append(dict(
+            name=f"B7 hbm_read {path} (4 GiB read, per probe call; off the serving path)",
+            route="cuda", source="pie_tpu_torch/csrc/hbm_read.cu",
+            replaces="benchmarks/hbm_peak.py:56", launches=probe["launches"][f"B7 {path}"],
+            max_abs_err=max(probe["check_err"][path], r["max_abs_err"]),
+            ms=r["ms"], kernel_ms=r["ms"], plain_ms=probe["plain"]["ms"],
+            bound_ms=probe["bound_ms"], bound_by="bytes", library_ms=probe["library"]["ms"],
+            read_bytes_per_s=r["read_bytes_per_s"], plan=r["plan"],
+        ))
+    for row in summary:
+        with_probe(row, probe)
     import torch.distributed as dist
 
     if dist.is_initialized():

@@ -28,8 +28,9 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
   up (2*M*K*N over 989 TFLOP/s bf16), by bytes below.
 
 ``build`` compiles every source under ``csrc/`` (K1, K2, the paged
-attention kernel K3 of ``ops/paged_attention.py`` and the fused decode-MLP
-kernel K4 of ``ops/fused_mlp.py``) with nvcc for ``sm_90a`` at first use
+attention kernel K3 of ``ops/paged_attention.py``, the fused decode-MLP
+kernel K4 of ``ops/fused_mlp.py`` and the read probe B7 of
+``tools/hbm_peak.py``) with nvcc for ``sm_90a`` at first use
 into ``build/pie_tpu_torch/<hash of the sources and headers>/``;
 ``kernel`` binds a library's C entry point through ctypes.
 A wrapper checks device, dtype, shape and contiguity (the weights' layout
@@ -177,6 +178,8 @@ ENTRY_POINTS = {
     "fused_mlp_encode": ("fused_mlp", "pie_fused_mlp_encode",
                          [_vp] * 3 + [_ci, _cll, _cll] + [_ci] * 5 + [_vp]),
     "fused_mlp_blocks_per_sm": ("fused_mlp", "pie_fused_mlp_blocks_per_sm", [_ci] * 4),
+    "hbm_read": ("hbm_read", "pie_hbm_read", [_vp] * 3 + [_cll] + [_ci] * 6 + [_vp]),
+    "hbm_read_blocks_per_sm": ("hbm_read", "pie_hbm_read_blocks_per_sm", [_ci] * 4 + [_vp]),
 }
 
 

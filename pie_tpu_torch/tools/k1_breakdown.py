@@ -41,9 +41,9 @@ import torch
 
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 from pie_tpu_torch.ops.rope import make_inv_freq, rope_qkv_cs
+from pie_tpu_torch.tools.hbm_peak import HBM_BYTES_PER_S
 from pie_tpu_torch.tools.prefill_ab import ROTATE, device_ms, random_weights
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # Llama-3-8B decode projections: name, K, N, launches per token, ln, rope
 SHAPES_8B = [("wqkv", 4096, 6144, 32, True, True), ("wo", 4096, 4096, 32, False, False),
              ("wgu", 4096, 28672, 32, True, False), ("wd", 14336, 4096, 32, False, False),

@@ -40,13 +40,13 @@ from pathlib import Path
 import torch
 
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+from pie_tpu_torch.tools.hbm_peak import BF16_FLOP_PER_S
 from pie_tpu_torch.tools.prefill_ab import ROTATE, device_ms, random_weights
 
 # the statements the variants remove: the dequantization of every step
 # after the first, and the wgmma instructions
 DEQUANT = re.compile(r"\n\s*build_frags<BITS, F32S>\(smem \+ s1[^;]*;")
 WGMMA = re.compile(r"\n\s*for \(int kk = 0; kk < BK / 16; \+\+kk\) wgmma_rs_m64n\d+k16[^;]*;")
-BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 
 # Llama-3-8B prefill projections: name, K, N, launches per 512-token prefill
 SHAPES_8B = [("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),

@@ -40,10 +40,10 @@ import torch
 from pie_tpu_torch.ops import paged_attention as pa
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
 from pie_tpu_torch.tools.decode_ab import k3_inputs
+from pie_tpu_torch.tools.hbm_peak import HBM_BYTES_PER_S
 from pie_tpu_torch.tools.k1_breakdown import build_all
 from pie_tpu_torch.tools.prefill_ab import device_ms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 CASES = [("8B int8", 32, 8, 128, True), ("8B bf16", 32, 8, 128, False),
          ("1B int8", 32, 8, 64, True)]
 LAYERS = 4

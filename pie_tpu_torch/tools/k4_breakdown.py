@@ -46,10 +46,10 @@ import torch
 
 from pie_tpu_torch.ops import fused_mlp as fm
 from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+from pie_tpu_torch.tools.hbm_peak import HBM_BYTES_PER_S
 from pie_tpu_torch.tools.k1_breakdown import bind, build_all
 from pie_tpu_torch.tools.prefill_ab import ROTATE, device_ms, random_weights
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # name: (d, di, M, bits)
 CASES = {"1b-m1": (2048, 8192, 1, 4), "1b-m8": (2048, 8192, 8, 4),
          "1b-m8-int8": (2048, 8192, 8, 8), "8b-m8": (4096, 14336, 8, 4)}

@@ -67,6 +67,7 @@ def test_port_imports_no_jax():
     "pie_tpu_torch.parallel.router",
     "pie_tpu_torch.server.frontier",
     "pie_tpu_torch.tools.ppl",
+    "pie_tpu_torch.tools.hbm_peak",
 ])
 def test_batching_modules_import_no_jax(module):
     """Each module of the continuous-batching path, and of the checkpoint

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels K1 (decode GEMV, and its ln pre-pass), K2
-(prefill GEMM), K3 (paged decode attention) and K4 (fused decode MLP block)
-against their plain PyTorch versions, on a CUDA card. Imports no JAX, so it runs on the card's machine (the conftest
+(prefill GEMM), K3 (paged decode attention), K4 (fused decode MLP block)
+and B7 (the read probe) against their plain PyTorch versions, on a CUDA
+card. Imports no JAX, so it runs on the card's machine (the conftest
 imports JAX: skip it there):
 python -m pytest --noconftest tests/test_torch_kernels.py. Elsewhere every
 test skips: the kernels have no CPU mode."""
@@ -1480,3 +1481,28 @@ def test_collectives_in_a_step_graph_over_nccl(cuda):
     finally:
         if joined:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(path="ldg"), dict(path="ldg", unroll=1), dict(path="ldg", unroll=8, blocks_per_sm=1),
+    dict(path="tma"), dict(path="tma", chunk_kb=16, stages=2),
+    dict(path="tma", chunk_kb=32, stages=7, blocks_per_sm=1),
+])
+@pytest.mark.parametrize("rows,n", [(8, 4), (64, 256), (4096, 2052), (8, 32768),
+                                    (8192, 2048)])  # the last: 64 MiB, over the L2
+def test_hbm_read_matches_plain(cuda, rows, n, knobs):
+    """B7's two paths fold every row: bit-equal to the plain version on
+    integer-valued f32 (every order of summation is exact there), one
+    launch counted per call."""
+    from pie_tpu_torch.tools import hbm_peak as hp
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + n)
+    x = torch.randint(-8, 9, (rows, n), generator=gen, device=cuda, dtype=torch.float32)
+    hp.reset_counts()
+    got = hp.stream_read(x, **knobs)
+    torch.cuda.synchronize()
+    assert hp.launch_counts[f"B7 {knobs['path']}"] == 1
+    assert torch.equal(got, hp.stream_read_plain(x))
+    xr = torch.randn((rows, n), generator=gen, device=cuda)
+    got = hp.stream_read(xr.view(torch.int32), **knobs)
+    assert _norm_err(got, hp.stream_read_plain(xr)) < 1e-5
