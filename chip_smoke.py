@@ -2582,11 +2582,13 @@ def gemma_config(geo, layers, **extra):
 
 
 def gemma_k3_timing(quantized):
-    """K3 at head_dim 256 per Gemma-3 4B device step at 8 lanes x 2,048
-    tokens: 29 sliding layers (window 1,024: the walk clipped to its last
-    16 pages) and 5 global ones; device time over rotating layers, the
-    plain version, SDPA on K/V gathered and dequantized beforehand (the
-    window's tokens only on sliding layers; yardstick only) and the bound."""
+    """K3 at head_dim 256 (B8, paged_attention_d256) per Gemma-3 4B device
+    step at 8 lanes x 2,048 tokens: 29 sliding layers (window 1,024: the
+    walk clipped to its last 16 pages) and 5 global ones; device time over
+    rotating layers, the plain version, SDPA on K/V gathered and
+    dequantized beforehand (the window's tokens only on sliding layers;
+    yardstick only) and the bound; the launch plan with the kernel's
+    registers and local bytes a thread, which must be 0 (no spill)."""
     import torch.nn.functional as F
 
     from pie_tpu_torch.cache.paged import PagedKVPool, gather_kv
@@ -2627,6 +2629,8 @@ def gemma_k3_timing(quantized):
                launches_per_step=G4_LAYERS, **step,
                bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations")
     emit(row)
+    if row["local_bytes"]:
+        raise AssertionError(f"K3 at D 256 spills: {row['local_bytes']} local bytes a thread")
     del dense, inputs, q, k, v, ks, vs, pool
     torch.cuda.empty_cache()
     return row
@@ -5060,8 +5064,8 @@ def main() -> int:
     ))
     g3 = gemma["k3"][True]  # per 4B device step: one launch per layer
     summary.append(dict(
-        name="K3 paged_attention (Gemma-3 4B heads 8 / 4, D 256, 8 lanes x 2,048-token "
-             "INT8 pages, 29 layers windowed to 1,024 + 5 full, per device step)",
+        name="K3 paged_attention_d256 (B8: Gemma-3 4B heads 8 / 4, D 256, 8 lanes x "
+             "2,048-token INT8 pages, 29 layers windowed to 1,024 + 5 full, per device step)",
         route="cuda", source="pie_tpu_torch/csrc/paged_attention.cu",
         replaces="pie_tpu/ops/paged_attention.py:510",
         launches=gemma["paged"]["launches"]["K3"], max_abs_err=gemma["k3_err"],

@@ -51,6 +51,7 @@
 
 namespace {
 
+using pie::bulk_load;
 using pie::mbar_arrive;
 using pie::mbar_expect_tx;
 using pie::mbar_init;
@@ -126,15 +127,6 @@ __global__ void __launch_bounds__(kLdgWarps * 32)
     const int c = blockIdx.x * kLdgTile + threadIdx.x;
     if (c < c4) part[(long long)blockIdx.y * c4 + c] = t;
   }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // CHUNK float4 columns a chunk (one slab's tile); block: 256 consumers + 1 producer warp

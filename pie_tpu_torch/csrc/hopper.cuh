@@ -1,9 +1,10 @@
 // Hopper building blocks shared by K1 (quant_gemv.cu), K2 (quant_gemm.cu),
-// K3 (paged_attention.cu) and K4 (fused_mlp.cu): mbarriers, cp.async, TMA
-// tensor copies and the host encoding of their tensor maps (2-D, and 3-D
-// with the layer as a coordinate), the bf16x2 bit operations that turn
-// packed codes into exact bf16 operands, and the mma.sync / ldmatrix
-// fragments of K1, K3 and K4.
+// K3 (paged_attention.cu), K4 (fused_mlp.cu) and B7 (hbm_read.cu):
+// mbarriers, cp.async, 1-D bulk copies, TMA tensor copies and the host
+// encoding of their tensor maps (2-D, and 3-D with the layer as a
+// coordinate), the bf16x2 bit operations that turn packed codes into exact
+// bf16 operands, and the mma.sync / ldmatrix / movmatrix fragments of K1,
+// K3 and K4.
 
 #pragma once
 
@@ -58,6 +59,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared in one 1-D bulk copy, counted
+// on the mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -139,6 +151,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// the 8 x 8 b16 matrix whose element (l / 4, 2 (l % 4) + {0, 1}) lane l
+// holds, transposed across the warp: lane l receives (2 (l % 4) + {0, 1}, l / 4)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // -- host side ----------------------------------------------------------------

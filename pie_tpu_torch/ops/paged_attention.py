@@ -31,10 +31,12 @@ and the kernel checks use it); ``paged_attention_decode`` routes a CPU
 tensor to it and a CUDA tensor to K3 (or raises).
 
 K3 runs QK and PV on the tensor cores (``mma.sync``, the probabilities
-rounded for PV as two bf16 terms), each warp of a block walking its own
-pages over a ``cp.async`` double buffer (half-page stages and q in shared
-memory at D = 256); ``csrc/paged_attention.cu`` says how. ``launch_plan``
-gives its geometry for a call.
+rounded for PV as two bf16 terms). At D = 64 / 128 each warp of a block
+walks its own pages over a ``cp.async`` double buffer; at D = 256 (B8,
+Gemma-3) a kernel of its own streams the block's pages through a TMA ring
+and deals each page's tokens to its warps in 16-token slices, with the
+query heads on the n side of the mma. ``csrc/paged_attention.cu`` says
+how. ``launch_plan`` gives the geometry of a call.
 """
 
 from __future__ import annotations
@@ -114,16 +116,19 @@ def page_splits(batch: int, hkv: int, max_pages: int, blocks_per_sm: int = 1) ->
 
 
 def k3_geometry(device, d: int, quantized: bool, rep: int) -> dict:
-    """Warps per block, cp.async stages per warp and resident blocks per SM
-    of the K3 kernel that serves these heads, from the kernel itself."""
+    """Warps per block, stages (cp.async stages per warp at D 64 / 128,
+    ring stages per block at D 256), resident blocks per SM, registers a
+    thread and local (spill) bytes a thread of the K3 kernel that serves
+    these heads, from the kernel itself."""
     key = (device, d, quantized, rep)
     if key not in _geometry:
-        geo = (ctypes.c_int * 3)()
+        geo = (ctypes.c_int * 5)()
         with torch.cuda.device(device):
             err = qmc.kernel("paged_attention_geometry")(d, int(quantized), rep, geo)
         if err:
             raise RuntimeError(f"K3 geometry query failed: CUDA error {err}")
-        _geometry[key] = dict(warps=geo[0], stages=geo[1], blocks_per_sm=geo[2])
+        _geometry[key] = dict(warps=geo[0], stages=geo[1], blocks_per_sm=geo[2],
+                              registers=geo[3], local_bytes=geo[4])
     return _geometry[key]
 
 
@@ -169,8 +174,9 @@ def paged_attention_cuda(q, pool_k, pool_v, k_scale, v_scale, layer,
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=q.device)
     ws = counters = None
     if splits > 1:
-        ws = torch.empty((b * hkv * splits, rep, d + 2), dtype=torch.float32,
-                         device=q.device)
+        # a (lane, head, split)'s partial: rep * (d + 2) floats, 16-byte rows
+        ws = torch.empty((b * hkv * splits, -(-rep * (d + 2) // 4) * 4),
+                         dtype=torch.float32, device=q.device)
         counters = _counters.get(q.device)
         if counters is None or counters.numel() < b * hkv:
             if counters is not None:

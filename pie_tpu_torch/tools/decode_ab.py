@@ -20,8 +20,10 @@ parent takes the card's drift out of the comparison). For each root:
   and per 1B decoded token and paged step (16 launches);
 - K3's device time (a captured CUDA graph over the 4 layers of a pool)
   at 8 lanes x 2,048 INT8 tokens, summed per device step at the
-  Llama-3-8B heads (32 launches; also on bf16 pages) and the Llama-3.2-1B
-  heads (16 launches);
+  Llama-3-8B heads (32 launches; also on bf16 pages), the Llama-3.2-1B
+  heads (16 launches) and the Gemma-3 4B heads at head dim 256 on INT8
+  and bf16 pages (34 launches: 29 sliding layers windowed to 1,024
+  tokens and 5 global ones);
 - 8B single-stream decode tok/s (``InferenceEngine``, best of 3 x 128
   greedy tokens), 8B paged tok/s (``PagedEngine`` + ``Scheduler``, 8
   lanes of 64-token prompts x 128 new tokens, INT8 KV, best of 2) and 8B
@@ -68,10 +70,11 @@ DECODE_1B = [("wqkv", 2048, 3072, 16, True, (32, 8, 64), False),
              ("lm_head", 2048, 128256, 1, True, None, True)]
 
 
-def k3_inputs(hq, hkv, d, quantized, layers=4, lanes=8, context=2048, seed=1):
+def k3_inputs(hq, hkv, d, quantized, layers=4, lanes=8, context=2048, seed=1, window=0):
     """A random paged pool [layers, P + 1, Hkv, 64, D] on the card (bf16, or
     int8 with f32 scales), every lane at ``context`` tokens over shuffled
-    pages, bf16 queries; and the bytes K3 must move per call."""
+    pages, bf16 queries; and the bytes K3 must move per call with this
+    ``window`` (the walked pages, q, the output, the tables, the lengths)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -92,16 +95,17 @@ def k3_inputs(hq, hkv, d, quantized, layers=4, lanes=8, context=2048, seed=1):
     q = torch.randn((lanes, hq, d), generator=gen, device="cuda").bfloat16()
     ctx = torch.full((lanes,), context, dtype=torch.int32, device="cuda")
     per_page_head = 2 * 64 * d * k.element_size() + (2 * 64 * 4 if quantized else 0)
-    nbytes = p * hkv * per_page_head + 2 * q.numel() * 2 + tables.numel() * 4 + lanes * 4
+    walked = lanes * (maxp - (max(context - window, 0) // 64 if window > 0 else 0))
+    nbytes = walked * hkv * per_page_head + 2 * q.numel() * 2 + tables.numel() * 4 + lanes * 4
     return q, k, v, ks, vs, tables, ctx, nbytes
 
 
-def k3_ms(pa, hq, hkv, d, quantized, layers=4) -> float:
+def k3_ms(pa, hq, hkv, d, quantized, layers=4, window=0) -> float:
     """K3's device ms per call at 8 lanes x 2,048 tokens, over rotating layers."""
     q, k, v, ks, vs, tables, ctx, _ = k3_inputs(hq, hkv, d, quantized, layers)
     scale = d ** -0.5
     return device_ms(lambda i: pa.paged_attention_decode(q, k, v, ks, vs, i % layers,
-                                                         tables, ctx, scale))
+                                                         tables, ctx, scale, window))
 
 
 def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
@@ -125,6 +129,11 @@ def k1_case(qmc, gen, k, n, m, ln, heads, f32=False) -> float:
 
 
 PARTS = ("k1", "k4", "k3", "8b", "1b", "first")
+# K3 cases: label, (Hq, Hkv, D), INT8 pages, launches per step
+K3_CASES = [("8B int8", (32, 8, 128), True, 32), ("8B bf16", (32, 8, 128), False, 32),
+            ("1B int8", (32, 8, 64), True, 16)]
+# Gemma-3 4B at head dim 256: launches per step windowed to 1,024 tokens, and full
+G4_K3 = ((8, 4, 256), {1024: 29, 0: 5})
 # K4 cases: name, d, di, M, bits
 K4_CASES = [("1B M=1", 2048, 8192, 1, 4), ("1B M=8", 2048, 8192, 8, 4),
             ("1B M=8 int8", 2048, 8192, 8, 8), ("8B M=1", 4096, 14336, 1, 4),
@@ -246,14 +255,20 @@ def measure(root: str, parts=PARTS) -> dict:
     if "k4" in parts:
         out["k4 per 1B token ms"] = 16 * out["k4 1B M=1 us"] / 1e3
         out["k4 per 1B paged step ms"] = 16 * out["k4 1B M=8 us"] / 1e3
-    for label, heads, quantized, per in (("8B int8", (32, 8, 128), True, 32),
-                                         ("8B bf16", (32, 8, 128), False, 32),
-                                         ("1B int8", (32, 8, 64), True, 16)) \
-            if "k3" in parts else ():
+    for label, heads, quantized, per in K3_CASES if "k3" in parts else ():
         ms = k3_ms(pa, *heads, quantized)
         out[f"k3 {label} 8x2048 us"] = ms * 1e3
         out[f"k3 per {label[:2]} step {label[3:]} ms"] = per * ms
         torch.cuda.empty_cache()
+    for kind in ("int8", "bf16") if "k3" in parts else ():
+        heads, per_window = G4_K3
+        total = 0.0
+        for window, per in per_window.items():
+            ms = k3_ms(pa, *heads, kind == "int8", window=window)
+            out[f"k3 4B {kind} window {window} 8x2048 us"] = ms * 1e3
+            total += per * ms
+            torch.cuda.empty_cache()
+        out[f"k3 per 4B step {kind} ms"] = total
 
     prompt = list(range(1, 65))
     if "1b" in parts or "first" in parts:

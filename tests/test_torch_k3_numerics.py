@@ -10,9 +10,10 @@ emulation repeats:
 - scores: the unscaled bf16 q times the exact K (INT8 codes or bf16
   values) on the tensor cores, f32 products and sums; then times
   ``scale * k_scale[token]`` in f32; masked to NEG_INF;
-- an online softmax per warp, over the stages the block deals to its warps
-  in turn (warp w takes units ub + w, ub + w + W, ...), in f32; a unit is
-  a page, or half a page at D 256, where K3's stages hold 32 tokens;
+- an online softmax per warp, over the pieces of the block's pages it
+  deals to its warps in turn (warp w takes pieces w, w + W, ...), in f32:
+  at D 64 / 128 a piece is a page; at D 256 (B8, its own kernel) a piece
+  is a 16-token slice of a page, over four warps;
 - PV on the tensor cores: the probabilities times ``v_scale[token]`` in
   f32, then rounded for the bf16 mma: as two bf16 terms ``hi = bf16(p)``
   and ``lo = bf16(p - hi)`` (K3's choice), or as one (``single``, the
@@ -23,10 +24,11 @@ emulation repeats:
 Measured here (the worst of all cases, printed by
 ``python -m tests.test_torch_k3_numerics``): with hi/lo P the emulation
 lands at most 2.9e-3 from the f32 references at D 64 / 128 and 3.7e-3 at
-D 256 in the op-level normalized error (limit 2e-2, so 5.4x inside it),
-all of it the output's bf16 rounding: before that rounding it is 6.6e-6
-from the plain version. With a single bf16 P it lands at 5.5e-3, and
-3.0e-3 before the output's rounding. K3 takes hi/lo.
+D 256 (B8's 16-token slices) in the op-level normalized error
+(limit 2e-2, so 5.4x inside it), all of it the output's bf16 rounding:
+before that rounding it is 6.6e-6 from the plain version (5.1e-6 at D
+256). With a single bf16 P it lands at 5.5e-3, and 3.0e-3 before the
+output's rounding. K3 takes hi/lo.
 """
 
 import numpy as np
@@ -56,15 +58,17 @@ def _two_torch_threads():
 
 
 def k3_warps(d, quantized):
-    """Warps per block of K3 (``Geo`` in paged_attention.cu): two for bf16
-    pages at D 128 and 256, whose double buffers are twice the bytes, else
-    four."""
-    return 2 if (not quantized and d >= 128) else 4
+    """Warps that walk pages in a block of K3: at D 64 / 128 (``Geo`` in
+    paged_attention.cu) two for bf16 pages at D 128, whose double buffers
+    are twice the bytes, else four; at D 256 the four consumer warps of
+    ``paged_attention_d256`` (``kConsumerWarps``)."""
+    return 2 if (not quantized and d == 128) else 4
 
 
-def k3_tokens(d):
-    """Tokens per stage of K3 (``Geo::kTok``): half a page at D 256."""
-    return PAGE // 2 if d == 256 else PAGE
+def k3_piece(d):
+    """Tokens per piece of the walk dealt to a warp: a page at D 64 / 128, a
+    16-token slice of a stage at D 256."""
+    return 16 if d == 256 else PAGE
 
 
 def make_inputs(d, quantized, hq, seed=0):
@@ -107,9 +111,11 @@ def _merge(parts):
 
 
 def k3_emulate(q, pool_k, pool_v, k_scale, v_scale, layer, tables, ctx, scale,
-               window, splits, warps, p_round="hilo", round_out=True, tokens=PAGE):
-    """K3's arithmetic in f32 torch ops (module docstring); [B, Hq, D] bf16
-    (f32 with ``round_out=False``: the value K3 rounds to bf16)."""
+               window, splits, warps, p_round="hilo", round_out=True, piece=PAGE):
+    """K3's arithmetic in f32 torch ops (module docstring): the page walk
+    split over ``splits`` blocks, each block's pages cut into pieces of
+    ``piece`` tokens dealt to ``warps`` warps in turn; [B, Hq, D] bf16 (f32
+    with ``round_out=False``: the value K3 rounds to bf16)."""
     b, hq, d = q.shape
     hkv = pool_k.shape[2]
     rep = hq // hkv
@@ -119,29 +125,30 @@ def k3_emulate(q, pool_k, pool_v, k_scale, v_scale, layer, tables, ctx, scale,
     for bi in range(b):
         n = int(ctx[bi])
         lo = max(n - window, 0) if window > 0 else 0
-        units = PAGE // tokens  # stages per page
-        u_lo, u_hi = lo // tokens, min(-(-n // tokens), tables.shape[1] * units)
-        per = -(-max(u_hi - u_lo, 0) // splits)
+        p_lo, p_hi = lo // PAGE, min(-(-n // PAGE), tables.shape[1])
+        per = -(-max(p_hi - p_lo, 0) // splits)
         split_parts = []
         for split in range(splits):
-            ub = u_lo + split * per
-            ue = min(u_hi, ub + per)
+            pb = p_lo + split * per
+            pe = min(p_hi, pb + per)
+            pieces = max(pe - pb, 0) * (PAGE // piece)
             warp_parts = []
             for w in range(warps):
                 m = neg.expand(hkv, rep).clone()
                 l = torch.zeros((hkv, rep))
                 acc = torch.zeros((hkv, rep, d))
-                for u in range(ub + w, ue, warps):
-                    t = max(int(tables[bi, u // units]), 0)
-                    sl = slice((u % units) * tokens, (u % units + 1) * tokens)
-                    kt = pool_k[layer, t, :, sl].float()  # [Hkv, tokens, D], exact
+                for k in range(w, pieces, warps):
+                    t0 = pb * PAGE + k * piece  # the piece's first position
+                    t = max(int(tables[bi, t0 // PAGE]), 0)
+                    sl = slice(t0 % PAGE, t0 % PAGE + piece)
+                    kt = pool_k[layer, t, :, sl].float()  # [Hkv, piece, D], exact
                     vt = pool_v[layer, t, :, sl].float()
                     s = torch.einsum("hrd,htd->hrt", qf[bi], kt)
                     if k_scale is not None:
                         s = s * (scale * k_scale[layer, t, :, sl])[:, None, :]
                     else:
                         s = s * scale
-                    pos = u * tokens + torch.arange(tokens)
+                    pos = t0 + torch.arange(piece)
                     s = torch.where((pos >= lo) & (pos < n), s, neg)
                     m_new = torch.maximum(m, s.amax(-1))
                     alpha = torch.exp(m - m_new)
@@ -204,7 +211,7 @@ def errors(d, quantized, window, rep, splits):
     q, k, v, ks, vs, tables, ctx = make_inputs(d, quantized, rep * HKV, seed=rep + d)
     scale = d ** -0.5
     args = (q, k, v, ks, vs, 1, tables, ctx, scale, window)
-    geo = dict(splits=splits, warps=k3_warps(d, quantized), tokens=k3_tokens(d))
+    geo = dict(splits=splits, warps=k3_warps(d, quantized), piece=k3_piece(d))
     hilo = k3_emulate(*args, **geo)
     single = k3_emulate(*args, **geo, p_round="single")
     plain = tpa.paged_attention_ref(q.float(), *args[1:])
@@ -220,8 +227,9 @@ def errors(d, quantized, window, rep, splits):
 def test_k3_arithmetic_matches_the_references(d, quantized, window, rep, splits):
     """The emulated K3 (hi/lo P) within the op-level 2e-2 of the JAX
     package's XLA attention and of the port's plain version, at D 64/128
-    and D 256 (half-page stages), INT8 and bf16 pools, windows 0 and 100,
-    rep 1-16 (32 at D 64; 1, 2, 4, 16 at D 256, Gemma-3's groups), ragged
+    and D 256 (16-token slices of each page over four warps), INT8
+    and bf16 pools, windows 0 and 100, rep 1-16 (32 at D 64; 1, 2, 4, 16 at
+    D 256, Gemma-3's groups), ragged
     lengths with -1 pads, the walk split over 1 or 3 blocks of K3's warps;
     the two references agree to f32 rounding."""
     to_jax, to_plain, _, refs, _, _ = errors(d, quantized, window, rep, splits)

@@ -287,8 +287,8 @@ LENS = (1, 63, 64, 65, 130, 200, 7, 1000)  # 1,000: 16 pages, several per warp a
 K3_HEADS = [(d, hq, hkv) for d in (64, 128)
             for hq, hkv in ((8, 2), (4, 4), (16, 2), (32, 8), (32, 1))
             if hq // hkv <= (32 if d == 64 else 16)]
-# head_dim 256 (half-page stages, q in shared memory): Gemma-3 4B (8 / 4),
-# 12B (16 / 8) and 1B (4 / 1, MQA), and a group of 16
+# head_dim 256 (B8, the TMA-ring kernel): Gemma-3 4B (8 / 4), 12B (16 / 8)
+# and 1B (4 / 1, MQA), and a group of 16 (two n8 tiles of heads)
 K3_HEADS += [(256, hq, hkv) for hq, hkv in ((8, 4), (16, 8), (4, 1), (16, 1))]
 # odd and even groups under the padded 16 rows: Qwen2.5-VL-7B (28 / 4, a
 # group of 7) and Qwen2-VL-2B (12 / 2, a group of 6)
@@ -324,15 +324,18 @@ def test_paged_attention_matches_plain(cuda, monkeypatch, d, quantized, window,
     assert torch.equal(again, got)
 
 
-def test_k3_in_a_cuda_graph(cuda):
+@pytest.mark.parametrize("d,hq,hkv,quantized", [(128, 32, 8, True), (256, 8, 4, True),
+                                                (256, 8, 4, False)])
+def test_k3_in_a_cuda_graph(cuda, d, hq, hkv, quantized):
     """K3 with its page walk split across blocks, captured in a CUDA graph
     and replayed over new queries and lengths, equals the eager call each
-    time; the arrival counters are back at zero after each replay."""
+    time; the arrival counters are back at zero after each replay (the 8B
+    heads, and Gemma-3 4B's at D 256, whose tensor maps the graph keeps)."""
     lens = (2048, 1500, 700, 65, 2048, 5, 1000, 130)
-    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, lens, 32, 8, 128, True, maxp=32)
-    plan = pa.launch_plan(cuda, len(lens), 32, 8, 128, tables.shape[1], True)
+    q, k, v, ks, vs, tables, ctx = paged_inputs(cuda, lens, hq, hkv, d, quantized, maxp=32)
+    plan = pa.launch_plan(cuda, len(lens), hq, hkv, d, tables.shape[1], quantized)
     assert plan["splits"] > 1
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     args = (k, v, ks, vs, 1, tables, ctx, scale)
     pa.paged_attention_decode(q, *args)  # warm-up: build, attributes, counters
     torch.cuda.synchronize()
