@@ -1,0 +1,3 @@
+"""k2_roofline.ttft_p50: K2's share of its roofline in the traced slice, % (device trace)."""
+
+from portbench.readers import k2_roofline as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""ttft_p90_ms: 90th percentile of time to first token from the due time, ms (host clock)."""
+
+from portbench.readers import ttft_ms
+
+
+def read(run):
+    return ttft_ms(run, 90)
