@@ -33,6 +33,7 @@ import functools
 import logging
 import queue
 import threading
+import time
 from typing import Iterator, Optional, Sequence as Seq
 
 import torch
@@ -46,7 +47,9 @@ from pie_tpu_torch.engine.engine import (
     tower_kwargs,
 )
 from pie_tpu_torch.engine.scheduler import PagedEngine, Scheduler, SeqStatus, Sequence
+from pie_tpu_torch.utils import profiling
 from pie_tpu_torch.utils.device import resolve_device
+from pie_tpu_torch.utils.metrics import get_metrics
 
 logger = logging.getLogger(__name__)
 
@@ -292,9 +295,13 @@ class BatchedInferenceEngine:
             seq.xtc_probability = float(kwargs.get("xtc_probability", 0.0))
             seq.dry_multiplier = float(kwargs.get("dry_multiplier", 0.0))
         seq.on_token = lambda s, t: out_q.put(t)
-        seq.on_finish = lambda s: out_q.put(_SENTINEL)
-        self._submit_q.put(seq)
-        self._wake.set()
+
+        def on_finish(s):
+            out_q.put(_SENTINEL)
+            _observe(s)
+
+        seq.on_finish = on_finish
+        self._submit(seq)
         try:
             while True:
                 tok = out_q.get()
@@ -312,6 +319,14 @@ class BatchedInferenceEngine:
             prompt_tokens=len(seq.prompt_ids),
             completion_tokens=len(seq.output_ids),
         )
+
+    def _submit(self, seq: Sequence) -> None:
+        """Stamp a request, register it with the tracer (while one records)
+        and queue it for the scheduler thread."""
+        seq.t_submit = time.perf_counter_ns()
+        profiling.request(seq)
+        self._submit_q.put(seq)
+        self._wake.set()
 
     def _image_request(self, prompt_ids, pixel_values, image_kwargs) -> tuple:
         """((pixel_values, the tower's keyword arguments), positions3
@@ -388,9 +403,13 @@ class BatchedInferenceEngine:
             masker=masker,
             state_kwargs=state_kwargs,
         )
-        seq.on_finish = lambda s: done.set()
-        self._submit_q.put(seq)
-        self._wake.set()
+
+        def on_finish(s):
+            done.set()
+            _observe(s)
+
+        seq.on_finish = on_finish
+        self._submit(seq)
         done.wait()
         finish = seq.finish_reason or "length"
         if finish.startswith("error") and "constrained" not in finish:
@@ -415,8 +434,20 @@ class BatchedInferenceEngine:
                 return e.value
 
 
+def _observe(seq: Sequence) -> None:
+    """A finished request's queue wait (submit to lane) and time to its
+    first token, from its stamps, into the serving metrics."""
+    m = get_metrics()
+    if seq.t_admit:
+        m.observe_queue_wait((seq.t_admit - seq.t_submit) / 1e9)
+    if seq.t_first:
+        m.observe_ttft((seq.t_first - seq.t_submit) / 1e9)
+
+
 def _native_token(seq: Sequence, req, tok: int) -> None:
     """A native request's token, handed to its ``Sequence``."""
+    if not seq.output_ids:
+        seq.t_first = time.perf_counter_ns()
     seq.output_ids.append(int(tok))
     if seq.on_token:
         try:

@@ -76,6 +76,7 @@ import enum
 import functools
 import itertools
 import logging
+import time
 from collections import deque
 from typing import Any, Callable, Optional
 
@@ -102,6 +103,7 @@ from pie_tpu_torch.ops.sampling import (
     sampler_kind_for,
 )
 from pie_tpu_torch.parallel.tp import mesh_ops, shard_model
+from pie_tpu_torch.utils import profiling
 from pie_tpu_torch.utils.device import host_tensor, resolve_device, upload
 
 logger = logging.getLogger(__name__)
@@ -180,6 +182,11 @@ class Sequence:
     # tower's keyword arguments), embedded by the batching service's
     # scheduler thread
     image_inputs: Any = None
+    # request stamps (time.perf_counter_ns; 0: not yet): submitted to the
+    # batching service, given a lane, first output token
+    t_submit: int = 0
+    t_admit: int = 0
+    t_first: int = 0
 
     @property
     def num_tokens(self) -> int:
@@ -832,46 +839,47 @@ class Scheduler:
         the machine accepts (an unmasked sample conditioned on the
         machine's acceptance is distributed as a masked one, so greedy
         streams equal the per-token masked loop's)."""
-        if not self.waiting and self._all_decoding():
-            self._fill_pipeline()
-            if self._inflight:
-                return self._drain_inflight()
-        # admission and direct prefill before the pipeline flush: new lanes
-        # touch only free lanes and the pool, and their prefill programs
-        # queue behind the chunk in flight
-        if self._inflight and self.waiting:
-            clean = self._all_decoding()
-            pre_lanes = set(self.running)
+        with profiling.span("pie.sched.step"):
+            if not self.waiting and self._all_decoding():
+                self._fill_pipeline()
+                if self._inflight:
+                    return self._drain_inflight()
+            # admission and direct prefill before the pipeline flush: new lanes
+            # touch only free lanes and the pool, and their prefill programs
+            # queue behind the chunk in flight
+            if self._inflight and self.waiting:
+                clean = self._all_decoding()
+                pre_lanes = set(self.running)
+                self._admit()
+                self._direct_prefill()
+                if clean:
+                    new = [(l, s) for l, s in sorted(self.running.items())
+                           if l not in pre_lanes]
+                    if new and all(s.machine is None and len(s.pending) - 1 == s.prefill_pos
+                                   for _, s in new):
+                        # fully prefilled new lanes wake at step 0 of a chunk
+                        # dispatched on the chained state before the old drains
+                        out = self._dispatch_pipelined_wake(new)
+                        if out is not None:
+                            return out
+            # pipeline flush: exact host mirrors before any planning
+            finished_prev = []
+            while self._inflight:
+                finished_prev.extend(self._drain_inflight())
+            self._chained = False
             self._admit()
             self._direct_prefill()
-            if clean:
-                new = [(l, s) for l, s in sorted(self.running.items())
-                       if l not in pre_lanes]
-                if new and all(s.machine is None and len(s.pending) - 1 == s.prefill_pos
-                               for _, s in new):
-                    # fully prefilled new lanes wake at step 0 of a chunk
-                    # dispatched on the chained state before the old drains
-                    out = self._dispatch_pipelined_wake(new)
-                    if out is not None:
-                        return out
-        # pipeline flush: exact host mirrors before any planning
-        finished_prev = []
-        while self._inflight:
-            finished_prev.extend(self._drain_inflight())
-        self._chained = False
-        self._admit()
-        self._direct_prefill()
-        cs = self.engine.rider_width
-        need = 0
-        for s in self.running.values():
-            if s.status == SeqStatus.PREFILLING:
-                rem = len(s.pending) - 1 - s.prefill_pos
-                need += -(-rem // cs) if rem > 0 else 1  # wake-only: one step
-        n = _bucket_chunk(need, self.decode_steps) if need else self.decode_steps
-        plan = self._plan_chunk(n)
-        if plan is None:
-            return finished_prev
-        return finished_prev + self._dispatch_and_drain(plan, n)
+            cs = self.engine.rider_width
+            need = 0
+            for s in self.running.values():
+                if s.status == SeqStatus.PREFILLING:
+                    rem = len(s.pending) - 1 - s.prefill_pos
+                    need += -(-rem // cs) if rem > 0 else 1  # wake-only: one step
+            n = _bucket_chunk(need, self.decode_steps) if need else self.decode_steps
+            plan = self._plan_chunk(n)
+            if plan is None:
+                return finished_prev
+            return finished_prev + self._dispatch_and_drain(plan, n)
 
     def _fill_pipeline(self) -> None:
         """Steady decode: dispatch decode-only chunks on the chained device
@@ -944,12 +952,13 @@ class Scheduler:
             or (self.pen["frequency"] != 0.0).any()
             or (self.pen["dry_multiplier"] > 0.0).any()
         )
-        return e._chunk(
-            e.params, num_steps=n, sampler_kind=self._sampler_kind(),
-            use_penalties=bool(pen_on),
-            use_bias=bool((self.bias_ids >= 0).any()), rider=rider, wake=wake,
-            mask=mask,
-        )
+        with profiling.span("pie.engine.chunk"):
+            return e._chunk(
+                e.params, num_steps=n, sampler_kind=self._sampler_kind(),
+                use_penalties=bool(pen_on),
+                use_bias=bool((self.bias_ids >= 0).any()), rider=rider, wake=wake,
+                mask=mask,
+            )
 
     def _dispatch_steady(self, n: int) -> torch.Tensor:
         """Dispatch a decode-only chunk on the lane state chained from the
@@ -1019,7 +1028,8 @@ class Scheduler:
         if not self._inflight:
             return []
         emitted_dev, n = self._inflight.popleft()
-        emitted = emitted_dev.cpu().numpy()  # [n, B]
+        with profiling.span("pie.sched.readback"):
+            emitted = emitted_dev.cpu().numpy()  # [n, B]
         h = HISTORY_LEN
         for lane in range(self.engine.num_lanes):
             seq = self.running.get(lane)
@@ -1103,7 +1113,9 @@ class Scheduler:
         packed = torch.cat([
             emitted.reshape(-1), st.last, st.ctx, st.hist.reshape(-1),
             st.done.to(torch.int32), st.prod,
-        ]).cpu().numpy()
+        ])
+        with profiling.span("pie.sched.readback"):
+            packed = packed.cpu().numpy()
         cuts = np.cumsum([n * b, b, b, b * h, b])
         em, last, ctx, hist, done, prod = np.split(packed, cuts)
         self.last_tokens = last.copy()
@@ -1189,6 +1201,7 @@ class Scheduler:
             self.waiting.popleft()
             lane = self.free_lanes.pop()
             seq.lane = lane
+            seq.t_admit = time.perf_counter_ns()
             seq.status = SeqStatus.PREFILLING
             seq.prefill_pos = 0
             seq.pending = list(seq.prompt_ids[len(shared) * PAGE_SIZE:])
@@ -1478,6 +1491,8 @@ class Scheduler:
         return True
 
     def _emit(self, seq: Sequence, tok: int):
+        if not seq.output_ids:
+            seq.t_first = time.perf_counter_ns()
         seq.output_ids.append(tok)
         if seq.on_token:
             try:

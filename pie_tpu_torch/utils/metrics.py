@@ -54,6 +54,7 @@ class Metrics:
         self._lock = threading.Lock()
         self.counters: dict[str, float] = defaultdict(float)
         self.ttft = Histogram()
+        self.queue_wait = Histogram()  # submit to a batching lane
         self.request_latency = Histogram()
 
     def count(self, name: str, value: float = 1.0):
@@ -63,6 +64,10 @@ class Metrics:
     def observe_ttft(self, seconds: float):
         with self._lock:
             self.ttft.observe(seconds)
+
+    def observe_queue_wait(self, seconds: float):
+        with self._lock:
+            self.queue_wait.observe(seconds)
 
     def observe_latency(self, seconds: float):
         with self._lock:
@@ -89,6 +94,7 @@ class Metrics:
             for name, v in sorted(self.counters.items()):
                 lines.append(f"pie_{name} {v}")
             lines += self.ttft.lines("pie_ttft_seconds")
+            lines += self.queue_wait.lines("pie_queue_wait_seconds")
             lines += self.request_latency.lines("pie_request_seconds")
             return "\n".join(lines) + "\n"
 

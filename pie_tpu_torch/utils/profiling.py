@@ -1,103 +1,180 @@
-"""Profiling instrumentation: host timing zones (off unless
-``PIE_PROFILE=1``), a device trace through ``torch.profiler`` and a
-timing wrapper around a page allocator.
+"""Host spans and request stamps of the serving path, on the clock a
+benchmark's host timings use (``time.perf_counter_ns``), with anchors that
+put them on ``torch.profiler``'s timeline.
 
-Port of the JAX package's ``pie_tpu/utils/profiling.py`` (``zone``,
-``profiled``, ``zone_report``, ``reset_zones``, ``ProfiledAllocator``) with
-``torch.profiler`` in place of ``jax.profiler``. The heartbeat lives in
-``pie_tpu_torch/parallel/distributed.py``, as in the JAX package.
+Off by default: ``span()`` then returns one shared no-op context (falsy)
+and records nothing. ``enable()`` starts a window; ``collect()`` reads it;
+``disable()`` ends it and lets go of what it kept. While it is on:
+
+- ``with span(name):`` records one ``Span``: its start and end
+  (``perf_counter_ns``), the thread CPU ns it consumed
+  (``thread_time_ns``), its id and its parent's (the innermost open span
+  of the same thread, 0 for none);
+- ``request(seq)`` registers a request, whose stamps ``t_submit``,
+  ``t_admit`` and ``t_first`` (``perf_counter_ns``, 0 for "not yet") are
+  read when the window is collected, finished or not.
+
+Both lists are bounded; what overflows is counted, not kept. ``collect()``
+returns them with two anchors, each a pair (``perf_counter_ns``, the
+profiler's clock) taken at ``enable()`` and at ``collect()``: the profiler
+(kineto) stamps CPU events in Unix-epoch ns, so ``to_profiler_ns`` maps a
+span onto its trace by the line through the two anchors.
 """
 
 from __future__ import annotations
 
-import contextlib
-import functools
-import logging
-import os
+import itertools
 import threading
 import time
-from collections import defaultdict
-from pathlib import Path
+from typing import NamedTuple, Optional
 
-logger = logging.getLogger(__name__)
-
-ENABLED = os.environ.get("PIE_PROFILE", "0") in ("1", "true", "True")
-
-_zones: dict[str, list[float]] = defaultdict(list)
-_zlock = threading.Lock()
+#: spans and requests a window keeps; later ones are counted as dropped
+MAX_SPANS = 200_000
+MAX_REQUESTS = 50_000
 
 
-@contextlib.contextmanager
-def zone(name: str):
-    """A host timing zone (recorded only with PIE_PROFILE=1)."""
-    if not ENABLED:
-        yield
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    cpu_ns: int
+    id: int
+    parent: int
+
+
+class Request(NamedTuple):
+    id: int
+    t_submit: int
+    t_admit: int
+    t_first: int
+
+
+class _Off:
+    """What ``span()`` returns with recording off: enters and exits."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+
+OFF = _Off()
+
+_on = False
+_lock = threading.Lock()
+_local = threading.local()
+_ids = itertools.count(1)
+_spans: list = []
+_requests: list = []
+_dropped = {"spans": 0, "requests": 0}
+_anchor0: Optional[tuple] = None
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "t0", "c0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else 0
+        self.id = next(_ids)
+        stack.append(self.id)
+        self.c0 = time.thread_time_ns()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        c1 = time.thread_time_ns()
+        _local.stack.pop()
+        rec = Span(self.name, self.t0, t1, c1 - self.c0, self.id, self.parent)
+        with _lock:
+            if len(_spans) < MAX_SPANS:
+                _spans.append(rec)
+            else:
+                _dropped["spans"] += 1
+        return False
+
+
+def span(name: str):
+    """A span named ``name`` around a ``with`` block (``OFF`` while
+    recording is off)."""
+    if not _on:
+        return OFF
+    return _Span(name)
+
+
+def request(seq) -> None:
+    """Register a request (anything with ``seq_id`` and the three stamps)
+    for the window being recorded; held until ``disable()``."""
+    if not _on:
         return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        with _zlock:
-            _zones[name].append(time.perf_counter() - t0)
+    with _lock:
+        if len(_requests) < MAX_REQUESTS:
+            _requests.append(seq)
+        else:
+            _dropped["requests"] += 1
 
 
-def profiled(fn):
-    """Decorator form of :func:`zone`."""
-
-    @functools.wraps(fn)
-    def wrapper(*a, **kw):
-        with zone(fn.__qualname__):
-            return fn(*a, **kw)
-
-    return wrapper
+def _anchor() -> tuple:
+    """(perf_counter_ns, Unix-epoch ns) read together; the first is the
+    midpoint of two reads around the second."""
+    a = time.perf_counter_ns()
+    u = time.time_ns()
+    b = time.perf_counter_ns()
+    return (a + b) // 2, u
 
 
-def zone_report() -> dict[str, dict]:
-    with _zlock:
-        return {
-            name: {"count": len(vs), "total_s": sum(vs),
-                   "mean_ms": 1e3 * sum(vs) / max(1, len(vs))}
-            for name, vs in sorted(_zones.items())
-        }
+def _clear() -> None:
+    _spans.clear()
+    _requests.clear()
+    _dropped.update(spans=0, requests=0)
 
 
-def reset_zones() -> None:
-    with _zlock:
-        _zones.clear()
+def enable() -> None:
+    """Start a window: take the first anchor, record from now on."""
+    global _on, _anchor0
+    with _lock:
+        _clear()
+        _anchor0 = _anchor()
+        _on = True
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str = "pie_trace"):
-    """Record a ``torch.profiler`` trace of the CPU and, where there is a
-    card, its kernels; the Chrome trace goes to ``log_dir/trace.json``.
-    Yields the profiler (``key_averages()`` for a table)."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+def disable() -> None:
+    """End the window and drop what it kept (``collect()`` it first)."""
+    global _on, _anchor0
+    with _lock:
+        _on = False
+        _clear()
+        _anchor0 = None
 
 
-class ProfiledAllocator:
-    """A page allocator whose allocations and frees are timing zones (the
-    reference's ProfiledAllocatorWrapper); every other call passes
-    through."""
+def collect() -> dict:
+    """The window so far: ``spans`` (``Span``), ``requests`` (``Request``,
+    the stamps as they stand now), ``dropped`` counts and ``anchors`` (at
+    ``enable()`` and now). Recording goes on until ``disable()``."""
+    with _lock:
+        spans = list(_spans)
+        seqs = list(_requests)
+        dropped = dict(_dropped)
+        a0 = _anchor0
+    reqs = [Request(s.seq_id, s.t_submit, s.t_admit, s.t_first) for s in seqs]
+    return {"spans": spans, "requests": reqs, "dropped": dropped,
+            "anchors": [a0, _anchor()] if a0 is not None else []}
 
-    def __init__(self, allocator):
-        self._a = allocator
 
-    def allocate_n(self, n: int):
-        with zone("PageAllocator.allocate_n"):
-            return self._a.allocate_n(n)
-
-    def free(self, pid: int):
-        with zone("PageAllocator.free"):
-            return self._a.free(pid)
-
-    def __getattr__(self, name):
-        return getattr(self._a, name)
-
+def to_profiler_ns(anchors: list, t_ns: int) -> int:
+    """A ``perf_counter_ns`` time on the profiler's clock, by the line
+    through the window's two anchors."""
+    (p0, u0), (p1, u1) = anchors
+    return u0 + round((t_ns - p0) * (u1 - u0) / (p1 - p0))

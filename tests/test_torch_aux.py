@@ -1,36 +1,32 @@
-"""Small port modules on the CPU: the profiling zones, the heartbeat and
-the profiled allocator (pie_tpu_torch.utils.profiling; mirrors
-tests/test_aux.py), the torch.profiler device trace, and the sync client's
-request models (pie_tpu_torch.engine.client) serialising as the JAX
-package's do."""
+"""Small port modules on the CPU: a timing span of the host tracer
+(pie_tpu_torch.utils.profiling; the JAX package's zones in
+tests/test_aux.py), the heartbeat, and the sync client's request models
+(pie_tpu_torch.engine.client) serialising as the JAX package's do."""
 
-import json
 import time
 
 import pytest
 
 
-def test_profiling_zones(monkeypatch):
+def test_profiling_zones():
     from pie_tpu_torch.utils import profiling
 
-    monkeypatch.setattr(profiling, "ENABLED", True)
-    profiling.reset_zones()
-    with profiling.zone("work"):
-        time.sleep(0.01)
-
-    @profiling.profiled
-    def step():
-        return 3
-
-    assert step() == 3
-    rep = profiling.zone_report()
-    assert rep["work"]["count"] == 1
-    assert rep["work"]["mean_ms"] >= 5
-    assert rep["test_profiling_zones.<locals>.step"]["count"] == 1
-    monkeypatch.setattr(profiling, "ENABLED", False)
-    with profiling.zone("off"):
+    profiling.enable()
+    try:
+        with profiling.span("work"):
+            time.sleep(0.01)
+        (work,) = profiling.collect()["spans"]
+    finally:
+        profiling.disable()
+    assert work.name == "work"
+    assert work.end_ns - work.start_ns >= 5_000_000
+    with profiling.span("off"):
         pass
-    assert "off" not in profiling.zone_report()
+    profiling.enable()
+    try:
+        assert profiling.collect()["spans"] == []
+    finally:
+        profiling.disable()
 
 
 def test_heartbeat_liveness(tmp_path):
@@ -48,37 +44,6 @@ def test_heartbeat_liveness(tmp_path):
     a.stop()
     b.stop()
     assert not list(tmp_path.glob("*.heartbeat"))
-
-
-@pytest.mark.parametrize("kind", ["python", "native"])
-def test_profiled_allocator_passthrough(monkeypatch, kind):
-    from pie_tpu_torch.runtime import NativePageAllocator, PageAllocator
-    from pie_tpu_torch.utils import profiling
-
-    monkeypatch.setattr(profiling, "ENABLED", True)
-    profiling.reset_zones()
-    cls = PageAllocator if kind == "python" else NativePageAllocator
-    a = profiling.ProfiledAllocator(cls(4))
-    (pid,) = a.allocate_n(1)
-    assert pid >= 0
-    assert a.num_free() == 3
-    a.free(pid)
-    assert a.num_free() == 4
-    rep = profiling.zone_report()
-    assert rep["PageAllocator.allocate_n"]["count"] == 1
-    assert rep["PageAllocator.free"]["count"] == 1
-
-
-def test_device_trace_records_ops(tmp_path):
-    import torch
-
-    from pie_tpu_torch.utils.profiling import device_trace
-
-    with device_trace(str(tmp_path)) as prof:
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    names = {e.key for e in prof.key_averages()}
-    assert any("mm" in n for n in names)
-    assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
 
 
 def test_client_models_serialise_as_jax():

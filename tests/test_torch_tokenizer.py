@@ -156,4 +156,7 @@ def test_metrics_render():
     assert "pie_prompt_tokens_total 13" in text
     assert "pie_ttft_seconds_count 1" in text
     assert 'pie_request_seconds_bucket{le="0.5"} 2' in text
-    assert text == jm.render()
+    # the port adds the batching service's queue wait, fed by its stamps
+    assert "pie_queue_wait_seconds_count 0" in text
+    ours = [x for x in text.splitlines() if not x.startswith("pie_queue_wait_seconds")]
+    assert ours == jm.render().splitlines()
