@@ -47,14 +47,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    scaled_dot_product_attention on K/V gathered and dequantized beforehand;
    each timed row carries K3's launch (warps per block, cp.async stages
    per warp, resident blocks per SM, page splits, grid blocks, and the
-   bf16 hi + lo rounding of the probabilities for PV).
+   bf16 hi + lo rounding of the probabilities for PV). Then K5 (paged
+   prefill attention over INT8 pages, D 128) at the served cells' chunks
+   (pie_tpu_torch/tools/k5_bench.py's cases: 256 tokens at the Qwen2.5-VL-7B
+   heads 28 / 4 over a 66-page table from positions 0, 1,792 and 3,840,
+   at the Mistral-7B heads 32 / 8 over a 20-page table from 0) against its
+   plain version (gathered_attention) on the same inputs, first and last
+   layer (normalized max error < 1e-2), each timed per chunk (every
+   layer, a captured graph) beside the plain version, SDPA on K/V
+   gathered and dequantized beforehand and its bound.
 3. model: a 1-layer model at the full 8B widths, same weights on the card
    (kernels) and on the CPU (plain versions): prefill 16 tokens, 4
    teacher-forced decode steps, then a 40-token chunk (so K2 runs too);
    then, over an INT8 paged pool, paged_forward (a 40-token prefill, 4
    decode steps) and mixed_forward (lanes plus a 40-token rider: K2 with
    rope; an empty rider; frozen lanes); logits agree to a normalized max
-   error < 0.03, and K3 ran.
+   error < 0.03, and K3 and K5 (the prefill and the riders' attention)
+   ran.
 4. engine: the 32-layer 8B geometry with random INT4 g=64 weights through
    InferenceEngine, whose decode steps replay CUDA graphs
    (pie_tpu_torch/engine/graphs.py): one counted request (64-token
@@ -270,7 +279,8 @@ step), the 1B model check beside its reading before K2's single rounding
 prefill's device and enqueue time, the prefill graphs' captures, capture
 seconds and the pool per geometry), a native-scheduler summary, then the kernel summary
 line (K1, its ln pre-pass, K2-K4, K3 at D 256, K1 / K2 / K3 at Qwen2.5-VL-7B's
-shapes, B7's two paths; every bytes-bound row with bound_probe_ms beside
+shapes, K5 per Qwen chunk at positions 0 and 3,840 and per Mistral chunk
+at 0, B7's two paths; every bytes-bound row with bound_probe_ms beside
 bound_ms, as on the summary lines) after a parallel summary (phase 16),
 the card's name and power limit, and
 as the last line
@@ -1154,6 +1164,64 @@ def phase_paged_kernel():
     return rows, max([worst] + [r["max_abs_err"] for r in rows.values()])
 
 
+# -- phase 2, K5 ---------------------------------------------------------------
+
+
+def phase_prefill_kernel(card, probe):
+    """K5 at the served cells' prefill chunks (tools/k5_bench.py's cases: a
+    256-token chunk at the Qwen2.5-VL-7B heads 28 / 4 over a 66-page table
+    from positions 0, 1,792 and 3,840, at the Mistral-7B heads 32 / 8 over
+    a 20-page table from 0) against its plain version (gathered_attention
+    under the chunk's mask) on the same card inputs, at the first and last
+    layer: within 1e-2 of the largest output (both round P and their output
+    to bf16 once, P before the division by the sum in K5 and after it in
+    the plain version). Then per chunk, every layer's call: K5's device ms
+    beside the plain version's, SDPA's on K/V gathered and dequantized
+    beforehand (yardstick only) and the bound (k5_bench.work)."""
+    from pie_tpu_torch.models.llama import _paged_kv_positions, gathered_attention
+    from pie_tpu_torch.ops import prefill_attention as k5
+    from pie_tpu_torch.ops import quant_matmul_cuda as qmc
+    from pie_tpu_torch.ops.attention import attention_mask
+    from pie_tpu_torch.tools import k5_bench
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scale = k5_bench.D ** -0.5
+    rows, worst = {}, 0.0
+    for name, (hq, hkv, layers, maxp, first, tokens) in k5_bench.CASES.items():
+        q, pool, table, pos, ctx = k5_bench.inputs(dev, hq, hkv, layers, maxp, first,
+                                                   tokens)
+        mask = attention_mask(pos, _paged_kv_positions(table, ctx))
+        qmc.reset_counts()
+        diff = norm = 0.0
+        for layer in (0, layers - 1):
+            got = k5.prefill_attention_cuda(q, pool, layer, table, pos, ctx, scale)
+            want = gathered_attention(pool, layer, table, q, mask, scale).float()
+            if not (got.dtype == torch.bfloat16 and got.shape == want.shape
+                    and torch.isfinite(got).all()):
+                raise AssertionError(f"K5 output {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want).abs().max().item()
+            diff, norm = max(diff, err), max(norm, err / want.abs().max().item())
+        if not (norm < 1e-2 and qmc.launch_counts["K5"] == 2):
+            raise AssertionError(f"K5 vs plain, {name}: normalized err {norm}, "
+                                 f"launches {qmc.launch_counts['K5']}")
+        del q, pool, table, pos, ctx, mask, got, want
+        torch.cuda.empty_cache()
+        t = k5_bench.run_case(name, card, probe["probe_bytes_per_s"])
+        bytes_bound, ops_bound = t["bytes_bound_ms"], t["ops_bound_ms"]
+        rows[name] = row = dict(
+            phase="kernels", case=f"prefill attention {name}", kernel="K5", hq=hq,
+            hkv=hkv, layers=layers, table_pages=maxp, first=first, tokens=tokens,
+            plan=t["plan"], geometry=t["geometry"], max_abs_err=diff, norm_err=norm,
+            kernel_ms=t["k5_ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+            bound_ms=max(bytes_bound, ops_bound),
+            bound_by="bytes" if bytes_bound >= ops_bound else "operations",
+            bytes=t["bytes"], flops=t["ops"], share_of_bound_pct=t["k5_share_of_bound_pct"])
+        emit(with_probe(row, probe))
+        worst = max(worst, diff)
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 # -- phase 3 -------------------------------------------------------------------
 
 
@@ -1289,7 +1357,8 @@ def paged_model_check(model, cpu_params, gpu_params):
             t(pp, d), t([lane], d), t([pctx], d), pf_any=bool((pi >= 0).any()))[0],
             torch.from_numpy(np.asarray(dp) >= 0)))
     counts = dict(qmc.launch_counts)
-    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
+    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0
+            and counts["K5"] > 0):
         raise AssertionError(f"paged model check did not run every kernel: {counts}")
     emit(dict(phase="model", path="paged_forward + mixed_forward", layers=CHECK_LAYERS_8B,
               widths="llama3-8b", kv="int8 paged", norm_err=max(errs),
@@ -3177,7 +3246,8 @@ def qwen_model_check(label, layers, depth, tower_only=False, vision=Q7_VISION):
         params[d], t([[nxt[0]], [nxt[1]]], d), pools[d], t(tables, d), t([[1], [n]], d),
         t([2, n + 1], d), pos_delta=t(deltas, d))[0][:, 0])
     counts = dict(qmc.launch_counts)
-    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0):
+    if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] > 0
+            and counts["K5"] > 0):
         raise AssertionError(f"{label} model check did not run every kernel: {counts}")
     emit(dict(phase="qwen2.5-vl", part="b: model vs CPU", geometry=label, layers=layers,
               tower_blocks=depth, kv="bf16 contiguous / int8 paged", pos_delta=delta,
@@ -4964,6 +5034,7 @@ def main() -> int:
     ln_rows = timed("kernels K1 ln pre-pass", phase_ln_prepass)
     k4_rows = timed("kernels K4", phase_fused_mlp)
     k3_rows, k3_err = timed("kernels K3", phase_paged_kernel)
+    k5_rows, k5_err = timed("kernels K5", phase_prefill_kernel, card, probe)
     timed("model 8B", phase_model)
     check_1b = timed("model 1B", phase_model_1b)
     # K2's INT4 weights with bf16 scales used to round twice; the parent's
@@ -5083,6 +5154,18 @@ def main() -> int:
         plain_ms=Q7_LAYERS * q3["plain_ms"], bound_ms=Q7_LAYERS * q3["bound_ms"],
         bound_by=q3["bound_by"], library_ms=Q7_LAYERS * q3["library_ms"],
     ))
+    for name in ("qwen 256 at 0", "qwen 256 at 3840", "mistral 256 at 0"):
+        k5 = k5_rows[name]  # every layer's launch: one chunk
+        summary.append(dict(
+            name=f"K5 prefill_attention ({k5['hq']} / {k5['hkv']} heads, D 128, INT8 "
+                 f"pages, {k5['tokens']} tokens at positions {k5['first']}-"
+                 f"{k5['first'] + k5['tokens'] - 1} over a {k5['table_pages']}-page "
+                 f"table, per {k5['layers']}-layer chunk)",
+            route="cuda", source="pie_tpu_torch/csrc/paged_prefill_attention.cu",
+            replaces=None, launches=paged["launches"]["K5"], max_abs_err=k5_err,
+            ms=k5["kernel_ms"], kernel_ms=k5["kernel_ms"], plain_ms=k5["plain_ms"],
+            bound_ms=k5["bound_ms"], bound_by=k5["bound_by"], library_ms=k5["library_ms"],
+        ))
     k4 = k4_rows[(4, 1)]  # per decoded token at 1B: one launch per layer
     summary.append(dict(
         name="K4 fused_mlp (1B int4 g64, M = 1, per decoded token)",

@@ -46,6 +46,7 @@ from pie_tpu_torch.models.registry import register_model
 from pie_tpu_torch.ops.attention import attention_mask, sdpa, sdpa_quantized
 from pie_tpu_torch.ops.fused_mlp import fused_mlp_stacked, fused_mlp_supported
 from pie_tpu_torch.ops.paged_attention import paged_attention_decode
+from pie_tpu_torch.ops.prefill_attention import prefill_attention_cuda, uses_k5
 from pie_tpu_torch.ops.quant import (
     QuantizedTensor,
     pack_codes,
@@ -565,7 +566,8 @@ class LlamaModel:
     ):
         """Forward over the global paged KV pool. Decode (T == 1) attends
         through the paged decode-attention kernel (K3 on the card); a
-        prefill chunk gathers its pages to dense KV. Returns (logits
+        prefill chunk through ``prefill_attention`` (K5 on the card over INT8
+        pages at head dim 128, else its pages gathered). Returns (logits
         [B, T, V] f32, pool); with_logits=False stops after the last layer
         (a prefill whose logits nobody reads) and returns (None, pool);
         ``last_idx`` unembeds that one row only (logits [B, 1, V]). With
@@ -598,8 +600,7 @@ class LlamaModel:
         fused_ln = decode and b * t <= 32
         use_fused_mlp = decode and self._fused_mlp_ok(p, b * t)
         if not decode:
-            mask = attention_mask(positions,
-                                  _paged_kv_positions(block_tables, context_lens))
+            mask = _prefill_mask(pool, dh, dev, positions, block_tables, context_lens)
 
         for i in range(cfg.num_hidden_layers):
             if fused_ln:
@@ -622,7 +623,8 @@ class LlamaModel:
                     pool.v_scale, i, block_tables, context_lens, scale,
                 )[:, None]
             else:
-                attn = gathered_attention(pool, i, block_tables, q, mask, scale)
+                attn = prefill_attention(pool, i, block_tables, q, positions,
+                                         context_lens, scale, mask)
             h = self._mlp_block(p, h, attn.reshape(b, t, hq * dh), i, eps,
                                 use_fused_mlp)
         if not with_logits:
@@ -653,8 +655,8 @@ class LlamaModel:
         """One mixed continuous-batching step: every decode lane advances one
         token AND a chunk of prefill tokens rides along, sharing one pass
         over the weights (flat token axis M = B + Cs). Lanes attend through
-        the paged decode-attention kernel, the rider by masked dense
-        attention over its lane's gathered pages. The rider's lane and
+        the paged decode-attention kernel, the rider by masked attention
+        over its lane's pages (``prefill_attention``). The rider's lane and
         context are device tensors, so a captured step reads them anew at
         every replay; its emptiness is a host value from the scheduler's
         plan (JAX's ``lax.cond`` on the device becomes a branch on the
@@ -697,9 +699,7 @@ class LlamaModel:
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
         slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
         if pf_any:
-            pf_mask = attention_mask(
-                pf_positions[None],
-                _paged_kv_positions(pf_table, pf_ctx))
+            pf_mask = _prefill_mask(pool, dh, dev, pf_positions[None], pf_table, pf_ctx)
 
         for i in range(cfg.num_hidden_layers):
             x = rms_norm(h, _row(p["ln1"], i), eps)
@@ -716,8 +716,9 @@ class LlamaModel:
                 pool.v_scale, i, block_tables, dec_ctx, scale,
             )
             if pf_any:
-                attn_pf = gathered_attention(pool, i, pf_table, q[:, b:],
-                                             pf_mask, scale)[0]
+                attn_pf = prefill_attention(pool, i, pf_table, q[:, b:],
+                                            pf_positions[None], pf_ctx, scale,
+                                            pf_mask)[0]
             else:
                 attn_pf = torch.zeros((cs, hq, dh), dtype=q.dtype, device=dev)
             attn = torch.cat([attn_dec, attn_pf])[None]  # [1, M, Hq, dh]
@@ -726,6 +727,31 @@ class LlamaModel:
             h = h2 + self._mlp(p, x, layer=i)
         h = rms_norm(h[:, :b], params["norm"], eps)  # lanes only
         return self.unembed(params, h)[0].to(torch.float32), pool
+
+
+def _prefill_mask(pool, head_dim: int, device, positions: torch.Tensor,
+                  tables: torch.Tensor, context_lens: torch.Tensor) -> Optional[torch.Tensor]:
+    """The route of a prefill chunk's attention, decided once a forward:
+    None where K5 runs it (``uses_k5``: a CUDA tensor over INT8 pages at
+    head dim 128), else the mask ``gathered_attention`` takes (rows at
+    ``positions`` [B, T] over the slots of ``tables`` [B, maxP] below
+    ``context_lens`` [B])."""
+    if uses_k5(pool, head_dim, device):
+        return None
+    return attention_mask(positions, _paged_kv_positions(tables, context_lens))
+
+
+def prefill_attention(pool, layer: int, tables: torch.Tensor, q: torch.Tensor,
+                      positions: torch.Tensor, context_lens: torch.Tensor,
+                      scale: float, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """A prefill chunk's attention, q [B, T, Hq, dh] at ``positions`` [B, T]
+    (-1 pad) over the pages ``tables`` [B, maxP] names, ``context_lens`` [B]
+    tokens in the pool: K5 where ``_prefill_mask`` gave no mask, else
+    ``gathered_attention`` under ``mask``."""
+    if mask is None:
+        return prefill_attention_cuda(q, pool, layer, tables, positions,
+                                      context_lens, scale)
+    return gathered_attention(pool, layer, tables, q, mask, scale)
 
 
 def gathered_attention(pool, layer: int, tables: torch.Tensor, q: torch.Tensor,

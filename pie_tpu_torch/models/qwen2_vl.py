@@ -47,10 +47,10 @@ from pie_tpu_torch.cache.paged import page_slots, scatter_tokens
 from pie_tpu_torch.models.config import BaseConfig, _filter_kwargs
 from pie_tpu_torch.models.llama import (
     _f32_dot,
-    _paged_kv_positions,
+    _prefill_mask,
     _silu,
-    gathered_attention,
     linear,
+    prefill_attention,
     rms_norm,
 )
 from pie_tpu_torch.models.registry import register_model
@@ -467,7 +467,7 @@ class Qwen2VLModel:
         pos_delta (an image-bearing sequence's rope stream lags its KV
         slots; None or zeros: text) while the pool writes at positions.
         Decode (T == 1) attends through the paged decode-attention kernel, a
-        prefill chunk gathers its pages to dense K/V. Returns (logits
+        prefill chunk through ``prefill_attention``. Returns (logits
         [B, T, V] f32, pool); with_logits=False returns (None, pool);
         ``last_idx`` unembeds that one row only (logits [B, 1, V]);
         ``lane_split`` as in ``LlamaModel``."""
@@ -486,8 +486,8 @@ class Qwen2VLModel:
                                    positions)
         rope = self._rope(rope_pos)
         if not decode:
-            mask = attention_mask(positions, _paged_kv_positions(block_tables,
-                                                                 context_lens))
+            mask = _prefill_mask(pool, self.config.resolved_head_dim, h.device, positions,
+                                 block_tables, context_lens)
         p = params["layers"]
         for i in range(self.config.num_hidden_layers):
             q, k, v = self._qkv(p, h, i, rope)
@@ -499,7 +499,8 @@ class Qwen2VLModel:
                     q[:, 0].contiguous(), pool.k, pool.v, pool.k_scale, pool.v_scale,
                     i, block_tables, context_lens, self._scale)[:, None]
             else:
-                attn = gathered_attention(pool, i, block_tables, q, mask, self._scale)
+                attn = prefill_attention(pool, i, block_tables, q, positions,
+                                         context_lens, self._scale, mask)
             h = self._block_out(p, h, attn, i)
         if not with_logits:
             return None, pool
@@ -534,7 +535,7 @@ class Qwen2VLModel:
         ``dec_positions - pos_delta``, and a rider slice (token ids, or the
         image prompt's embeddings) writes its K/V through the same pass over
         the weights at the M-RoPE streams ``pf_pos3``, attending by masked
-        dense attention over its lane's gathered pages. Returns (decode
+        attention over its lane's pages (``prefill_attention``). Returns (decode
         logits [B, V] f32, pool); under dp > 1 as
         ``LlamaModel.mixed_forward``."""
         par = mesh_ops(self.mesh)
@@ -566,8 +567,8 @@ class Qwen2VLModel:
         phys = torch.cat([dec_phys[:, 0], pf_phys[0]])
         slot = torch.cat([dec_slot[:, 0], pf_slot[0]])
         if pf_any:
-            pf_mask = attention_mask(pf_positions[None],
-                                     _paged_kv_positions(pf_table, pf_ctx))
+            pf_mask = _prefill_mask(pool, self.config.resolved_head_dim, h.device,
+                                    pf_positions[None], pf_table, pf_ctx)
         p = params["layers"]
         for i in range(self.config.num_hidden_layers):
             q, k, v = self._qkv(p, h, i, rope)  # [1, M, H, dh]
@@ -576,8 +577,9 @@ class Qwen2VLModel:
                 q[0, :b].contiguous(), pool.k, pool.v, pool.k_scale, pool.v_scale,
                 i, block_tables, dec_ctx, self._scale)
             if pf_any:
-                attn_pf = gathered_attention(pool, i, pf_table, q[:, b:], pf_mask,
-                                             self._scale)[0]
+                attn_pf = prefill_attention(pool, i, pf_table, q[:, b:],
+                                            pf_positions[None], pf_ctx, self._scale,
+                                            pf_mask)[0]
             else:
                 attn_pf = torch.zeros((cs,) + q.shape[2:], dtype=q.dtype,
                                       device=q.device)

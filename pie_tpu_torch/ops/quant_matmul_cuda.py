@@ -29,7 +29,8 @@ Replaces the TPU kernel family of ``pie_tpu/ops/quant_matmul_pallas.py``
 
 ``build`` compiles every source under ``csrc/`` (K1, K2, the paged
 attention kernel K3 of ``ops/paged_attention.py``, the fused decode-MLP
-kernel K4 of ``ops/fused_mlp.py`` and the read probe B7 of
+kernel K4 of ``ops/fused_mlp.py``, the paged prefill attention K5 of
+``ops/prefill_attention.py`` and the read probe B7 of
 ``tools/hbm_peak.py``) with nvcc for ``sm_90a`` at first use
 into ``build/pie_tpu_torch/<hash of the sources and headers>/``;
 ``kernel`` binds a library's C entry point through ctypes.
@@ -75,7 +76,7 @@ NVCC_FLAGS = (
 
 #: kernel launches since the last reset, by kernel name ("K1 ln": K1's
 #: rms-norm pre-pass, one per K1 call with the prologue)
-launch_counts = {"K1": 0, "K1 ln": 0, "K2": 0, "K3": 0, "K4": 0}
+launch_counts = {"K1": 0, "K1 ln": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 #: K1's block tile: 128 output features (8 warps of 16; a rope head must
 #: fit inside it), 128-row K stages in the TMA ring
@@ -178,6 +179,10 @@ ENTRY_POINTS = {
     "fused_mlp_encode": ("fused_mlp", "pie_fused_mlp_encode",
                          [_vp] * 3 + [_ci, _cll, _cll] + [_ci] * 5 + [_vp]),
     "fused_mlp_blocks_per_sm": ("fused_mlp", "pie_fused_mlp_blocks_per_sm", [_ci] * 4),
+    "prefill_attention": ("paged_prefill_attention", "pie_prefill_attention",
+                          [_vp] * 11 + [_cll] * 2 + [_ci] * 8 + [_cf, _vp]),
+    "prefill_attention_geometry": ("paged_prefill_attention",
+                                   "pie_prefill_attention_geometry", [_vp]),
     "hbm_read": ("hbm_read", "pie_hbm_read", [_vp] * 3 + [_cll] + [_ci] * 6 + [_vp]),
     "hbm_read_blocks_per_sm": ("hbm_read", "pie_hbm_read_blocks_per_sm", [_ci] * 4 + [_vp]),
 }
