@@ -10,8 +10,11 @@ plain reference computed with every activation in float8 e4m3, a step
 below the bf16 the configuration states, serves its own first choice at
 each position of the requests the check samples (read over the program's
 prompts and tokens, so a request is the control's own greedy decode up to
-its first departure from the program's). One JSON line per seed, also
-appended to ``chiprun_out/calibrate-<workload>.jsonl``.
+its first departure from the program's), and, for the sampled requests
+with inputs, its own features (the tower in float8) written over the
+placeholder rows of the prompt embeddings the program served, in their
+type. One JSON line per seed, also appended to
+``chiprun_out/calibrate-<workload>.jsonl``.
 """
 
 import argparse
@@ -27,14 +30,25 @@ sys.path.insert(0, str(ROOT))
 
 def control_run(run, spec: dict, seed: int, device):
     """``run`` with the check's sampled requests served by the control."""
+    import torch
+
     from portbench import check
 
     picked = check.sample(run, seed, spec["sample_tokens"])
-    _, _, low = check.reference_gaps(run.cfg, seed, picked, device, "fp8")
+    ref = run.kit.reference(run.cfg, seed, device, "fp8")
+    _, _, low = check.reference_gaps(ref, picked, device)
     served = {id(r): lg.argmax(dim=-1).tolist() for r, lg in zip(picked, low)}
     records = [dataclasses.replace(r, tokens=served[id(r)]) if id(r) in served else r
                for r in run.records]
-    return dataclasses.replace(run, records=records)
+    embeds = dict(run.embeds)
+    with_inputs = [r for r in picked if r.extras and r.index in embeds]
+    if with_inputs:
+        low_feats = ref.features([(torch.tensor(r.prompt), r.extras) for r in with_inputs])
+        for r, (rows, feats) in zip(with_inputs, low_feats):
+            e = embeds[r.index].clone()
+            e[rows.to(e.device)] = feats.to(e.device, e.dtype)
+            embeds[r.index] = e
+    return dataclasses.replace(run, records=records, embeds=embeds)
 
 
 def judged(compared: dict) -> dict:
@@ -61,10 +75,12 @@ def main() -> int:
     for seed in args.seeds:
         _, run, _ = harness.serve(ROOT, args.workload, seed, args.seconds, False)
         t0 = time.perf_counter()
+        picked = check.sample(run, seed, spec["sample_tokens"])
         line = dict(workload=args.workload, seed=seed,
                     program=judged(check.compare(run, run.cfg, spec, seed, dev)),
                     reference_s=time.perf_counter() - t0,
-                    sampled_requests=len(check.sample(run, seed, spec["sample_tokens"])),
+                    sampled_requests=len(picked),
+                    sampled_with_inputs=sum(1 for r in picked if r.extras),
                     run=harness.diagnostics(run))
         if args.control:
             ctrl = control_run(run, spec, seed, dev)

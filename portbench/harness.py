@@ -6,16 +6,19 @@ reference and read the metrics.
 Everything that belongs to a configuration, a traffic mix, a cell's check
 or a metric is a file of its own, found by the name ``BENCHMARK.json``
 gives it: ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``checks/<workload>.json`` and ``metrics/<metric>.py``.
+``checks/<workload>.json`` and ``metrics/<metric>.py``; what belongs to a
+model (its weights, reference, FLOPs and request inputs) is the kit that
+its configuration names (``kit.py``).
 
 The entry the window drives is ``pie_tpu_torch``'s
 ``BatchedInferenceEngine.generate_stream`` (the Python scheduler over the
 paged engine, INT8 KV pages, captured step graphs), called from client
 threads of this process with greedy sampling and no stop tokens, so that
-every request yields exactly the tokens it asks for. Weights are the
-Hugging Face state dict of ``weights.py`` (bf16, made on the device from
-the seed), read by the model's ``from_hf_state_dict`` and quantized on load
-by its ``quantize_params``, as the server's loader does.
+every request yields exactly the tokens it asks for, and with the inputs
+it carries (``extras``: an image's ``pixel_values`` and ``image_kwargs``).
+Weights are the kit's Hugging Face state dict (bf16, made on the device
+from the seed), read by the model's ``from_hf_state_dict`` and quantized on
+load by its ``quantize_params``, as the server's loader does.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
-import importlib.util
 import json
 import sys
 import threading
@@ -73,11 +75,9 @@ def cell_metrics(root: Path, workload: str, trace: bool) -> list:
 
 def load_reader(root: Path, name: str):
     """The reader module ``metrics/<name>.py``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    from portbench import kit
+
+    return kit.load(f"portbench/metrics/{name}.py", root)
 
 
 @dataclasses.dataclass
@@ -93,6 +93,7 @@ class Record:
     tokens: list = dataclasses.field(default_factory=list)
     finished: Optional[float] = None  # all its tokens arrived
     error: Optional[str] = None
+    extras: dict = dataclasses.field(default_factory=dict)  # its inputs
 
 
 @dataclasses.dataclass
@@ -109,6 +110,10 @@ class Run:
     lanes: int
     counters: dict
     trace: dict = dataclasses.field(default_factory=dict)
+    kit: object = None  # the configuration's kit module
+    #: record index -> the prompt embeddings [plen, D] the service made
+    #: from the request's inputs (``record_embeddings``)
+    embeds: dict = dataclasses.field(default_factory=dict)
 
     @property
     def sent(self) -> list:
@@ -120,19 +125,20 @@ class Run:
 # -- the served model --------------------------------------------------------
 
 
-def build_engine(cfg: dict, seed: int, device):
+def build_engine(cfg: dict, seed: int, device, root: Optional[Path] = None):
     """The batching service over the model the configuration describes,
-    weights from the seed, quantized on load."""
+    weights from the seed (its kit's, read under ``root``), quantized on
+    load."""
     import torch
 
     from pie_tpu_torch.engine.async_engine import BatchedInferenceEngine
     from pie_tpu_torch.models.loader import build_model
 
-    from portbench import weights
+    from portbench import kit
 
     a = cfg["assumed"]
     model = build_model({k: v for k, v in cfg.items() if k != "assumed"})
-    sd = weights.state_dict(cfg, seed, device)
+    sd = kit.of(cfg, root).state_dict(cfg, seed, device)
     params = model.from_hf_state_dict(sd, dtype=torch.bfloat16)
     del sd
     params = quantize_in_slices(model, params, a["weight_group_size"], a["weight_bits"])
@@ -144,6 +150,26 @@ def build_engine(cfg: dict, seed: int, device):
         kv_quantized=a["kv_bits"] == 8, decode_steps=a["decode_steps"],
         seed=seed & 0x7FFFFFFF, device=device,
     )
+
+
+def record_embeddings(engine) -> dict:
+    """Keep what the batching service's tower call makes: the prompt
+    embeddings [plen, D] it writes an image request's features into, which
+    the request's rider slices read, by the identity of the request's
+    ``pixel_values`` (the call is an instance attribute: the scheduler
+    thread calls through it)."""
+    made = {}
+    embed = engine._embed_images
+
+    def recorded(seq):
+        pixels = seq.image_inputs[0]
+        ok = embed(seq)
+        if ok:
+            made[id(pixels)] = seq.prompt_embeds
+        return ok
+
+    engine._embed_images = recorded
+    return made
 
 
 def quantize_in_slices(model, params: dict, group: int, bits: int,
@@ -199,10 +225,14 @@ def prefill_buckets(bodies, chunk: int) -> set:
     return out
 
 
-def warm_up(engine, cfg: dict, traffic: dict) -> None:
+def warm_up(engine, cfg: dict, traffic: dict, seed: int, device,
+            root: Optional[Path] = None) -> None:
     """Run one request through every prefill bucket the traffic's prompt
     lengths reach (each decodes two tokens: the step graph too), all at
-    once, then a full set of lanes at the traffic's shortest prompt."""
+    once, then a full set of lanes at the traffic's shortest prompt; with
+    them, where the traffic has inputs, the requests the kit warms them up
+    with (for images: the tower at the largest image and the step that
+    carries its embeddings)."""
     a = cfg["assumed"]
     chunk, lo_id = a["prefill_chunk"], a["ordinary_token_ids"][0]
     p = traffic["prompt_tokens"]
@@ -212,11 +242,15 @@ def warm_up(engine, cfg: dict, traffic: dict) -> None:
         body = b if b > DIRECT_PREFILL_MIN else chunk + b
         lens.append(body + 1)
     lens += [int(p["min"])] * a["lanes"]
-    threads = [threading.Thread(target=engine.generate,
-                                args=([lo_id + (i % 97)] * n,),
+    reqs = [([lo_id + (i % 97)] * n, {}) for i, n in enumerate(lens)]
+    if "inputs" in traffic:
+        from portbench import kit
+
+        reqs += kit.of(cfg, root).warm_requests(traffic["inputs"], cfg, seed, device)
+    threads = [threading.Thread(target=engine.generate, args=(prompt,),
                                 kwargs=dict(max_completion_tokens=2, stop_token_ids=(),
-                                            temperature=0.0))
-               for i, n in enumerate(lens)]
+                                            temperature=0.0, **extras))
+               for prompt, extras in reqs]
     for t in threads:
         t.start()
     for t in threads:
@@ -231,7 +265,7 @@ def _client(engine, rec: Record, close_at: float) -> None:
 
     rec.sent = time.perf_counter()
     gen = engine.generate_stream(rec.prompt, max_completion_tokens=rec.max_tokens,
-                                 stop_token_ids=(), temperature=0.0)
+                                 stop_token_ids=(), temperature=0.0, **rec.extras)
     try:
         for tok in gen:
             now = time.perf_counter()
@@ -260,7 +294,7 @@ def drive(engine, reqs: list, traffic: dict, seconds: float, lanes: int) -> tupl
             wait = due - time.perf_counter()
             if wait > 0:
                 time.sleep(wait)
-            rec = Record(r.index, r.prompt, r.max_tokens, due)
+            rec = Record(r.index, r.prompt, r.max_tokens, due, extras=r.extras)
             records.append(rec)
             futures.append(pool.submit(_client, engine, rec, close_at))
         _sleep_until(close_at)
@@ -275,7 +309,7 @@ def drive(engine, reqs: list, traffic: dict, seconds: float, lanes: int) -> tupl
                 now = time.perf_counter()
                 if now >= close_at:
                     return
-                rec = Record(r.index, r.prompt, r.max_tokens, now)
+                rec = Record(r.index, r.prompt, r.max_tokens, now, extras=r.extras)
                 records.append(rec)
                 _client(engine, rec, close_at)
 
@@ -321,22 +355,24 @@ def serve(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     to ``run.counters``."""
     import torch
 
-    from portbench import tracing, traffic as traffic_mod
+    from portbench import kit, tracing, traffic as traffic_mod
 
     t_start = time.perf_counter() if t_start is None else t_start
     cell, cfg, traffic, _ = cell_files(root, workload)
-    reqs = traffic_mod.requests(traffic, cfg, seed, seconds)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    engine = build_engine(cfg, seed, dev)
+    reqs = traffic_mod.requests(traffic, cfg, seed, seconds, dev, root)
+    engine = build_engine(cfg, seed, dev, root)
     sched, core = engine.scheduler, engine.core
+    made = record_embeddings(engine)
     tracer = None
     if trace:
         tracer = tracing.Slice(float("inf"), SLICE_S)
-        tracer.install(sched, core)
+        tracer.install(sched, core, engine)
         if cuda:
             tracer.warm()
-    warm_up(engine, cfg, traffic)
+    warm_up(engine, cfg, traffic, seed, dev, root)
+    made.clear()
     setup_peak = 0
     if cuda:
         torch.cuda.synchronize()
@@ -361,7 +397,11 @@ def serve(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     engine.shutdown()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     run = Run(cfg, traffic, seconds, setup_s, t_open, t_close, records,
-              cfg["assumed"]["lanes"], counters)
+              cfg["assumed"]["lanes"], counters, kit=kit.of(cfg, root),
+              embeds={r.index: made[id(px)] for r in records
+                      if (px := r.extras.get("pixel_values")) is not None
+                      and id(px) in made})
+    del made
     if tracer is not None and cuda:
         run.trace = tracer.reduce()
     del engine, sched, core, tracer
@@ -396,8 +436,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     }
     if trace and run.trace:
         result["breakdown"] = breakdown(run.trace)
-    result["diagnostics"] = dict(diagnostics(run), requests_judged=len(
-        check.sample(run, seed, cell_files(root, workload)[3]["sample_tokens"])))
+    judged = check.sample(run, seed, cell_files(root, workload)[3]["sample_tokens"])
+    result["diagnostics"] = dict(diagnostics(run), requests_judged=len(judged),
+                                 judged_with_inputs=sum(1 for r in judged if r.extras))
     result["compared"] = {k: {kk: v for kk, v in c.items() if kk != "ok"}
                           for k, c in compared.items()}
     result["_forbidden"] = sorted({name.split(".")[0] for name in sys.modules}
@@ -442,4 +483,5 @@ def diagnostics(run: Run) -> dict:
         "prefix_pages_at_close": run.counters["prefix_pages_at_close"],
         "queued_at_close": sum(1 for r in run.sent if not r.times
                                or r.times[0] > run.t_close),
+        "sent_with_inputs": sum(1 for r in run.sent if r.extras),
     }

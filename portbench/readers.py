@@ -67,6 +67,30 @@ def output_tok_s(run):
     return tokens_in_window(run) / run.seconds
 
 
+def image_ttft_ms(run, q: float):
+    """The q-th percentile of ``ttft_values`` over the requests that carry
+    inputs (an image), ms; None where none was sent."""
+    waits = [w for r, w in zip(run.sent, ttft_values(run)) if r.extras]
+    return 1e3 * pct(waits, q) if waits else None
+
+
+def token_gaps(run) -> list:
+    """Every gap between two consecutive tokens of one request, both inside
+    the window, over all requests."""
+    gaps = []
+    for r in run.records:
+        t = [x for x in r.times if run.t_open <= x <= run.t_close]
+        gaps.extend(b - a for a, b in zip(t, t[1:]))
+    return gaps
+
+
+def token_gap_ms(run, q: float):
+    """The q-th percentile of ``token_gaps``, ms: the stall a tower call or
+    a rider chunk puts into every decoding lane shows in its tail."""
+    gaps = token_gaps(run)
+    return 1e3 * pct(gaps, q) if gaps else None
+
+
 def setup_s(run):
     """Process start to the window's opening: weights made and quantized,
     the kernels loaded (built on a checkout's first run), warm-up."""
@@ -130,19 +154,22 @@ def k3_roofline(run):
 
 
 def mfu_pct(run):
-    """Model FLOPs of the slice's decoded tokens and prefill chunks over its
+    """Model FLOPs (the configuration's kit counts them) of the slice's
+    decoded tokens, rider slices, prefill chunks and tower calls over its
     device-busy seconds at the bf16 peak, in %."""
     tr = run.trace
     if not tr or tr.get("busy_s", 0) <= 0:
         return None
-    cfg = run.cfg
+    cfg, kit = run.cfg, run.kit
     flops = 0.0
     for c in tr["chunks"]:
         for ctxs in c["ctxs"] or []:
-            flops += sum(counts.decode_token_flops(cfg, x) for x in ctxs)
-        flops += sum(2 * counts.layer_params(cfg) * r for r in c["rider_tokens"])
+            flops += sum(kit.decode_token_flops(cfg, x) for x in ctxs)
+        flops += sum(kit.rider_flops(cfg, r) for r in c["rider_tokens"])
     for p in tr["prefills"]:
-        flops += counts.prefill_flops(cfg, p["positions"])
+        flops += kit.prefill_flops(cfg, p["positions"])
+    for t in tr.get("towers", []):
+        flops += kit.call_flops(cfg, t)
     return 100.0 * flops / (tr["busy_s"] * counts.BF16_FLOP_PER_S)
 
 

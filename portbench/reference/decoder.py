@@ -6,7 +6,11 @@ and the text decoder of Qwen2-VL / Qwen2.5-VL, which adds q / k / v biases
 and turns its rotary frequencies with M-RoPE: frequency j takes the
 position stream (t, h, w) that ``mrope_section`` assigns it. Text tokens
 put the same position on all three streams, and this reference builds the
-three streams and applies them as M-RoPE does.
+three streams and applies them as M-RoPE does. A sequence with images
+takes the vision features over its image placeholders and the streams of
+``mrope_index`` (Qwen2-VL's ``get_rope_index``): an image's merged grid
+spreads over (t, h, w) from the position after the text before it, and the
+text after it goes on from the image's largest position + 1.
 
 It works the served precision out again from the bf16 weights it is given,
 independently of the program: each linear weight is quantized group-wise
@@ -22,6 +26,9 @@ Imports torch alone: nothing of the program and nothing of JAX.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import torch
 
@@ -64,6 +71,49 @@ def fp8_rows(x: torch.Tensor) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """float32 products in float32: TF32 off inside, restored after."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def mrope_index(ids: list, image_token_id: int, vision_start_token_id: int,
+                grids: list, merge: int) -> torch.Tensor:
+    """The (t, h, w) position streams [3, T] of a token sequence with
+    images, as Qwen2-VL's ``get_rope_index`` lays them out: each image
+    follows a ``vision_start`` token and fills its ``t * (h / merge) *
+    (w / merge)`` placeholders; text runs on one position for all three
+    streams; an image's merged grid (frame, row, column) is offset by the
+    position after the text before it, and the text after it starts at the
+    image's largest position + 1. ``grids``: each image's (t, h, w) in
+    patches, in order."""
+    out, at, nxt = [], 0, 0  # streams so far, index in ids, next text position
+    for t, h, w in grids:
+        start = ids.index(vision_start_token_id, at) + 1
+        if ids[start] != image_token_id:
+            raise ValueError(f"no image placeholder after vision_start at {start - 1}")
+        text = torch.arange(start - at) + nxt
+        out.append(torch.stack([text, text, text]))
+        nxt += start - at
+        gh, gw = h // merge, w // merge
+        tt = torch.arange(t).repeat_interleave(gh * gw)
+        hh = torch.arange(gh).repeat_interleave(gw).repeat(t)
+        ww = torch.arange(gw).repeat(t * gh)
+        grid = torch.stack([tt, hh, ww]) + nxt
+        out.append(grid)
+        nxt = int(grid.max()) + 1
+        at = start + t * gh * gw
+    text = torch.arange(len(ids) - at) + nxt
+    out.append(torch.stack([text, text, text]))
+    return torch.cat(out, dim=1)
+
+
 class Decoder:
     """The reference over a configuration dict (the HF ``config.json`` keys)
     and a weight source: ``layer(i)`` and ``top()`` return the bf16 HF
@@ -97,15 +147,15 @@ class Decoder:
         inv = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + self.eps)
         return x * inv * w.to(torch.float32)
 
-    def _rope(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        """Rotate-half rotary embedding of x [T, H, D] at positions [T]; with
-        M-RoPE sections, frequency j turns with stream section(j) of the
-        three position streams (all equal for text)."""
+    def _rope(self, x: torch.Tensor, pos3: torch.Tensor) -> torch.Tensor:
+        """Rotate-half rotary embedding of x [T, H, D] at the position
+        streams pos3 [3, T]; with M-RoPE sections, frequency j turns with
+        stream section(j) (without them, with the first)."""
         half = self.dh // 2
         inv = 1.0 / (self.theta ** (torch.arange(0, self.dh, 2, dtype=torch.float64,
                                                  device=x.device) / self.dh))
         inv = inv.to(torch.float32)
-        streams = torch.stack([pos, pos, pos]).to(torch.float32)  # [3, T]
+        streams = pos3.to(torch.float32)  # [3, T]
         if self.sections:
             which = torch.repeat_interleave(
                 torch.arange(3, device=x.device),
@@ -133,23 +183,27 @@ class Decoder:
     # -- forward ------------------------------------------------------------
 
     @torch.no_grad()
-    def logits(self, seqs: list, rows: list) -> list:
+    def logits(self, seqs: list, rows: list, images: Optional[list] = None) -> list:
         """For each token sequence ``seqs[r]`` (a 1-D int64 tensor), the f32
         logits [len(rows[r]), V] at its positions ``rows[r]`` (each row's
         logits predict the token after it), computed layer by layer over all
-        sequences so that each layer's weights are made once."""
-        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            return self._logits(seqs, rows)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        sequences so that each layer's weights are made once. ``images[r]``,
+        where given and not None: (the vision features [n, D] written over
+        the sequence's ``image_token_id`` placeholders in order, its
+        position streams [3, T])."""
+        with no_tf32():
+            return self._logits(seqs, rows, images or [None] * len(seqs))
 
-    def _logits(self, seqs, rows):
+    def _logits(self, seqs, rows, images):
         top = self.top()
         emb = top["model.embed_tokens.weight"]
-        hs = [self._x(emb[s].to(torch.float32)) for s in seqs]
+        hs, pos3s = [], []
+        for s, img in zip(seqs, images):
+            h = emb[s].to(torch.float32)
+            if img is not None:
+                h[s == self.cfg["image_token_id"]] = img[0].to(torch.float32)
+            hs.append(self._x(h))
+            pos3s.append(None if img is None else img[1].to(s.device))
         del emb
         for i in range(self.cfg["num_hidden_layers"]):
             w = self.layer(i)
@@ -163,14 +217,17 @@ class Decoder:
             del w
             for r, h in enumerate(hs):
                 t = h.shape[0]
-                pos = torch.arange(t, device=h.device)
+                pos3 = pos3s[r]
+                if pos3 is None:
+                    pos = torch.arange(t, device=h.device)
+                    pos3 = torch.stack([pos, pos, pos])
                 x = self._x(self._norm(h, ln1))
                 q, k, v = (x @ wq, x @ wk, x @ wv)
                 if bias:
                     q, k, v = q + bias["q"], k + bias["k"], v + bias["v"]
                 q, k, v = self._x(q), self._x(k), self._x(v)
-                q = self._rope(q.reshape(t, self.hq, self.dh), pos)
-                k = kv_int8(self._rope(k.reshape(t, self.hkv, self.dh), pos))
+                q = self._rope(q.reshape(t, self.hq, self.dh), pos3)
+                k = kv_int8(self._rope(k.reshape(t, self.hkv, self.dh), pos3))
                 v = kv_int8(v.reshape(t, self.hkv, self.dh))
                 h = self._x(h + self._x(self._x(self._attend(q, k, v)) @ wo))
                 x = self._x(self._norm(h, ln2))

@@ -10,12 +10,15 @@ one rate are consecutive stretches of one Poisson schedule at that rate, so
 no two see the same arrivals. A window keeps up when the mean number of
 requests in the system over its last quarter exceeds that over its second
 (the first quarter, filling from empty, is left out) by no more than
-``NOISE`` standard deviations of a Poisson count of the second quarter's
-size: bursts alone move a quarter's backlog by that much at any rate. The
+``NOISE`` standard deviations of the difference of two Poisson counts of
+those sizes: bursts alone move each quarter's backlog by that much at any
+rate, and a long request holds either quarter's up for seconds. The
 knee is the highest rate that kept up in every window, as every lower rate
 swept did. Per window it prints one JSON line (requests sent and finished, the
-two backlogs, TTFT p50 / p95, output tokens/s), and last a line with the
-knee; each line is also appended to ``chiprun_out/sweep-<workload>.jsonl``.
+two backlogs, TTFT p50 / p95, output tokens/s; where requests carry inputs,
+the TTFT p50 of those that do), and last a line with the knee; each line is
+also appended to ``chiprun_out/sweep-<workload>.jsonl``. Request inputs
+(a traffic's ``inputs``) are made and warmed up as a run makes them.
 """
 
 import argparse
@@ -45,8 +48,9 @@ def mean_backlog(records, a: float, b: float) -> float:
 
 
 def keeps_up(second: float, last: float) -> bool:
-    """The backlog did not grow beyond the noise of arrivals."""
-    return last - second <= NOISE * (second + 1.0) ** 0.5
+    """The backlog did not grow beyond the noise of arrivals in both
+    quarters."""
+    return last - second <= NOISE * (second + last + 2.0) ** 0.5
 
 
 def knee(lines: list):
@@ -75,14 +79,15 @@ def main() -> int:
     from portbench import harness, traffic as traffic_mod
 
     cell, cfg, traffic, _ = harness.cell_files(ROOT, args.workload)
-    engine = harness.build_engine(cfg, args.seed, torch.device("cuda"))
-    harness.warm_up(engine, cfg, traffic)
+    dev = torch.device("cuda")
+    engine = harness.build_engine(cfg, args.seed, dev)
+    harness.warm_up(engine, cfg, traffic, args.seed, dev)
     out = ROOT / "chiprun_out" / f"sweep-{args.workload}.jsonl"
     out.parent.mkdir(exist_ok=True)
     s, lines = args.seconds, []
     for i, rate in enumerate(args.rates):
         tr = dict(traffic, rate_per_s=rate)
-        stream = traffic_mod.requests(tr, cfg, args.seed + i + 1, s * args.windows)
+        stream = traffic_mod.requests(tr, cfg, args.seed + i + 1, s * args.windows, dev)
         for w in range(args.windows):
             reqs = [dataclasses.replace(r, due_s=r.due_s - w * s) for r in stream
                     if w * s <= r.due_s < (w + 1) * s]
@@ -99,6 +104,9 @@ def main() -> int:
                 keeps_up=keeps_up(second, last),
                 ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
                 ttft_p95_ms=1e3 * float(np.percentile(ttft, 95)),
+                **({"inputs_ttft_p50_ms": 1e3 * float(np.percentile(
+                    [x for x, r in zip(ttft, recs) if r.extras], 50))}
+                   if any(r.extras for r in recs) else {}),
                 output_tok_s=sum(1 for r in recs for t in r.times if t <= t_close) / s,
                 card=torch.cuda.get_device_name(0),
             )

@@ -44,10 +44,15 @@ def test_a_run_is_correct(card, cell):
 def test_the_control_fails_where_the_program_holds(card, cell):
     """The control served in the program's place and judged by the harness's
     own ``check.compare``: the program's runs are correct, the control's not,
-    at the cell's load on three seeds."""
+    at the cell's load on three seeds; where the check compares the served
+    embeddings, the control's float8 features fail that number too."""
     out = subprocess.run([sys.executable, "portbench/calibrate.py", "--workload", cell,
                           "--seconds", "20", "--control", "--seeds", "31", "32", "33"],
                          cwd=ROOT, capture_output=True, text=True, check=True).stdout
     lines = _lines(out)
     assert len(lines) == 3
     assert all(x["program"]["correct"] and not x["control"]["correct"] for x in lines), lines
+    spec = json.loads((ROOT / "portbench" / "checks" / f"{cell}.json").read_text())
+    if "features_gap_limit" in spec:
+        assert all(x["control"]["features_gap"] > spec["features_gap_limit"]
+                   for x in lines), lines

@@ -12,10 +12,12 @@ import torch
 from portbench import harness
 
 CELL = "tiny-qwen.chat"
+#: the cells each fault runs in: text chat, and chat with images
+CELLS = [CELL, "tiny-qwen.image"]
 
 
-def _judge_every_finished_request(root):
-    path = root / "portbench" / "checks" / f"{CELL}.json"
+def _judge_every_finished_request(root, cell=CELL):
+    path = root / "portbench" / "checks" / f"{cell}.json"
     spec = json.loads(path.read_text())
     path.write_text(json.dumps(dict(spec, sample_tokens=10**6)))
 
@@ -62,26 +64,28 @@ def test_the_sound_program_is_correct(tiny_root):
     assert res["correct"], res["compared"]
 
 
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("judge_all", [True, False],
                          ids=["every-finished-request", "the-cells-own-sample"])
 @pytest.mark.parametrize("fault", [_token_altered, _state_unchanged,
                                    _half_the_batch_left_out])
-def test_a_broken_program_is_not_correct(tiny_root, monkeypatch, fault, judge_all):
+def test_a_broken_program_is_not_correct(tiny_root, monkeypatch, fault, judge_all, cell):
     if judge_all:
-        _judge_every_finished_request(tiny_root)
+        _judge_every_finished_request(tiny_root, cell)
     fault(monkeypatch)
-    res = harness.run_cell(tiny_root, CELL, 4242, 10.0, False, device="cpu")
+    res = harness.run_cell(tiny_root, cell, 4242, 10.0, False, device="cpu")
     assert not res["correct"], res["compared"]
     assert res["compared"]["widest_gap"]["value"] > res["compared"]["widest_gap"]["limit"]
 
 
-def test_the_control_in_the_programs_place_is_not_correct(tiny_root):
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_control_in_the_programs_place_is_not_correct(tiny_root, cell):
     """The float8 control serves the sampled requests and the harness's own
     ``check.compare`` judges it, at the cell's own sample."""
     from portbench import calibrate, check
 
-    spec = json.loads((tiny_root / "portbench" / "checks" / f"{CELL}.json").read_text())
-    _, run, _ = harness.serve(tiny_root, CELL, 4242, 10.0, False, device="cpu")
+    spec = json.loads((tiny_root / "portbench" / "checks" / f"{cell}.json").read_text())
+    _, run, _ = harness.serve(tiny_root, cell, 4242, 10.0, False, device="cpu")
     cpu = torch.device("cpu")
     assert calibrate.judged(check.compare(run, run.cfg, spec, 4242, cpu))["correct"]
     control = calibrate.control_run(run, spec, 4242, cpu)

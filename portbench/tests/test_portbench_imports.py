@@ -47,6 +47,28 @@ def test_the_reference_loads_nothing_of_the_port():
     assert not top & (FORBIDDEN | {"pie_tpu_torch"})
 
 
+def test_the_tower_reference_loads_nothing_of_the_port():
+    code = ("import torch\nfrom portbench.reference.vision import Tower\n"
+            "v = {'depth': 2, 'hidden_size': 32, 'intermediate_size': 48, 'num_heads': 2,"
+            " 'spatial_merge_size': 2, 'window_size': 112, 'patch_size': 14,"
+            " 'fullatt_block_indexes': [1]}\n"
+            "w = lambda *s: torch.randn(s, dtype=torch.bfloat16)\n"
+            "blk = lambda i: {'norm1.weight': w(32), 'norm2.weight': w(32),"
+            " 'attn.qkv.weight': w(96, 32), 'attn.qkv.bias': w(96),"
+            " 'attn.proj.weight': w(32, 32), 'attn.proj.bias': w(32),"
+            " 'mlp.gate_proj.weight': w(48, 32), 'mlp.gate_proj.bias': w(48),"
+            " 'mlp.up_proj.weight': w(48, 32), 'mlp.up_proj.bias': w(48),"
+            " 'mlp.down_proj.weight': w(32, 48), 'mlp.down_proj.bias': w(32)}\n"
+            "top = lambda: {'patch_embed.proj.weight': w(32, 3, 2, 14, 14),"
+            " 'merger.ln_q.weight': w(32), 'merger.mlp.0.weight': w(128, 128),"
+            " 'merger.mlp.0.bias': w(128), 'merger.mlp.2.weight': w(16, 128),"
+            " 'merger.mlp.2.bias': w(16)}\n"
+            "f = Tower(v, blk, top).features([(torch.randn(80, 1176), (1, 8, 10))])\n"
+            "assert f[0].shape == (20, 16)")
+    top = _loaded(code)
+    assert not top & (FORBIDDEN | {"pie_tpu_torch"})
+
+
 def _imports(path: Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):

@@ -11,7 +11,10 @@ chunk the benchmark records its steps and rider slices, and when the
 scheduler hands the chunk's tokens out it records, per step, the context
 length of every lane that produced a token (prompt + tokens before it: the
 step that yields output token j of a request reads plen + j pool tokens).
-For each direct prefill it records the real tokens and their positions.
+For each direct prefill it records the real tokens and their positions,
+and for each call of the batching service's vision tower
+(``BatchedInferenceEngine._embed_images``, on the scheduler thread between
+steps) its images' grids.
 """
 
 from __future__ import annotations
@@ -51,12 +54,15 @@ class Slice:
         self.chunks: list = []  # every dispatched chunk, in order
         self._pending: collections.deque = collections.deque()
         self.prefills: list = []
+        self.towers: list = []
 
     # -- installation -------------------------------------------------------
 
-    def install(self, sched, core) -> None:
-        """Wrap the scheduler's and the paged engine's methods (instance
-        attributes: the program's own calls go through them)."""
+    def install(self, sched, core, engine=None) -> None:
+        """Wrap the scheduler's and the paged engine's methods, and the
+        batching service's tower call where ``engine`` is given (instance
+        attributes: the program's own calls go through them). A run gives
+        the engine; the port's tracing test wraps the scheduler alone."""
         for name, label in SPANS.items():
             self._wrap(sched, name, label)
         step = sched.step
@@ -97,6 +103,18 @@ class Slice:
                 return prefill(params, ids, positions, *a, **k)
 
         core._prefill = traced_prefill
+        if engine is None:
+            return
+        embed = engine._embed_images
+
+        def traced_embed(seq):
+            kw = seq.image_inputs[1]
+            self.towers.append(dict(grid_thw=np.asarray(kw["grid_thw"]).tolist(),
+                                    in_slice=self.active))
+            with self._span("vision tower"):
+                return embed(seq)
+
+        engine._embed_images = traced_embed
 
     def _wrap(self, obj, name: str, label: str) -> None:
         fn = getattr(obj, name)
@@ -167,7 +185,8 @@ class Slice:
     def reduce(self) -> dict:
         """What the per-layer readers read: the slice's device time by
         kernel, busy and window seconds, the idle gaps by the host span they
-        fall in, and the work records of the chunks and prefills in it."""
+        fall in, and the work records of the chunks, prefills and tower
+        calls in it."""
         if self.prof is None or not self.done:
             return {}
         dev, cpu, marks = [], [], {}
@@ -202,6 +221,7 @@ class Slice:
             kernels=dict(kernels),
             chunks=[c for c in self.chunks if c["in_slice"]],
             prefills=[p for p in self.prefills if p["in_slice"]],
+            towers=[t for t in self.towers if t["in_slice"]],
             idle=dict(idle),
         )
 

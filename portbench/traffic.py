@@ -7,7 +7,11 @@ A traffic file (``traffic/<name>.json``) holds:
   each sending its next request when its last one ends;
 - ``prompt_tokens`` and ``output_tokens``: ``{"dist": "lognormal",
   "median", "sigma", "min", "max"}`` or ``{"dist": "uniform", "min",
-  "max"}``.
+  "max"}``;
+- optionally ``inputs``: what requests carry beside their token ids, drawn
+  from it by the configuration's kit (``kit.py``, ``draw_inputs``); it
+  gives requests their ``extras`` (keyword arguments of
+  ``generate_stream``) and may put placeholder tokens into their prompts.
 
 Every seed gets the same schedule, one draw from ``SCHEDULE_SEED``: each
 request's prompt and output size independent draws from their
@@ -22,18 +26,26 @@ work: with the order of sizes and gaps drawn from the seed too, two seeds'
 within 0.4 %. Token ids are uniform over the configuration's ordinary ids
 (``assumed.ordinary_token_ids``, [lo, hi)), so no special, image or video
 id is drawn. Every request asks for exactly its
-output size: the run sends no stop tokens.
+output size: the run sends no stop tokens. The schedule's streams are the
+children of one ``SeedSequence``: 0-2 the prompt sizes, output sizes and
+gaps, and 3 onwards the kit's inputs, so a traffic without inputs
+draws what it drew before any traffic had them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
 
 #: requests made for each closed-loop client (more than a window can use)
 CLOSED_PER_CLIENT = 64
 #: the one draw of every schedule
 SCHEDULE_SEED = 20
+#: the schedule's streams: 0-2 sizes and gaps, the rest the kit's inputs
+STREAMS = 16
 
 
 @dataclasses.dataclass
@@ -43,6 +55,7 @@ class Request:
     max_tokens: int
     due_s: float = 0.0  # open loop: send time after the window opens
     client: int = -1  # closed loop: the client that sends it, in order
+    extras: dict = dataclasses.field(default_factory=dict)  # generate_stream's inputs
 
 
 def sizes(spec: dict, n: int, rng) -> np.ndarray:
@@ -67,12 +80,15 @@ def count(traffic: dict, seconds: float) -> int:
     return int(traffic["clients"]) * CLOSED_PER_CLIENT
 
 
-def requests(traffic: dict, cfg: dict, seed: int, seconds: float) -> list:
+def requests(traffic: dict, cfg: dict, seed: int, seconds: float, device="cpu",
+             root: Optional[Path] = None) -> list:
     """The run's requests, in sending order (open: by due time; closed:
-    client c sends ``[r for r in out if r.client == c]`` in order)."""
+    client c sends ``[r for r in out if r.client == c]`` in order); request
+    inputs, where the traffic has them, are made on ``device`` by the
+    configuration's kit (read under ``root``, this checkout by default)."""
     n = count(traffic, seconds)
-    prompt_rng, output_rng, gap_rng = (
-        np.random.default_rng(s) for s in np.random.SeedSequence(SCHEDULE_SEED).spawn(3))
+    streams = np.random.SeedSequence(SCHEDULE_SEED).spawn(STREAMS)
+    prompt_rng, output_rng, gap_rng = (np.random.default_rng(s) for s in streams[:3])
     plen = sizes(traffic["prompt_tokens"], n, prompt_rng)
     olen = sizes(traffic["output_tokens"], n, output_rng)
     lo, hi = cfg["assumed"]["ordinary_token_ids"]
@@ -91,4 +107,9 @@ def requests(traffic: dict, cfg: dict, seed: int, seconds: float) -> list:
             r.client = r.index % int(traffic["clients"])
     else:
         raise ValueError(f"unknown loop {traffic['loop']!r}")
+    if "inputs" in traffic:
+        from portbench import kit
+
+        kit.of(cfg, root).draw_inputs(traffic["inputs"], cfg, out, streams[3:], seed,
+                                      device)
     return out
